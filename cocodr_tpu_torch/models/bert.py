@@ -1,0 +1,263 @@
+"""BERT encoder in PyTorch: the counterpart of cocodr_tpu/models/bert.py.
+
+Post-LayerNorm transformer with exact-erf GELU. Parameters are float32
+(nn.Linear layout, HuggingFace BertModel names, so the state dict reads
+like an HF checkpoint); compute runs in `BertConfig.dtype` (bf16 on the
+card) with float32 LayerNorm statistics and float32 attention scores and
+softmax statistics, as in the JAX package. The half-layer after attention
+(LN1 -> FFN -> +residual -> LN2) is one call of `ops.ffn.ffn_block`, the
+K1 kernel on the card.
+
+This slice carries the inference path of BERT positions: no dropout (a
+module in training mode with nonzero dropout raises), no RoBERTa position
+ids, no pooler, no hidden-state collection.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from cocodr_tpu_torch.ops.ffn import ffn_block, layer_norm_f32
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    hidden_act: str = "gelu"
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    initializer_range: float = 0.02
+    layer_norm_eps: float = 1e-12
+    dtype: torch.dtype = torch.float32  # compute dtype
+
+    @classmethod
+    def base(cls, **kw) -> "BertConfig":
+        return cls(**kw)
+
+    @classmethod
+    def tiny(cls, **kw) -> "BertConfig":
+        """For tests (the JAX package's tiny widths)."""
+        base = dict(vocab_size=128, hidden_size=32, num_hidden_layers=2,
+                    num_attention_heads=4, intermediate_size=64,
+                    max_position_embeddings=64)
+        return cls(**{**base, **kw})
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+
+def make_attention_bias(attention_mask, dtype=torch.float32):
+    """[B, S] 0/1 mask -> additive [B, 1, 1, S] bias (0 keep, -1e9 drop)."""
+    mask = attention_mask[:, None, None, :].to(dtype)
+    return (1.0 - mask) * -1e9
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with float32 parameters and statistics; output in dtype."""
+
+    def __init__(self, dim: int, eps: float, dtype: torch.dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.eps = eps
+        self.dtype = dtype
+
+    def forward(self, x):
+        return layer_norm_f32(x.float(), self.weight, self.bias,
+                              self.eps).to(self.dtype)
+
+
+def linear(x, layer: nn.Linear, dtype):
+    """nn.Linear in the compute dtype (flax Dense with dtype=...)."""
+    return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def _check_inference(module: nn.Module, cfg: BertConfig) -> None:
+    if module.training and (cfg.hidden_dropout_prob
+                            or cfg.attention_probs_dropout_prob):
+        raise NotImplementedError(
+            "the port has no dropout path yet (training comes in a later "
+            "slice); call .eval()"
+        )
+
+
+class BertEmbeddings(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.cfg = cfg
+        H = cfg.hidden_size
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, H)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, H)
+        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, H)
+        self.LayerNorm = LayerNorm(H, cfg.layer_norm_eps, cfg.dtype)
+
+    def forward(self, input_ids, token_type_ids, position_ids):
+        dt = self.cfg.dtype
+        h = (self.word_embeddings(input_ids).to(dt)
+             + self.position_embeddings(position_ids).to(dt)
+             + self.token_type_embeddings(token_type_ids).to(dt))
+        return self.LayerNorm(h)
+
+
+class BertSelfAttention(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.cfg = cfg
+        H = cfg.hidden_size
+        self.query = nn.Linear(H, H)
+        self.key = nn.Linear(H, H)
+        self.value = nn.Linear(H, H)
+
+    def forward(self, h, attn_bias):
+        """Einsum attention with float32 scores and max; the softmax
+        division is applied to the context, (exp(s - max)·V) / Σexp, as in
+        cocodr_tpu/models/bert.py."""
+        cfg = self.cfg
+        B, S, H = h.shape
+        N, D = cfg.num_attention_heads, cfg.head_dim
+        dt = cfg.dtype
+        q = linear(h, self.query, dt).view(B, S, N, D)
+        k = linear(h, self.key, dt).view(B, S, N, D)
+        v = linear(h, self.value, dt).view(B, S, N, D)
+        scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
+        scores = scores * (1.0 / math.sqrt(D)) + attn_bias
+        m = scores.amax(-1, keepdim=True)
+        unnorm = torch.exp(scores - m).to(dt)
+        denom = unnorm.float().sum(-1)  # [B, N, S]
+        ctx = torch.einsum("bnqk,bknd->bqnd", unnorm, v)
+        ctx = (ctx.float() / denom.transpose(1, 2)[..., None]).to(dt)
+        return ctx.reshape(B, S, H)
+
+
+class BertSelfOutput(nn.Module):
+    """Attention output projection; its LayerNorm is LN1 of the half-layer."""
+
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
+                                   cfg.dtype)
+
+
+class BertAttention(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.self = BertSelfAttention(cfg)
+        self.output = BertSelfOutput(cfg)
+
+
+class BertIntermediate(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+
+
+class BertOutput(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
+                                   cfg.dtype)
+
+
+class BertLayer(nn.Module):
+    """One post-LN block: attention, then the fused half-layer."""
+
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.attention = BertAttention(cfg)
+        self.intermediate = BertIntermediate(cfg)
+        self.output = BertOutput(cfg)
+
+    def forward(self, h, attn_bias):
+        cfg = self.cfg
+        dt = cfg.dtype
+        ctx = self.attention.self(h, attn_bias)
+        r = h + linear(ctx, self.attention.output.dense, dt)
+        B, S, H = r.shape
+        ln1, ln2 = self.attention.output.LayerNorm, self.output.LayerNorm
+        up, down = self.intermediate.dense, self.output.dense
+        out = ffn_block(
+            r.reshape(B * S, H), ln1.weight, ln1.bias,
+            up.weight.to(dt), up.bias.to(dt),
+            down.weight.to(dt), down.bias.to(dt),
+            ln2.weight, ln2.bias, cfg.hidden_act, cfg.layer_norm_eps,
+        )
+        return out.view(B, S, H)
+
+
+class BertEncoder(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.layer = nn.ModuleList(
+            BertLayer(cfg) for _ in range(cfg.num_hidden_layers)
+        )
+
+    def forward(self, h, attn_bias):
+        for layer in self.layer:
+            h = layer(h, attn_bias)
+        return h
+
+
+class BertModel(nn.Module):
+    """Backbone: token ids -> last hidden state [B, S, H] in cfg.dtype."""
+
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.embeddings = BertEmbeddings(cfg)
+        self.encoder = BertEncoder(cfg)
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None):
+        _check_inference(self, self.cfg)
+        B, S = input_ids.shape
+        if S > self.cfg.max_position_embeddings:
+            raise ValueError(
+                f"sequence length {S} exceeds max_position_embeddings "
+                f"{self.cfg.max_position_embeddings}"
+            )
+        dev = input_ids.device
+        if attention_mask is None:
+            attention_mask = torch.ones((B, S), dtype=torch.int32, device=dev)
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        position_ids = torch.arange(S, device=dev)[None, :]
+        h = self.embeddings(input_ids, token_type_ids, position_ids)
+        return self.encoder(h, make_attention_bias(attention_mask))
+
+
+def cast_matmul_weights(module: nn.Module, dtype: torch.dtype) -> None:
+    """Hold every Linear and Embedding parameter in the compute dtype, in
+    place. The forward casts them to that dtype on every call anyway, so
+    the results are unchanged; a server saves the casts (about a dozen
+    launches and ~40 MB of traffic per bert-base layer and batch).
+    LayerNorm parameters stay float32, as the kernels take them."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Embedding)):
+            m.to(dtype)
+
+
+def init_weights(module: nn.Module, std: float, generator: torch.Generator):
+    """BERT's initialisation, as the flax modules draw it: every Linear and
+    Embedding weight normal(0, std), biases zero, LayerNorm scale one."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Linear, nn.Embedding)):
+                m.weight.normal_(0.0, std, generator=generator)
+            if isinstance(m, nn.Linear):
+                m.bias.zero_()
+            if isinstance(m, LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()

@@ -1,0 +1,103 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points never fall back to the CPU on their own."""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+# the port's sources; _build/ holds what the kernel build writes
+PORT_FILES = sorted(
+    p for p in (ROOT / "cocodr_tpu_torch").rglob("*.py")
+    if "_build" not in p.relative_to(ROOT).parts
+) + [ROOT / "chip_smoke.py"]
+MODULES = [
+    "cocodr_tpu_torch",
+    "cocodr_tpu_torch.ops._build",
+    "cocodr_tpu_torch.ops._device",
+    "cocodr_tpu_torch.ops.ffn",
+    "cocodr_tpu_torch.ops.mips_hier",
+    "cocodr_tpu_torch.models.bert",
+    "cocodr_tpu_torch.models.dual_encoder",
+    "cocodr_tpu_torch.models.convert",
+    "cocodr_tpu_torch.pipelines.serve",
+    "chip_smoke",
+]
+
+
+def test_import_leaves_jax_and_jax_package_out():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'transformers', 'cocodr_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_no_jax_import_in_source(path):
+    text = path.read_text()
+    pattern = (r"^\s*(import\s+(jax|jaxlib|flax|transformers|cocodr_tpu)\b"
+               r"|from\s+(jax|jaxlib|flax|transformers|cocodr_tpu)[\s.])")
+    assert not re.search(pattern, text, re.M), path
+
+
+def test_no_cpu_fallback_without_cuda(monkeypatch):
+    """Without a card, every entry point called without device='cpu'
+    raises instead of running on the CPU."""
+    from cocodr_tpu_torch import resolve_device
+    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.models.dual_encoder import (
+        DualEncoder,
+        MODEL_REGISTRY,
+        build_dual_encoder,
+    )
+    from cocodr_tpu_torch.pipelines.serve import RetrievalService
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = BertConfig.tiny()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_dual_encoder("rdot_nll", cfg)
+    model = DualEncoder(MODEL_REGISTRY["rdot_nll"](cfg))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RetrievalService(model, lambda *a, **k: None,
+                         np.zeros((4, 768), np.float32))
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_fails_without_cuda_and_prints_no_result(tmp_path):
+    """Without a card the smoke exits non-zero before any result line; a
+    directory that holds only chip_smoke.py fails too."""
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    for script in (ROOT / "chip_smoke.py", lone):
+        out = subprocess.run([sys.executable, str(script)],
+                             cwd=script.parent, capture_output=True,
+                             text=True, timeout=300)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
+
+
+def test_kernel_sources_are_committed_text_only():
+    """The build reads csrc/*.cu and *.cuh; every kernel entry point the
+    loader binds is defined in them."""
+    from cocodr_tpu_torch.ops import _build
+
+    cu, cuh = _build._sources()
+    text = "".join(p.read_text() for p in cu + cuh)
+    for name in list(_build.SIGNATURES) + ["cocodr_error_string"]:
+        assert re.search(rf'extern "C" [^(]*\b{name}\(', text), name
+    assert "torch/extension.h" not in text
