@@ -7,25 +7,38 @@ Phases, each printed with its elapsed seconds:
   1. environment: torch and CUDA versions, the card's name and power limit;
      fails when CUDA is not available;
   2. build: nvcc compiles cocodr_tpu_torch/csrc/*.cu for sm_90a;
-  3. kernel checks: each kernel (K1 fused FFN half-layer, K2 dual block-max
-     sweep, K3 extract-max top-k) against its plain PyTorch version on the
-     card, at the shapes of the serving path, with its time, the plain
-     version's time, the time of one library call that computes the same
-     function where there is one, and the least time the card could take;
-  4. serve: BERT-base (rdot_nll_condenser, random weights from the seed)
-     behind RetrievalService over 1,048,576 bf16 768-d docs on the card:
-     three batches of 64 queries through search_stream and one single
-     query through search, with every kernel's launch count read around
-     that run; ids and scores checked against an exact plain search.
-Then one JSON line of per-kernel numbers, the card's name and power limit,
-and as the last line {"ok": true, "device": {...}}. Any failure raises and
-the process exits non-zero; a hang ends at the watchdog with a traceback.
+  3. kernel checks: each kernel against its plain PyTorch version on the
+     card, with its time, the plain version's time, the time of one
+     library call that computes the same function where there is one, and
+     the least time the card could take: K1 fused FFN half-layer, K2 dual
+     block-max sweep and K3 extract-max top-k at the serving shapes; then
+     the sweeps K2 (plain and packed), K6 (int8), K9 (top-2 certificate)
+     and K10 (block-32) at Q = 64 and Q = 1024 over the 1,048,576-doc
+     corpus, packed argmaxes held exactly wherever a block's top two
+     scores differ by more than the tolerance;
+  4. search: search_topk over 1,024 row-normalised bf16 queries x the
+     corpus at k = 100 with each method (pallas, exact2, fast, blockmax,
+     refined, naive), plus mips_topk_int8 and mips_topk_blockmax_pallas:
+     queries/s and card span of each; the exact methods equal an exact
+     plain search up to near-ties, fast and int8 meet recall@100 bounds;
+  5. serve: BERT-base (rdot_nll_condenser, random weights from the seed)
+     behind RetrievalService over the same corpus, in the default (exact),
+     fast_search and quantize_int8 modes: three batches of 64 queries
+     through search_stream and one single query through search, then
+     timed batches; ids checked against an exact plain search (default
+     mode) or their recall@10 measured (approximate modes).
+Every path (the search phase, each serve mode) runs with every kernel's
+launch count set to 0 just before it and read just after, and fails if a
+kernel of the path never launched. Then one JSON line of per-kernel
+numbers, the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}. Any failure raises and the process exits
+non-zero; a hang ends at the watchdog with a traceback.
 """
 from __future__ import annotations
 
 import faulthandler
 
-faulthandler.dump_traceback_later(600, exit=True)
+faulthandler.dump_traceback_later(1100, exit=True)
 
 import argparse  # noqa: E402
 import json  # noqa: E402
@@ -47,6 +60,7 @@ T0 = time.perf_counter()
 # of their type
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
 FP32_OP_PER_S = 67e12
 
 N_DOCS = 1_048_576
@@ -54,6 +68,8 @@ DIM = 768
 BATCH = 64
 QUERY_LEN = 64
 TOP_K = 10
+SEARCH_Q = 1024  # the mining / evaluation query chunk
+SEARCH_K = 100
 
 
 def phase(msg: str) -> None:
@@ -236,6 +252,133 @@ def check_k3(mips, gen, dev):
     return out
 
 
+def block_gaps(mips_hier, q, corpus, rows):
+    """[Q, N/rows]: the best minus the second-best plain score of every
+    rows-row block; a block within the tolerance is a near-tie, whose
+    argmax may differ between two summation orders."""
+    Q = q.shape[0]
+    parts = []
+    for s in range(0, corpus.shape[0], 131072):
+        s3 = mips_hier.scores(q, corpus[s:s + 131072]).view(Q, -1, rows)
+        top2 = s3.topk(2, dim=-1).values
+        parts.append(top2[..., 0] - top2[..., 1])
+    return torch.cat(parts, dim=1)
+
+
+def check_packed(name, got, want, nbits, gaps, tol):
+    """Packed float32 maxima: values with nbits low bits cleared within
+    tol; the packed argmax exactly equal wherever the block is no
+    near-tie. -> (max abs err of the cleared values, near-tie blocks)."""
+    mask = (1 << nbits) - 1
+    gb, wb = got.view(torch.int32), want.view(torch.int32)
+    err = ((gb & ~mask).view(torch.float32)
+           - (wb & ~mask).view(torch.float32)).abs().max().item()
+    decided = gaps > tol
+    wrong = int(((gb & mask) != (wb & mask))[decided].sum().item())
+    ties = int((~decided).sum().item())
+    if not err <= tol or wrong:
+        raise AssertionError(f"{name} disagrees with its plain version: err "
+                             f"{err}, {wrong} decided argmaxes differ")
+    return err, ties
+
+
+def check_sweeps(gen, dev, corpus, corpus_i8, dim_scale):
+    """K2 (plain and packed), K6, K9 and K10 against their plain versions
+    at Q = 64 (serving) and Q = 1024 (search and mining chunks) over the
+    corpus. -> {(kernel, Q): summary entry}."""
+    from cocodr_tpu_torch.ops import mips_blockmax, mips_exact2, mips_hier
+    from cocodr_tpu_torch.ops import mips_int8
+
+    N, D = corpus.shape
+    out = {}
+    for Q in (BATCH, SEARCH_Q):
+        x = torch.randn(Q, D, generator=gen, device=dev)
+        q = (x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+        q_i8, _ = mips_int8.quantize_queries(q, dim_scale)
+        tol = 1e-4 * max(1.0, mips_hier.scores(q, corpus[:131072])
+                         .abs().max().item())
+
+        f, c = mips_hier.dual_sweep(q, corpus)
+        rf, rc = mips_hier.dual_sweep_reference(q, corpus)
+        err = max((f - rf).abs().max().item(), (c - rc).abs().max().item())
+        if not err <= tol:
+            raise AssertionError(f"K2 disagrees with its plain version: {err}")
+        errs = {"K2_dual_sweep": (err, "")}
+
+        f, c = mips_hier.dual_sweep(q, corpus, pack=True)
+        rf, rc = mips_hier.dual_sweep_reference(q, corpus, pack=True)
+        fine_gaps = block_gaps(mips_hier, q, corpus, 8)
+        err, ties = check_packed("K2 packed fine", f, rf, 3, fine_gaps, tol)
+        cerr = (mips_hier.clear_low_bits(c, 3)
+                - mips_hier.clear_low_bits(rc, 3)).abs().max().item()
+        if not cerr <= tol:
+            raise AssertionError(f"K2 packed coarse disagrees: {cerr}")
+        del fine_gaps
+        errs["K2_dual_sweep_packed"] = (max(err, cerr),
+                                        f"{ties} near-tie fine blocks")
+
+        b, pk = mips_exact2.top2_sweep(q, corpus)
+        rb, rpk = mips_exact2.top2_sweep_reference(q, corpus)
+        berr = (b - rb).abs().max().item()
+        if not berr <= tol:
+            raise AssertionError(f"K9 best disagrees: {berr}")
+        gaps = rb - mips_hier.clear_low_bits(rpk, 6)
+        err, ties = check_packed("K9 second", pk, rpk, 6, gaps, tol)
+        errs["K9_top2_sweep"] = (max(err, berr),
+                                 f"{ties} near-tie coarse blocks")
+
+        bm = mips_blockmax.block_sweep(q, corpus)
+        rbm = mips_blockmax.block_sweep_reference(q, corpus)
+        err = (bm - rbm).abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"K10 disagrees: {err}")
+        errs["K10_block32_sweep"] = (err, "")
+
+        fi, ci = mips_int8.int8_sweep(q_i8, corpus_i8)
+        rfi, rci = mips_int8.int8_sweep_reference(q_i8, corpus_i8)
+        if not (torch.equal(fi, rfi) and torch.equal(ci, rci)):
+            raise AssertionError("K6 != its plain version (integer sums)")
+        errs["K6_int8_sweep"] = (0.0, "bit-equal")
+        torch.cuda.synchronize()
+
+        runs = {
+            "K2_dual_sweep": (
+                lambda: mips_hier.dual_sweep(q, corpus),
+                lambda: mips_hier.dual_sweep_reference(q, corpus),
+                2, (N // 8 + N // 64) * 4, BF16_FLOP_PER_S),
+            "K2_dual_sweep_packed": (
+                lambda: mips_hier.dual_sweep(q, corpus, pack=True),
+                lambda: mips_hier.dual_sweep_reference(q, corpus, pack=True),
+                2, (N // 8 + N // 64) * 4, BF16_FLOP_PER_S),
+            "K6_int8_sweep": (
+                lambda: mips_int8.int8_sweep(q_i8, corpus_i8),
+                lambda: mips_int8.int8_sweep_reference(q_i8, corpus_i8),
+                1, (N // 8 + N // 64) * 4, INT8_OP_PER_S),
+            "K9_top2_sweep": (
+                lambda: mips_exact2.top2_sweep(q, corpus),
+                lambda: mips_exact2.top2_sweep_reference(q, corpus),
+                2, 2 * (N // 64) * 4, BF16_FLOP_PER_S),
+            "K10_block32_sweep": (
+                lambda: mips_blockmax.block_sweep(q, corpus),
+                lambda: mips_blockmax.block_sweep_reference(q, corpus),
+                2, (N // 32) * 4, BF16_FLOP_PER_S),
+        }
+        for name, (kern, plain, elem, out_bytes, rate) in runs.items():
+            if name == "K2_dual_sweep" and Q == BATCH:
+                continue  # check_k2 times it at the serving shape
+            ms = time_ms(kern)
+            plain_ms = time_ms(plain)
+            b_ms, b_by = bound((N + Q) * D * elem + Q * out_bytes,
+                               2 * Q * N * D, rate)
+            err, note = errs[name]
+            phase(f"  {name} Q={Q} N={N} D={D}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+                  f"max_abs_err={err} tol={tol:.3e} {note}")
+            out[name, Q] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=b_by, max_abs_err=err)
+    return out
+
+
 def make_corpus(gen, dev):
     """N_DOCS x DIM bf16, row-normalised, drawn on the card in chunks."""
     corpus = torch.empty((N_DOCS, DIM), dtype=torch.bfloat16, device=dev)
@@ -279,51 +422,181 @@ def check_results(vals, ids, scores, ref_v, tol):
     return err
 
 
-def serve(args, gen, dev, corpus, kernels):
+def kernel_counters():
+    """name -> (wrapper, attribute) of every kernel's launch count."""
+    from cocodr_tpu_torch.ops import (
+        ffn,
+        mips_blockmax,
+        mips_exact2,
+        mips_hier,
+        mips_int8,
+    )
+
+    return {"K1_ffn_block": (ffn.fused_ffn_block, "launches"),
+            "K2_dual_sweep": (mips_hier.dual_sweep, "launches"),
+            "K2_dual_sweep_packed": (mips_hier.dual_sweep, "pack_launches"),
+            "K3_topk": (mips_hier.topk, "launches"),
+            "K6_int8_sweep": (mips_int8.int8_sweep, "launches"),
+            "K9_top2_sweep": (mips_exact2.top2_sweep, "launches"),
+            "K10_block32_sweep": (mips_blockmax.block_sweep, "launches")}
+
+
+def zero_counts():
+    for fn, attr in kernel_counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counts(path, needed):
+    """The launch counts after a path; raises if a kernel in `needed`
+    never launched."""
+    counts = {name: getattr(fn, attr)
+              for name, (fn, attr) in kernel_counters().items()}
+    phase(f"  {path} launches: {counts}")
+    missing = [name for name in needed if not counts[name]]
+    if missing:
+        raise AssertionError(f"{path}: kernels never launched: {missing}")
+    return counts
+
+
+def recall(ids, ref_ids):
+    """Mean over queries of |ids & ref_ids| / k."""
+    ids = np.asarray(ids)
+    ref = ref_ids.cpu().numpy()
+    return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / len(b)
+                          for a, b in zip(ids, ref)]))
+
+
+def check_approximate(name, vals, ids, n_docs, k):
+    vals, ids = np.asarray(vals), np.asarray(ids)
+    if (vals.shape != (ids.shape[0], k) or not np.isfinite(vals).all()
+            or ids.min() < 0 or ids.max() >= n_docs
+            or any(len(set(row.tolist())) != k for row in ids)):
+        raise AssertionError(f"{name}: bad result (shape {vals.shape}, ids "
+                             f"{ids.min()}..{ids.max()}, or duplicates)")
+
+
+def search(gen, dev, corpus, corpus_i8, dim_scale):
+    """search_topk with every ported method, mips_topk_int8 and
+    mips_topk_blockmax_pallas over SEARCH_Q queries at k = SEARCH_K."""
+    from cocodr_tpu_torch.ops import mips_exact2
+    from cocodr_tpu_torch.ops.mips_blockmax import mips_topk_blockmax_pallas
+    from cocodr_tpu_torch.ops.mips_int8 import mips_topk_int8
+    from cocodr_tpu_torch.parallel.topk import search_topk
+
+    N = corpus.shape[0]
+    x = torch.randn(SEARCH_Q, DIM, generator=gen, device=dev)
+    q = (x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    scores, ref_v, ref_i = exact_search(q, corpus, SEARCH_K)
+    tol = 1e-4 * max(1.0, scores.abs().max().item())
+
+    def host(fn):
+        return lambda: tuple(t.cpu().numpy() for t in fn())
+
+    runs = {m: (lambda m=m: search_topk(q, corpus, SEARCH_K, method=m,
+                                        device=dev))
+            for m in ("pallas", "exact2", "fast", "blockmax", "refined",
+                      "naive")}
+    runs["int8"] = host(lambda: mips_topk_int8(q, corpus_i8, dim_scale,
+                                               SEARCH_K))
+    runs["blockmax_pallas"] = host(lambda: mips_topk_blockmax_pallas(
+        q, corpus, SEARCH_K))
+    fallbacks = mips_exact2.mips_topk_exact2.fallbacks
+    zero_counts()
+    results = {name: fn() for name, fn in runs.items()}
+    counts = read_counts("search", ["K2_dual_sweep", "K2_dual_sweep_packed",
+                                    "K3_topk", "K6_int8_sweep",
+                                    "K9_top2_sweep", "K10_block32_sweep"])
+    fallbacks = mips_exact2.mips_topk_exact2.fallbacks - fallbacks
+    phase(f"  exact2: {fallbacks} of 1 chunk fell back to the "
+          f"hierarchical search")
+
+    card = nvidia_smi()  # the card's name and power limit
+    for name, fn in runs.items():
+        vals, ids = results[name]
+        if name in ("fast", "int8"):
+            check_approximate(name, vals, ids, N, SEARCH_K)
+            r = recall(ids, ref_i)
+            need = 0.99 if name == "fast" else 0.95
+            if not r >= need:
+                raise AssertionError(f"{name}: recall@{SEARCH_K} {r} < {need}")
+            what = f"recall@{SEARCH_K} {r:.5f} (>= {need})"
+        else:
+            err = check_results(vals, ids, scores, ref_v, tol)
+            what = f"exact, max score err {err:.3e}"
+        walls, spans = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            walls.append(time.perf_counter() - t)
+            spans.append(start.elapsed_time(end))
+        wall = statistics.median(walls)
+        phase(f"  {name}: {SEARCH_Q / wall:.1f} queries/s ({wall * 1e3:.3f} "
+              f"ms per {SEARCH_Q} queries, card span "
+              f"{statistics.median(spans):.3f} ms), {what} [{card}]")
+    return counts
+
+
+SERVE_MODES = {  # mode -> (ServeConfig flags, sweep kernel, K3 per call)
+    "default": ({}, "K2_dual_sweep", 3),
+    "fast_search": ({"fast_search": True}, "K2_dual_sweep_packed", 2),
+    "quantize_int8": ({"quantize_int8": True}, "K6_int8_sweep", 2),
+}
+
+
+def serve(args, dev, corpus):
+    """RetrievalService in each mode of SERVE_MODES. -> {mode: counts}."""
     from cocodr_tpu_torch.models.bert import BertConfig
     from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
-    from cocodr_tpu_torch.ops import ffn, mips_hier
-    from cocodr_tpu_torch.pipelines.serve import (
-        SEARCH_TILE,
-        RetrievalService,
-        ServeConfig,
-    )
 
     cfg = BertConfig.base(dtype=torch.bfloat16)
     model = build_dual_encoder("rdot_nll_condenser", cfg, device=dev,
                                generator=torch.Generator().manual_seed(
                                    args.seed))
+    counts = {}
+    for mode in SERVE_MODES:
+        counts[mode] = serve_mode(args, dev, corpus, model, mode)
+    return counts
+
+
+def serve_mode(args, dev, corpus, model, mode):
+    from cocodr_tpu_torch.pipelines.serve import RetrievalService, ServeConfig
+
+    flags, sweep, k3_per_call = SERVE_MODES[mode]
     svc = RetrievalService(
         model, HashTokenizer(), corpus,
         cfg=ServeConfig(top_k=TOP_K, max_query_len=QUERY_LEN,
-                        max_batch=BATCH),
+                        max_batch=BATCH, **flags),
         device=dev,
     )
-    phase(f"  service up: BERT-base bf16, {svc.n_docs} docs resident")
+    phase(f"  {mode}: service up, BERT-base bf16, {svc.n_docs} docs "
+          f"resident as {svc.corpus.dtype}")
     rng = np.random.default_rng(args.seed)
     batches = [make_queries(rng, BATCH) for _ in range(3)]
     single = make_queries(rng, 1)
     svc.search(make_queries(rng, BATCH))  # warm-up: cuBLAS, allocator
     torch.cuda.synchronize()
 
-    counters = {"K1_ffn_block": ffn.fused_ffn_block,
-                "K2_dual_sweep": mips_hier.dual_sweep,
-                "K3_topk": mips_hier.topk}
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counts()
     t = time.perf_counter()
     results = list(svc.search_stream(batches))
     stream_s = time.perf_counter() - t
     one = svc.search(single)
-    launches = {name: fn.launches for name, fn in counters.items()}
-    phase(f"  main path launches: {launches}")
     calls = len(batches) + 1
-    expect = {"K1_ffn_block": cfg.num_hidden_layers * calls,
-              "K2_dual_sweep": calls, "K3_topk": 3 * calls}
-    if launches != expect:
-        raise AssertionError(f"launch counts {launches} != {expect}")
+    counts = read_counts(f"serve {mode}", ["K1_ffn_block", sweep, "K3_topk"])
+    layers = model.cfg.bert.num_hidden_layers
+    expect = {name: 0 for name in counts}
+    expect.update({"K1_ffn_block": layers * calls, sweep: calls,
+                   "K3_topk": k3_per_call * calls})
+    if counts != expect:
+        raise AssertionError(f"launch counts {counts} != {expect}")
 
-    errs = []
+    errs, recalls = [], []
     with torch.inference_mode():
         for texts, (vals, ids) in zip(batches + [single],
                                       results + [one]):
@@ -333,11 +606,23 @@ def serve(args, gen, dev, corpus, kernels):
             tok_ids, tok_mask = svc._tokenize(texts + [""] * pad)
             emb = model.query_emb(torch.from_numpy(tok_ids).to(dev),
                                   torch.from_numpy(tok_mask).to(dev))
-            scores, ref_v, _ = exact_search(emb[:len(texts)], corpus, TOP_K)
-            tol = 1e-4 * max(1.0, scores.abs().max().item())
-            errs.append(check_results(vals, ids, scores, ref_v, tol))
-    phase(f"  results equal the exact plain search: max score err "
-          f"{max(errs):.3e} (tol 1e-4 x max |score|)")
+            scores, ref_v, ref_i = exact_search(emb[:len(texts)], corpus,
+                                                TOP_K)
+            if mode == "default":
+                tol = 1e-4 * max(1.0, scores.abs().max().item())
+                errs.append(check_results(vals, ids, scores, ref_v, tol))
+            else:
+                check_approximate(mode, vals, ids, svc.n_docs, TOP_K)
+                recalls.append(recall(ids, ref_i))
+    if mode == "default":
+        phase(f"  results equal the exact plain search: max score err "
+              f"{max(errs):.3e} (tol 1e-4 x max |score|)")
+    else:
+        r = float(np.mean(recalls))
+        phase(f"  recall@{TOP_K} against the exact plain search: {r:.5f} "
+              f"(per batch {[round(x, 5) for x in recalls]})")
+        if not r >= 0.9:
+            raise AssertionError(f"{mode}: recall@{TOP_K} {r} < 0.9")
 
     n_timed = 10
     timed = [make_queries(rng, BATCH) for _ in range(n_timed)]
@@ -350,11 +635,11 @@ def serve(args, gen, dev, corpus, kernels):
     t = time.perf_counter()
     svc.search(single)
     single_ms = (time.perf_counter() - t) * 1e3
-    card = f"{torch.cuda.get_device_name(0)}, {nvidia_smi()}"
-    phase(f"  search_stream: {per_batch * 1e3:.3f} ms/batch of {BATCH}, "
-          f"{BATCH / per_batch:.1f} queries/s over {n_timed} batches "
-          f"(first 3-batch run {stream_s * 1e3:.1f} ms); single query "
-          f"{single_ms:.3f} ms [{card}]")
+    card = nvidia_smi()  # the card's name and power limit
+    phase(f"  {mode} search_stream: {per_batch * 1e3:.3f} ms/batch of "
+          f"{BATCH}, {BATCH / per_batch:.1f} queries/s over {n_timed} "
+          f"batches (first 3-batch run {stream_s * 1e3:.1f} ms); single "
+          f"query {single_ms:.3f} ms [{card}]")
 
     # where a batch's time goes: host tokenization, then the encoder's and
     # the search's spans on the card's timeline (CUDA events; a span also
@@ -368,8 +653,7 @@ def serve(args, gen, dev, corpus, kernels):
     with torch.inference_mode():
         emb = model.query_emb(ids_t, mask_t)
         enc_ms = time_ms(lambda: model.query_emb(ids_t, mask_t))
-        search_ms = time_ms(lambda: mips_hier.mips_topk_hierarchical(
-            emb, svc.corpus, TOP_K, tile=SEARCH_TILE, n_real=svc.n_docs))
+        search_ms = time_ms(lambda: svc._search(emb, TOP_K))
         # host time to enqueue the encoder alone: when it is near the
         # encoder's card span, the card waits on the host's launches
         torch.cuda.synchronize()
@@ -378,11 +662,11 @@ def serve(args, gen, dev, corpus, kernels):
             model.query_emb(ids_t, mask_t)
         enq_ms = (time.perf_counter() - t) * 1e3 / n_timed
         torch.cuda.synchronize()
-    phase(f"  per batch of {BATCH}: tokenize {tok_ms:.3f} ms (host), encode "
-          f"{enc_ms:.3f} ms, search {search_ms:.3f} ms (card spans); encoder "
-          f"enqueue {enq_ms:.3f} ms (host) [{card}]")
-    for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
+    phase(f"  {mode} per batch of {BATCH}: tokenize {tok_ms:.3f} ms (host), "
+          f"encode {enc_ms:.3f} ms, search {search_ms:.3f} ms (card spans); "
+          f"encoder enqueue {enq_ms:.3f} ms (host) [{card}]")
+    del svc
+    return counts
 
 
 def main() -> None:
@@ -400,7 +684,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     import cocodr_tpu_torch
-    from cocodr_tpu_torch.ops import _build, ffn, mips_hier
+    from cocodr_tpu_torch.ops import _build, ffn, mips_hier, mips_int8
 
     if Path(cocodr_tpu_torch.__file__).resolve().parent.parent != ROOT:
         raise RuntimeError("cocodr_tpu_torch must come from this checkout")
@@ -419,9 +703,40 @@ def main() -> None:
     corpus = make_corpus(gen, dev)
     kernels.append(check_k2(mips_hier, corpus, gen, dev))
     kernels.append(check_k3(mips_hier, gen, dev))
+    corpus_i8, dim_scale = mips_int8.quantize_corpus_int8(corpus)
+    sweeps = check_sweeps(gen, dev, corpus, corpus_i8, dim_scale)
+
+    phase("search")
+    search_counts = search(gen, dev, corpus, corpus_i8, dim_scale)
+    del corpus_i8
 
     phase("serve")
-    serve(args, gen, dev, corpus, kernels)
+    serve_counts = serve(args, dev, corpus)
+
+    # each kernel's numbers at the shape of the path that launches it, and
+    # its launches on that path
+    paths = {"K1_ffn_block": serve_counts["default"],
+             "K2_dual_sweep": serve_counts["default"],
+             "K3_topk": serve_counts["default"],
+             "K2_dual_sweep_packed": serve_counts["fast_search"],
+             "K6_int8_sweep": serve_counts["quantize_int8"],
+             "K9_top2_sweep": search_counts,
+             "K10_block32_sweep": search_counts}
+    sources = {
+        "K2_dual_sweep_packed": ("mips_sweep.cu", "pallas_mips.py:100",
+                                 BATCH),
+        "K6_int8_sweep": ("mips_int8.cu", "pallas_mips.py:63", BATCH),
+        "K9_top2_sweep": ("mips_top2.cu", "pallas_mips.py:1059", SEARCH_Q),
+        "K10_block32_sweep": ("mips_sweep.cu", "pallas_mips.py:24",
+                              SEARCH_Q),
+    }
+    for name, (src, replaces, q_rows) in sources.items():
+        kernels.append(dict(name=name, route="cuda",
+                            source="cocodr_tpu_torch/csrc/" + src,
+                            replaces="cocodr_tpu/ops/" + replaces,
+                            library_ms=None, **sweeps[name, q_rows]))
+    for entry in kernels:
+        entry["launches"] = paths[entry["name"]][entry["name"]]
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -46,6 +46,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     "cocodr_ffn_block_bf16": [_P] * 14 + [_I, _I, _I, _I, _F, _P],
     "cocodr_dual_sweep_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "cocodr_dual_sweep_packed_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "cocodr_block32_sweep_bf16": [_P, _P, _P, _I, _I, _I, _P],
+    "cocodr_top2_sweep_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "cocodr_int8_sweep": [_P, _P, _P, _P, _I, _I, _I, _P],
     "cocodr_topk_f32": [_P, _P, _P, _I, _I, _I, _P],
     "cocodr_topk_i32": [_P, _P, _P, _I, _I, _I, _P],
 }

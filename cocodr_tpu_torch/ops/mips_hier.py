@@ -1,10 +1,11 @@
-"""Exact hierarchical top-k MIPS: K2 (dual block-max sweep) and K3
-(extract-max top-k), and the search built on them.
+"""Hierarchical top-k MIPS: K2 (dual block-max sweep, plain and packed)
+and K3 (extract-max top-k), and the exact and fast searches built on them.
 
 Counterpart of cocodr_tpu/ops/pallas_mips.py: `_dual_sweep_mixed` /
-`_sweep_kernel2` (-> `dual_sweep`, kernel `csrc/mips_sweep.cu`),
-`pallas_topk` / `_topk_kernel` (-> `topk`, kernel `csrc/topk.cu`),
-`_pad_replicate`, `_select_fine_blocks` and `mips_topk_hierarchical`.
+`_sweep_kernel2` / `_pack_argmax` (-> `dual_sweep`, kernel
+`csrc/mips_sweep.cu`), `pallas_topk` / `_topk_kernel` (-> `topk`, kernel
+`csrc/topk.cu`), `_pad_replicate`, `_select_fine_blocks`,
+`mips_topk_hierarchical` and `mips_topk_fast`.
 
 Search (`mips_topk_hierarchical`):
   1. one sweep gives the maxima of every fine (8-row) and coarse (64-row)
@@ -14,6 +15,10 @@ Search (`mips_topk_hierarchical`):
   3. the k*8 candidate rows are rescored exactly and the best k kept.
 Every level is lossless by the block-max argument: a block whose max is at
 least the k-th best score holds a top-k row, and at most k blocks can.
+
+Fast search (`mips_topk_fast`) runs the sweep with pack=True: each fine
+maximum carries its in-block argmax row in its 3 low mantissa bits, so the
+selected fine blocks give doc ids directly, with no rescore.
 
 Layouts: the sweep returns both maxima query-major, fine [Q, N/8] and
 coarse [Q, N/64]; the TPU kernel's 3D super-rows layout existed to avoid a
@@ -38,32 +43,76 @@ def _neg(dtype):
     return torch.iinfo(dtype).min
 
 
+def scores(queries, corpus, dtype=torch.bfloat16):
+    """[Q, D] x [n, D] -> [Q, n] float32 scores of the operands rounded to
+    `dtype`: exact products of bf16 operands, float32 sums (the sweeps'
+    arithmetic)."""
+    return queries.to(dtype).float() @ corpus.to(dtype).float().t()
+
+
+def block_argmax(s3):
+    """[..., B, f] -> (max, first-occurrence argmax int32) over the last
+    axis, by the TPU kernels' strict '>' select chain."""
+    best = s3[..., 0]
+    arg = torch.zeros(best.shape, dtype=torch.int32, device=s3.device)
+    for r in range(1, s3.shape[-1]):
+        m = s3[..., r] > best
+        best = torch.where(m, s3[..., r], best)
+        arg = torch.where(m, r, arg)
+    return best, arg
+
+
+def pack_low_bits(x, arg, bits: int):
+    """float32 x with its `bits` low bit-pattern bits replaced by arg,
+    (bits(x) & ~mask) | arg, negative values too (_pack_argmax)."""
+    mask = (1 << bits) - 1
+    return ((x.view(torch.int32) & ~mask) | arg).view(torch.float32)
+
+
+def clear_low_bits(x, bits: int):
+    """float32 x with its `bits` low bit-pattern bits cleared."""
+    return (x.view(torch.int32) & ~((1 << bits) - 1)).view(torch.float32)
+
+
 # --- K2: dual block-max sweep -------------------------------------------
 
-def dual_sweep_reference(queries, corpus, fine: int = 8, coarse: int = 8):
+def dual_sweep_reference(queries, corpus, fine: int = 8, coarse: int = 8,
+                         pack: bool = False):
     """Plain version of K2: scores from bf16 operands summed in float32,
-    -> (fine maxima [Q, N/fine], coarse maxima [Q, N/(fine*coarse)])."""
+    -> (fine maxima [Q, N/fine], coarse maxima [Q, N/(fine*coarse)]).
+    With pack, each fine maximum carries its first-occurrence argmax row in
+    its 3 low bits and the coarse maxima are maxima of the packed values
+    (_pack_argmax)."""
     Q = queries.shape[0]
     N = corpus.shape[0]
     cb = fine * coarse
     if N % cb:
         raise ValueError(f"N={N} must be a multiple of {cb}")
-    q32 = queries.to(torch.bfloat16).float()
+    if pack and fine > 8:
+        raise ValueError("argmax packing uses 3 mantissa bits: fine <= 8")
     parts = []
     for s in range(0, N, REFERENCE_CHUNK):
-        c32 = corpus[s:s + REFERENCE_CHUNK].to(torch.bfloat16).float()
-        parts.append((q32 @ c32.t()).view(Q, -1, fine).amax(-1))
+        s3 = scores(queries, corpus[s:s + REFERENCE_CHUNK]).view(
+            Q, -1, fine)
+        if pack:
+            best, arg = block_argmax(s3)
+            parts.append(pack_low_bits(best, arg, 3))
+        else:
+            parts.append(s3.amax(-1))
     fine_max = torch.cat(parts, dim=1)
     return fine_max, fine_max.view(Q, -1, coarse).amax(-1)
 
 
-def dual_sweep(queries, corpus, fine: int = 8, coarse: int = 8):
+def dual_sweep(queries, corpus, fine: int = 8, coarse: int = 8,
+               pack: bool = False):
     """K2 wrapper: queries [Q, D], corpus [N, D] -> (fine [Q, N/fine],
-    coarse [Q, N/(fine*coarse)]) float32. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel (bf16 operands, fine = 8,
-    coarse = 8, N % 256 == 0, D % 32 == 0) or raises."""
+    coarse [Q, N/(fine*coarse)]) float32, packed as dual_sweep_reference
+    with pack. A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel (bf16 operands, fine = 8, coarse = 8, N % 256 == 0,
+    D % 32 == 0) or raises. Launches count in `dual_sweep.launches`
+    (pack=False) and `dual_sweep.pack_launches` (pack=True)."""
     if corpus.device.type == "cpu":
-        return dual_sweep_reference(queries, corpus, fine, coarse)
+        return dual_sweep_reference(queries, corpus, fine, coarse, pack)
     bf16 = (torch.bfloat16,)
     _build.require_cuda_operand("queries", queries, bf16, 2)
     _build.require_cuda_operand("corpus", corpus, bf16, 2)
@@ -78,25 +127,27 @@ def dual_sweep(queries, corpus, fine: int = 8, coarse: int = 8):
             f"== 0; got queries {tuple(queries.shape)}, corpus "
             f"{tuple(corpus.shape)}"
         )
-    if Q > 65535 * 64:
-        raise ValueError(f"Q={Q} exceeds the kernel's grid")
     fine_max = torch.empty((Q, N // 8), dtype=torch.float32,
                            device=corpus.device)
     coarse_max = torch.empty((Q, N // 64), dtype=torch.float32,
                              device=corpus.device)
     if Q == 0:
         return fine_max, coarse_max
+    lib = _build.library().lib
+    fn = lib.cocodr_dual_sweep_packed_bf16 if pack else lib.cocodr_dual_sweep_bf16
     p = _build.ptr
-    err = _build.library().lib.cocodr_dual_sweep_bf16(
-        p(queries), p(corpus), p(fine_max), p(coarse_max), Q, N, D,
-        _build.stream_of(corpus),
-    )
+    err = fn(p(queries), p(corpus), p(fine_max), p(coarse_max), Q, N, D,
+             _build.stream_of(corpus))
     _build.check(err, "dual_sweep kernel")
-    dual_sweep.launches += 1
+    if pack:
+        dual_sweep.pack_launches += 1
+    else:
+        dual_sweep.launches += 1
     return fine_max, coarse_max
 
 
 dual_sweep.launches = 0
+dual_sweep.pack_launches = 0
 
 
 # --- K3: extract-max top-k ----------------------------------------------
@@ -168,8 +219,8 @@ def _select_fine_blocks(bm_fine, bm_coarse, k_sel: int, k_fine: int,
                         coarse: int, supers: int, n_fine_real: int,
                         k_super: int):
     """Fine-block selection -> (vals, fine-block ids) of the k_fine best
-    fine maxima. bm_fine [Q, n_fine], bm_coarse [Q, n_coarse] (-inf on
-    padded blocks).
+    fine maxima. bm_fine [Q, n_fine], bm_coarse [Q, n_coarse], float32
+    (-inf on padded blocks) or packed int32 (iinfo.min on padded blocks).
 
     Large corpora: K3 top-k over super maxima (max of `supers` coarse
     maxima), then K3 top-k over the surviving supers' fine maxima. Small
@@ -178,7 +229,8 @@ def _select_fine_blocks(bm_fine, bm_coarse, k_sel: int, k_fine: int,
     may order exact ties differently."""
     Q, n_coarse = bm_coarse.shape
     dev = bm_coarse.device
-    neg = float("-inf")
+    neg = (float("-inf") if bm_coarse.dtype.is_floating_point
+           else torch.iinfo(bm_coarse.dtype).min)
     kf = min(k_fine, n_fine_real)
     if supers <= 1 or n_coarse <= supers * k_sel:
         kc = min(k_sel, n_coarse)
@@ -196,10 +248,16 @@ def _select_fine_blocks(bm_fine, bm_coarse, k_sel: int, k_fine: int,
     pad_c = n_super * supers - n_coarse
     sup = F.pad(bm_coarse, (0, pad_c), value=neg).view(Q, n_super, supers)
     sup = sup.amax(2)
-    ks = min(k_super, n_super)
+    fps = supers * coarse  # fine blocks per super block
+    # Bounded by the count of supers that hold a real row, as the JAX
+    # package's _exact2_core bounds it. Its _select_fine_blocks bounds by
+    # n_super only: where padding adds whole supers and fewer than k_super
+    # are real, K3 (which fills rows past their real entries with an
+    # extracted slot) picks a super twice and the search returns duplicate
+    # ids (ROADMAP.md Queue 3).
+    ks = min(k_super, -(-n_fine_real // fps))
     _, sup_ids = topk(sup.contiguous(), ks)
     sup_ids = sup_ids.long()
-    fps = supers * coarse  # fine blocks per super block
     bm_f = F.pad(bm_fine, (0, n_super * fps - bm_fine.shape[1]), value=neg)
     fine_max = bm_f.view(Q, n_super, fps).gather(
         1, sup_ids[:, :, None].expand(Q, ks, fps)
@@ -265,3 +323,54 @@ def mips_topk_hierarchical(queries, corpus, k: int, tile: int = 2048,
         vals.append(v)
         ids.append(cand.gather(1, pos.long()))
     return torch.cat(vals), torch.cat(ids)
+
+
+def mips_topk_fast(queries, corpus, k: int, tile: int = 2048, fine: int = 8,
+                   coarse: int = 8, supers: int = 8, n_real: int = 0):
+    """Rescore-free approximate top-k by block argmax -> (scores [Q, k]
+    float32, ids [Q, k] int64).
+
+    The sweep packs each fine block's first-occurrence argmax row into the
+    3 low mantissa bits of its max (K2, pack=True); the selection over the
+    packed maxima then gives doc ids directly, with no candidate gather and
+    no rescore. At most one row per fine block is returned, so a true
+    top-k row is missed only when it shares its 8-row block with a better
+    top-k row. Scores are the block maxima with their 3 low bits cleared
+    (<= 7 ULP low). Padding and n_real as in mips_topk_hierarchical. As in
+    the JAX package, a selected slot whose value is -inf (a corpus with
+    fewer real fine blocks than k) keeps the id its bits give, and a
+    result narrower than k (tiny corpora) is padded with -inf scores and
+    id 0."""
+    Q, D = queries.shape
+    N = corpus.shape[0]
+    if n_real:
+        if n_real > N:
+            raise ValueError(f"n_real={n_real} > corpus rows {N}")
+        N = n_real
+    k = min(k, N)
+    cb = fine * coarse
+    if fine > 8:
+        raise ValueError("argmax packing uses 3 mantissa bits: fine <= 8")
+    corpus_p = _pad_replicate(corpus, max(tile, cb)).to(torch.bfloat16)
+    n_coarse = corpus_p.shape[0] // cb
+    n_fine_real = -(-N // fine)
+    n_coarse_real = -(-N // cb)
+    qq = queries.to(torch.bfloat16).contiguous()
+
+    bm_fine, bm_coarse = dual_sweep(qq, corpus_p, fine, coarse, pack=True)
+    bm_coarse = bm_coarse.masked_fill(
+        torch.arange(n_coarse, device=corpus_p.device) >= n_coarse_real,
+        float("-inf"),
+    )
+    vals, blocks = _select_fine_blocks(
+        bm_fine, bm_coarse, k_sel=min(k, n_coarse), k_fine=k, coarse=coarse,
+        supers=supers, n_fine_real=n_fine_real, k_super=k,
+    )
+    kk = vals.shape[1]
+    bits = vals.contiguous().view(torch.int32)
+    ids = torch.clamp_max(blocks.long() * fine + (bits & 7), N - 1)
+    clean = clear_low_bits(vals.contiguous(), 3)
+    if kk < k:  # tiny corpus: pad the result width to k
+        clean = F.pad(clean, (0, k - kk), value=float("-inf"))
+        ids = F.pad(ids, (0, k - kk))
+    return clean, ids

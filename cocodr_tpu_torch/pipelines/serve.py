@@ -1,15 +1,26 @@
 """Online retrieval serving: the counterpart of cocodr_tpu/pipelines/serve.py.
 
-`RetrievalService` keeps the corpus embeddings resident on the device in
-bf16 (1.5 GiB per million 768-d docs) and answers text queries: tokenize,
-encode with the query tower, exact top-k by `mips_topk_hierarchical` (the
-K2 sweep and K3 selections on the card), then map row ids to external doc
-ids. Query batches are padded to power-of-two buckets, as in the JAX
-package, so a one-query call encodes 8 rows and not max_batch.
+`RetrievalService` keeps the corpus embeddings resident on the device and
+answers text queries: tokenize, encode with the query tower, top-k over
+the corpus, then map row ids to external doc ids. The search mode follows
+`ServeConfig`, with the JAX package's precedence:
+  exact_fp32     float32 corpus, sort-per-tile search with float32
+                 multiplies (`ops.mips.mips_topk`);
+  quantize_int8  int8 corpus quantized at construction (half the bf16
+                 memory), block-argmax search over it (K6 + K3,
+                 `ops.mips_int8.mips_topk_int8`);
+  fast_search    bf16 corpus, rescore-free block-argmax search (K2 packed
+                 + K3, `ops.mips_hier.mips_topk_fast`);
+  default        bf16 corpus (1.5 GiB per million 768-d docs), exact
+                 hierarchical search (K2 + K3,
+                 `ops.mips_hier.mips_topk_hierarchical`).
+Query batches are padded to power-of-two buckets, as in the JAX package,
+so a one-query call encodes 8 rows and not max_batch.
 
-The corpus is replicate-padded once, at construction, to the search's tile
-multiple, and the search is told the real row count (`n_real`); the JAX
-service lets each search pad its own copy. Results are the same.
+Except for exact_fp32, the corpus is replicate-padded once, at
+construction, to the search's tile multiple, and the search is told the
+real row count (`n_real`); the JAX service lets each search pad its own
+copy. Results are the same.
 
 PyTorch launches asynchronously: `dispatch` returns while the card works,
 and `collect` / `collect_many` wait by copying the [batch, k] results to
@@ -25,18 +36,15 @@ import torch
 
 from cocodr_tpu_torch.models.bert import cast_matmul_weights
 from cocodr_tpu_torch.ops._device import resolve_device
-from cocodr_tpu_torch.ops.mips_hier import _pad_replicate, mips_topk_hierarchical
+from cocodr_tpu_torch.ops.mips import mips_topk
+from cocodr_tpu_torch.ops.mips_hier import (
+    _pad_replicate,
+    mips_topk_fast,
+    mips_topk_hierarchical,
+)
+from cocodr_tpu_torch.ops.mips_int8 import mips_topk_int8, quantize_corpus_int8
 
-SEARCH_TILE = 2048  # corpus row multiple of mips_topk_hierarchical's sweep
-
-# ServeConfig modes of the JAX package that later slices port, with the
-# ROADMAP.md item that ports each
-_NOT_PORTED = {
-    "exact_fp32": "Queue 1 item 6 (ops/mips.py: naive exact_fp32 search)",
-    "fast_search": "Queue 2 K2 pack=True (mips_topk_fast)",
-    "quantize_int8": "Queue 2 K6 (int8 sweep, mips_topk_int8)",
-    "ivf": "Queue 1 item 13 (ops/ivf.py)",
-}
+SEARCH_TILE = 2048  # corpus row multiple of the kernel searches' sweeps
 
 
 @dataclasses.dataclass
@@ -47,8 +55,11 @@ class ServeConfig:
     # above max_batch, to the next multiple of max_batch
     max_batch: int = 64
     exact_fp32: bool = False
+    # rescore-free block-argmax search; ignored with exact_fp32
     fast_search: bool = False
+    # int8 corpus and search; ignored with exact_fp32, wins over fast_search
     quantize_int8: bool = False
+    # IVF search (ops/ivf.py): not ported, raises unless exact_fp32
     ivf: bool = False
 
 
@@ -70,15 +81,15 @@ class RetrievalService:
         return_tensors="np") -> {"input_ids", "attention_mask"};
         corpus_emb: [N, D] numpy array or tensor (a tensor already on the
         device is used without a host round trip)."""
-        for name, item in _NOT_PORTED.items():
-            if getattr(cfg, name):
-                raise NotImplementedError(
-                    f"ServeConfig.{name} is not ported yet: ROADMAP.md {item}"
-                )
+        if cfg.ivf and not cfg.exact_fp32:
+            raise NotImplementedError(
+                "ServeConfig.ivf is not ported yet: ROADMAP.md Queue 1 "
+                "item 7 (ops/ivf.py)"
+            )
         if mesh is not None:
             raise NotImplementedError(
                 "sharded serving is not ported yet: ROADMAP.md Queue 1 "
-                "item 13 (parallel/*)"
+                "item 11 (parallel/*)"
             )
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -86,8 +97,15 @@ class RetrievalService:
         self.doc_ids = doc_ids
         corpus = torch.as_tensor(corpus_emb)
         self.n_docs = int(corpus.shape[0])
-        corpus = corpus.to(self.device, torch.bfloat16)
-        self.corpus = _pad_replicate(corpus, SEARCH_TILE).contiguous()
+        self.dim_scale = None
+        if cfg.exact_fp32:
+            self.corpus = corpus.to(self.device, torch.float32).contiguous()
+        elif cfg.quantize_int8:
+            c_i8, self.dim_scale = quantize_corpus_int8(corpus.to(self.device))
+            self.corpus = _pad_replicate(c_i8, SEARCH_TILE).contiguous()
+        else:
+            corpus = corpus.to(self.device, torch.bfloat16)
+            self.corpus = _pad_replicate(corpus, SEARCH_TILE).contiguous()
         self.model = model.to(self.device).eval()
         cast_matmul_weights(self.model, model.cfg.bert.dtype)
 
@@ -126,10 +144,20 @@ class RetrievalService:
         mask = torch.from_numpy(mask).to(self.device, non_blocking=True)
         with torch.inference_mode():
             emb = self.model.query_emb(ids, mask)
-            vals, idx = mips_topk_hierarchical(emb, self.corpus, k,
-                                               tile=SEARCH_TILE,
-                                               n_real=self.n_docs)
+            vals, idx = self._search(emb, k)
         return nq, (vals, idx)
+
+    def _search(self, emb, k: int):
+        """The configured search of query embeddings -> (scores, ids)."""
+        cfg = self.cfg
+        if cfg.exact_fp32:
+            return mips_topk(emb, self.corpus, k, exact_fp32=True)
+        if cfg.quantize_int8:
+            return mips_topk_int8(emb, self.corpus, self.dim_scale, k,
+                                  tile=SEARCH_TILE, n_real=self.n_docs)
+        search = mips_topk_fast if cfg.fast_search else mips_topk_hierarchical
+        return search(emb, self.corpus, k, tile=SEARCH_TILE,
+                      n_real=self.n_docs)
 
     def _external(self, vals, idx, nq):
         vals, idx = vals[:nq], idx[:nq]

@@ -20,10 +20,16 @@ MODULES = [
     "cocodr_tpu_torch.ops._build",
     "cocodr_tpu_torch.ops._device",
     "cocodr_tpu_torch.ops.ffn",
+    "cocodr_tpu_torch.ops.mips",
+    "cocodr_tpu_torch.ops.mips_blockmax",
+    "cocodr_tpu_torch.ops.mips_exact2",
     "cocodr_tpu_torch.ops.mips_hier",
+    "cocodr_tpu_torch.ops.mips_int8",
     "cocodr_tpu_torch.models.bert",
     "cocodr_tpu_torch.models.dual_encoder",
     "cocodr_tpu_torch.models.convert",
+    "cocodr_tpu_torch.parallel",
+    "cocodr_tpu_torch.parallel.topk",
     "cocodr_tpu_torch.pipelines.serve",
     "chip_smoke",
 ]

@@ -1,6 +1,9 @@
 """RetrievalService: the port on the CPU against the JAX service (which
 searches with the exact blockmax path off the TPU), on the same tiny model
-weights, corpus, queries and tokenizer."""
+weights, corpus, queries and tokenizer. The approximate modes are held
+against the JAX package's search functions applied to the JAX tower's
+query embeddings: off the TPU its service runs the exact blockmax search
+for every mode."""
 import dataclasses
 
 import numpy as np
@@ -12,6 +15,8 @@ import torch
 
 from cocodr_tpu.models.bert import BertConfig as JaxBertConfig
 from cocodr_tpu.models.dual_encoder import build_dual_encoder as jax_build
+from cocodr_tpu.ops.pallas_mips import mips_topk_fast as jax_fast
+from cocodr_tpu.ops.pallas_mips import mips_topk_int8 as jax_int8
 from cocodr_tpu.pipelines.serve import RetrievalService as JaxService
 from cocodr_tpu.pipelines.serve import ServeConfig as JaxServeConfig
 from cocodr_tpu_torch.models import convert
@@ -42,7 +47,9 @@ def tokenizer(texts, padding="max_length", truncation=True, max_length=8,
 
 
 @pytest.fixture(scope="module")
-def services():
+def tower():
+    """The JAX tower and its params, the port's tower with the same
+    weights, and the corpus."""
     jcfg = dataclasses.replace(JaxBertConfig.tiny(), intermediate_size=128)
     jmodel = jax_build("rdot_nll_condenser", jcfg)
     params = jmodel.init(jax.random.PRNGKey(0), jnp.ones((1, 8), jnp.int32),
@@ -50,19 +57,30 @@ def services():
     rng = np.random.RandomState(0)
     corpus = rng.randn(300, 32).astype(np.float32)
     corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
-    doc_ids = [f"d{i}" for i in range(300)]
-    jsvc = JaxService(jmodel, params, tokenizer, corpus, doc_ids=doc_ids,
-                      cfg=JaxServeConfig(top_k=5, max_query_len=8,
-                                         max_batch=8))
     cfg = MODEL_REGISTRY["rdot_nll_condenser"](
         BertConfig.tiny(intermediate_size=128))
     model = DualEncoder(cfg)
     model.load_state_dict(convert.params_from_jax(jax.device_get(params), cfg))
-    tsvc = RetrievalService(model, tokenizer, corpus, doc_ids=doc_ids,
+    return jmodel, params, model, corpus
+
+
+DOC_IDS = [f"d{i}" for i in range(300)]
+
+
+def _port_service(tower, **modes):
+    return RetrievalService(tower[2], tokenizer, tower[3], doc_ids=DOC_IDS,
                             cfg=ServeConfig(top_k=5, max_query_len=8,
-                                            max_batch=8),
+                                            max_batch=8, **modes),
                             device="cpu")
-    return jsvc, tsvc
+
+
+@pytest.fixture(scope="module")
+def services(tower):
+    jmodel, params, _, corpus = tower
+    jsvc = JaxService(jmodel, params, tokenizer, corpus, doc_ids=DOC_IDS,
+                      cfg=JaxServeConfig(top_k=5, max_query_len=8,
+                                         max_batch=8))
+    return jsvc, _port_service(tower)
 
 
 def test_search_matches_jax_service(services):
@@ -118,8 +136,7 @@ def test_dispatch_collect_many_and_row_ids(services):
         tsvc.doc_ids = saved
 
 
-@pytest.mark.parametrize(
-    "mode", ["exact_fp32", "fast_search", "quantize_int8", "ivf", "mesh"])
+@pytest.mark.parametrize("mode", ["ivf", "mesh"])
 def test_modes_not_ported_raise(mode):
     cfg = ServeConfig()
     kw = {}
@@ -128,6 +145,81 @@ def test_modes_not_ported_raise(mode):
     else:
         setattr(cfg, mode, True)
     model = DualEncoder(MODEL_REGISTRY["rdot_nll_condenser"](BertConfig.tiny()))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         RetrievalService(model, tokenizer, np.zeros((4, 32), np.float32),
                          cfg=cfg, device="cpu", **kw)
+
+
+def _jax_query_emb(tower, texts):
+    jmodel, params = tower[0], tower[1]
+    tok = tokenizer(texts, max_length=8)
+    return jmodel.apply({"params": params}, jnp.asarray(tok["input_ids"]),
+                        jnp.asarray(tok["attention_mask"]),
+                        method=jmodel.query_emb)
+
+
+def _same_ranking(tv, ti, jv, ji, tol):
+    """Scores within tol; external ids equal, except where two scores
+    within tol of each other may swap (the towers agree to ~1e-5)."""
+    np.testing.assert_allclose(tv, jv, atol=tol, rtol=tol)
+    for row in range(len(ti)):
+        for a, b, va in zip(ti[row], ji[row], tv[row]):
+            if a != b:
+                near = np.abs(tv[row] - va) <= 2 * tol
+                assert near.sum() >= 2, (row, a, b)
+
+
+@pytest.mark.parametrize("mode", ["fast_search", "quantize_int8"])
+def test_approximate_modes_match_jax_functions(tower, mode):
+    """fast_search against the JAX mips_topk_fast, quantize_int8 against
+    the JAX quantize_corpus_int8 + mips_topk_int8 (both in interpret
+    mode), on the JAX tower's query embeddings. Tolerance 1e-3: the
+    float32 towers agree to ~1e-5, which moves a bf16 or int8 rounding of
+    the query now and then."""
+    svc = _port_service(tower, **{mode: True})
+    tv, ti = svc.search(QUERIES)
+    emb = _jax_query_emb(tower, QUERIES)
+    corpus = jnp.asarray(tower[3])
+    if mode == "fast_search":
+        jv, ji = jax_fast(emb, corpus, 5, interpret=True)
+    else:
+        from cocodr_tpu.ops.pallas_mips import quantize_corpus_int8
+
+        jv, ji = jax_int8(emb, *quantize_corpus_int8(corpus), 5,
+                          interpret=True)
+    ji = [[DOC_IDS[i] for i in row] for row in np.asarray(ji)]
+    _same_ranking(tv, ti, np.asarray(jv), ji, tol=1e-3)
+
+
+def test_quantize_int8_holds_the_jax_services_corpus(tower):
+    """The int8 corpus (padded with replicas of its last row) and the
+    per-dimension scales are bit-equal to the JAX service's."""
+    jmodel, params, _, corpus = tower
+    jsvc = JaxService(jmodel, params, tokenizer, corpus, doc_ids=DOC_IDS,
+                      cfg=JaxServeConfig(top_k=5, max_query_len=8,
+                                         max_batch=8, quantize_int8=True))
+    svc = _port_service(tower, quantize_int8=True, fast_search=True)
+    assert svc.corpus.dtype == torch.int8 and svc.corpus.shape[0] == 2048
+    np.testing.assert_array_equal(svc.corpus[:300].numpy(),
+                                  np.asarray(jsvc.corpus))
+    np.testing.assert_array_equal(svc.corpus[300:].numpy(),
+                                  np.broadcast_to(np.asarray(jsvc.corpus)[-1:],
+                                                  (2048 - 300, 32)))
+    np.testing.assert_array_equal(svc.dim_scale.numpy(),
+                                  np.asarray(jsvc.dim_scale))
+
+
+def test_exact_fp32_matches_jax_service(tower):
+    """exact_fp32 wins over the other modes, as in the JAX service, whose
+    exact_fp32 search (mips_topk in float32) is the same off the TPU.
+    Tolerance 1e-3 as in test_search_matches_jax_service."""
+    jmodel, params, _, corpus = tower
+    jsvc = JaxService(jmodel, params, tokenizer, corpus, doc_ids=DOC_IDS,
+                      cfg=JaxServeConfig(top_k=5, max_query_len=8,
+                                         max_batch=8, exact_fp32=True))
+    svc = _port_service(tower, exact_fp32=True, fast_search=True,
+                        quantize_int8=True, ivf=True)
+    assert svc.corpus.dtype == torch.float32 and svc.corpus.shape[0] == 300
+    jv, ji = jsvc.search(QUERIES)
+    tv, ti = svc.search(QUERIES)
+    _same_ranking(tv, ti, jv, ji, tol=1e-3)
