@@ -10,12 +10,15 @@ Phases, each printed with its elapsed seconds:
   3. kernel checks: each kernel against its plain PyTorch version on the
      card, with its time, the plain version's time, the time of one
      library call that computes the same function where there is one, and
-     the least time the card could take: K1 fused FFN half-layer, K2 dual
-     block-max sweep and K3 extract-max top-k at the serving shapes; then
-     the sweeps K2 (plain and packed), K6 (int8), K9 (top-2 certificate)
-     and K10 (block-32) at Q = 64 and Q = 1024 over the 1,048,576-doc
-     corpus, packed argmaxes held exactly wherever a block's top two
-     scores differ by more than the tolerance;
+     the least time the card could take: K1 fused FFN half-layer (serving
+     and encode shapes), K2 dual block-max sweep and K3 extract-max top-k
+     at the serving shapes; K4 (K1 at bert-large widths), K7 (W8A8 FFN
+     half-layer, bert-base and bert-large widths) and K8 (fused attention,
+     beside scaled_dot_product_attention) at the encode shapes; then the
+     sweeps K2 (plain and packed), K6 (int8), K9 (top-2 certificate) and
+     K10 (block-32) at Q = 64 and Q = 1024 over the 1,048,576-doc corpus,
+     packed argmaxes held exactly wherever a block's top two scores differ
+     by more than the tolerance;
   4. search: search_topk over 1,024 row-normalised bf16 queries x the
      corpus at k = 100 with each method (pallas, exact2, fast, blockmax,
      refined, naive), plus mips_topk_int8 and mips_topk_blockmax_pallas:
@@ -23,14 +26,24 @@ Phases, each printed with its elapsed seconds:
      plain search up to near-ties, fast and int8 meet recall@100 bounds;
   5. serve: BERT-base (rdot_nll_condenser, random weights from the seed)
      behind RetrievalService over the same corpus, in the default (exact),
-     fast_search and quantize_int8 modes: three batches of 64 queries
-     through search_stream and one single query through search, then
-     timed batches; ids checked against an exact plain search (default
-     mode) or their recall@10 measured (approximate modes).
-Every path (the search phase, each serve mode) runs with every kernel's
-launch count set to 0 just before it and read just after, and fails if a
-kernel of the path never launched. Then one JSON line of per-kernel
-numbers, the card's name and power limit, and as the last line
+     fast_search, quantize_int8, int8_encode (a matmul_int8 tower, K7) and
+     exact_fp32 modes: three batches of 64 queries through search_stream
+     and one single query through search, then timed batches; ids checked
+     against an exact plain search (exact modes) or their recall@10
+     measured (approximate modes);
+  6. encode: 32,768 random records of up to 128 tokens written with the
+     port's RecordWriter, encoded by encode_cache (body tower, batch 256)
+     in five configurations: (a) bert-base bf16, (b) the same with length
+     buckets (32, 64, 128), (c) attention_impl="fused" (K8), (d)
+     matmul_int8 (K7), (e) bert-large (24 layers) on the first 8,192
+     records; docs/s, card span and the host's enqueue time of each; the
+     first records of (a), (c), (d) and (e) re-encoded on the CPU through
+     the plain versions, and (b), (c), (d) held against (a) by cosine.
+Every path (the search phase, each serve mode, each encode configuration)
+runs with every kernel's launch count set to 0 just before it and read
+just after, and fails if a kernel of the path never launched or a count
+differs from the path's own. Then one JSON line of per-kernel numbers,
+the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and the process exits
 non-zero; a hang ends at the watchdog with a traceback.
 """
@@ -41,10 +54,14 @@ import faulthandler
 faulthandler.dump_traceback_later(1100, exit=True)
 
 import argparse  # noqa: E402
+import copy  # noqa: E402
+import math  # noqa: E402
+import os  # noqa: E402
 import json  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
+import tempfile  # noqa: E402
 import time  # noqa: E402
 import zlib  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -70,6 +87,16 @@ QUERY_LEN = 64
 TOP_K = 10
 SEARCH_Q = 1024  # the mining / evaluation query chunk
 SEARCH_K = 100
+ENC_DOCS = 32768  # records of the encode phase
+ENC_LEN = 128  # their max_len
+ENC_BATCH = 256  # the JAX bench's encode batch
+ENC_TOKENS = ENC_BATCH * ENC_LEN  # T of the FFN kernels on the encode path
+LARGE_DOCS = 8192  # bert-large encodes the first records only
+# Limits on the share of outputs where a kernel and its plain version differ
+# at all (check_ffn and check_k8 give the readings they separate).
+K1_MAX_SHARE = 0.05
+K7_MAX_SHARE = 0.01
+K8_MAX_SHARE = 0.01
 
 
 def phase(msg: str) -> None:
@@ -132,47 +159,203 @@ def make_queries(rng, n):
             for _ in range(n)]
 
 
+def ffn_inputs(gen, dev, T, H, F, int8=False):
+    """Inputs of the FFN half-layer: r [T, H] bf16, LayerNorm parameters
+    float32, weights at BERT's init scale in nn.Linear layout: bf16 weights
+    and biases for K1, or (int8 weights, float32 scales, float32 biases)
+    quantized from float32 weights for K7."""
+    def rnd(*shape, std=1.0, mean=0.0):
+        return torch.randn(*shape, generator=gen, device=dev) * std + mean
+    bf = torch.bfloat16
+    r, s1, c1 = rnd(T, H).to(bf), rnd(H, std=0.1, mean=1.0), rnd(H, std=0.1)
+    w1, b1 = rnd(F, H, std=0.02), rnd(F, std=0.02)
+    w2, b2 = rnd(H, F, std=0.02), rnd(H, std=0.02)
+    s2, c2 = rnd(H, std=0.1, mean=1.0), rnd(H, std=0.1)
+    if not int8:
+        return (r, s1, c1, w1.to(bf), b1.to(bf), w2.to(bf), b2.to(bf), s2, c2)
+    from cocodr_tpu_torch.ops.int8_matmul import quantize_cols
+
+    w1q, sw1 = quantize_cols(w1)
+    w2q, sw2 = quantize_cols(w2)
+    return (r, s1, c1, w1q, sw1[:, 0], b1, w2q, sw2[:, 0], b2, s2, c2)
+
+
+def check_ffn(name, kern, plain, args, what, max_share):
+    """A half-layer kernel against its plain version. Tolerance: two bf16
+    ulps of the largest output (bf16 spacing <= 2^-7 |x|): h and out round
+    to bf16 (K1), or an activation's quantized value moves by one (K7),
+    after float32 sums taken in another order. A kernel that rounds at
+    another point stays inside that bound, so the share of outputs that
+    differ at all must also stay under `max_share`. On the H100 K1 differed
+    from its plain version in 0.7-1.3% of outputs and K7 in 0.03-0.05%; on
+    the CPU (tests/test_torch_ffn.py and test_torch_int8.py,
+    *_share_limit_*) moving one rounding point of K1 moves 22-29% of them,
+    and skipping K7's re-quantization of h or taking bf16 weights 67-76%.
+    -> max abs err."""
+    got = kern(*args).float()
+    ref = plain(*args).float()
+    torch.cuda.synchronize()
+    diff = (got - ref).abs()
+    err = diff.max().item()
+    tol = 2.0 ** -6 * ref.abs().max().item()
+    share = (diff > 0).float().mean().item()
+    phase(f"  {name} {what}: max_abs_err={err:.3e} tol={tol:.3e}, "
+          f"{share:.2e} of elements differ (limit {max_share:.0e})")
+    if (not err <= tol or not share <= max_share
+            or not torch.isfinite(got).all()):
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"max abs err {err}, share differing {share}")
+    return err
+
+
+def ffn_bytes(T, H, F, w_bytes, b_bytes):
+    """r in and out (bf16), both weights, both biases, four LayerNorm
+    vectors (float32)."""
+    return 2 * T * H * 2 + 2 * H * F * w_bytes + (F + H) * b_bytes + 4 * H * 4
+
+
 def check_k1(ffn, gen, dev):
-    """K1 at T = 64 * 64 tokens, bert-base widths, bf16; plus a ragged T."""
+    """K1 at T = 64 * 64 tokens (serving), bert-base widths, bf16; a
+    ragged T; and the encode path's T = 256 * 128."""
     H, F = 768, 3072
+    errs = [check_ffn("K1", ffn.fused_ffn_block, ffn.ffn_block_reference,
+                      ffn_inputs(gen, dev, T, H, F), f"T={T} H={H} F={F}",
+                      K1_MAX_SHARE)
+            for T in (4096, 1000, ENC_TOKENS)]
+    out = None
+    for T in (4096, ENC_TOKENS):
+        args = ffn_inputs(gen, dev, T, H, F)
+        ms = time_ms(lambda: ffn.fused_ffn_block(*args))
+        plain = time_ms(lambda: ffn.ffn_block_reference(*args))
+        b_ms, b_by = bound(ffn_bytes(T, H, F, 2, 2), 4 * T * H * F,
+                           BF16_FLOP_PER_S)
+        phase(f"  K1 T={T}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        if out is None:  # the serving shape stands for K1 in the summary
+            out = dict(name="K1_ffn_block", route="cuda",
+                       source="cocodr_tpu_torch/csrc/ffn_block.cu",
+                       replaces="cocodr_tpu/ops/pallas_ffn.py:130",
+                       max_abs_err=max(errs), ms=ms, plain_ms=plain,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return out
 
-    def inputs(T):
-        def rnd(*shape, std=1.0, mean=0.0):
-            return torch.randn(*shape, generator=gen, device=dev) * std + mean
-        bf = torch.bfloat16
-        return (rnd(T, H).to(bf), rnd(H, std=0.1, mean=1.0),
-                rnd(H, std=0.1), rnd(F, H, std=0.02).to(bf),
-                rnd(F, std=0.02).to(bf), rnd(H, F, std=0.02).to(bf),
-                rnd(H, std=0.02).to(bf), rnd(H, std=0.1, mean=1.0),
-                rnd(H, std=0.1))
 
-    errs = []
-    for T in (4096, 1000):
-        args = inputs(T)
-        got = ffn.fused_ffn_block(*args).float()
-        ref = ffn.ffn_block_reference(*args).float()
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        # two bf16 ulps of the largest output (bf16 spacing <= 2^-7 |x|):
-        # h and out round to bf16 after float32 sums taken in another order
-        tol = 2.0 ** -6 * ref.abs().max().item()
-        phase(f"  K1 T={T} H={H} F={F}: max_abs_err={err:.3e} tol={tol:.3e}")
-        if not err <= tol or not torch.isfinite(got).all():
-            raise AssertionError(f"K1 disagrees with its plain version: {err}")
-        errs.append(err)
-    T = 4096
-    args = inputs(T)
+def check_k4(ffn, gen, dev):
+    """K4: the JAX package's F-chunked half-layer (bert-large widths,
+    H = 1024, F = 4096) is K1's function; K1 at the encode path's T."""
+    T, H, F = ENC_TOKENS, 1024, 4096
+    args = ffn_inputs(gen, dev, T, H, F)
+    err = check_ffn("K4 (K1)", ffn.fused_ffn_block, ffn.ffn_block_reference,
+                    args, f"T={T} H={H} F={F}", K1_MAX_SHARE)
     ms = time_ms(lambda: ffn.fused_ffn_block(*args))
     plain = time_ms(lambda: ffn.ffn_block_reference(*args))
-    nbytes = (2 * T * H * 2 + 2 * H * F * 2 + (F + H) * 2 + 4 * H * 4)
-    b_ms, b_by = bound(nbytes, 4 * T * H * F, BF16_FLOP_PER_S)
-    phase(f"  K1 T={T}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by})")
-    return dict(name="K1_ffn_block", route="cuda",
+    b_ms, b_by = bound(ffn_bytes(T, H, F, 2, 2), 4 * T * H * F,
+                       BF16_FLOP_PER_S)
+    phase(f"  K4 (K1) T={T} H={H} F={F}: kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(name="K4_ffn_block_chunked", route="cuda",
                 source="cocodr_tpu_torch/csrc/ffn_block.cu",
-                replaces="cocodr_tpu/ops/pallas_ffn.py:130",
-                max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                replaces="cocodr_tpu/ops/pallas_ffn.py:156", max_abs_err=err,
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def check_k7(ffn, gen, dev):
+    """K7 at a ragged T and at the encode path's T, bert-base and
+    bert-large widths. -> the summary entry of the bert-base shape at the
+    encode path's T (the path (d) runs)."""
+    errs = [check_ffn("K7", ffn.fused_ffn_block_int8,
+                      ffn.ffn_block_int8_reference,
+                      ffn_inputs(gen, dev, 1000, 768, 3072, int8=True),
+                      "T=1000 H=768 F=3072", K7_MAX_SHARE)]
+    out = None
+    for H, F in ((768, 3072), (1024, 4096)):
+        T = ENC_TOKENS
+        args = ffn_inputs(gen, dev, T, H, F, int8=True)
+        errs.append(check_ffn("K7", ffn.fused_ffn_block_int8,
+                              ffn.ffn_block_int8_reference, args,
+                              f"T={T} H={H} F={F}", K7_MAX_SHARE))
+        ms = time_ms(lambda: ffn.fused_ffn_block_int8(*args))
+        plain = time_ms(lambda: ffn.ffn_block_int8_reference(*args), runs=3,
+                        warmup=1)
+        # int8 weights, float32 scales and biases
+        b_ms, b_by = bound(ffn_bytes(T, H, F, 1, 8), 4 * T * H * F,
+                           INT8_OP_PER_S)
+        phase(f"  K7 T={T} H={H} F={F}: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        if out is None:
+            out = dict(name="K7_ffn_block_int8", route="cuda",
+                       source="cocodr_tpu_torch/csrc/ffn_block_int8.cu",
+                       replaces="cocodr_tpu/ops/pallas_ffn.py:304",
+                       ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None)
+    out["max_abs_err"] = max(errs)
+    return out
+
+
+def check_k8(att, gen, dev):
+    """K8 at the encode shape B = 256, S = 128, N = 12, D = 64, with a
+    padding bias (lengths 16..128), beside scaled_dot_product_attention on
+    the same inputs (timed only: it defers no rounding the way K8 does).
+    Also odd shapes: bucket widths, S not a multiple of 16, S = 512.
+    Besides the bound, the share of outputs that differ at all stays under
+    K8_MAX_SHARE: on the CPU (tests/test_torch_attention.py,
+    test_k8_share_limit_separates_rounding_points; B = 16, S = 128,
+    N = 12) sums in another order (float64) move 0.01% of them, while a
+    softmax normalised after the PV product (an online softmax) moves 47%
+    and float32 probabilities 41%, all inside the max-abs bound."""
+    import torch.nn.functional as F
+
+    err = 0.0
+    for B, S, N in ((ENC_BATCH, ENC_LEN, 12), (ENC_BATCH, 32, 12),
+                    (ENC_BATCH, 64, 16), (8, 200, 16), (4, 512, 16),
+                    (3, 40, 3)):
+        q, k, v = (torch.randn(B, S, N, 64, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        lens = torch.randint(min(16, S), S + 1, (B,), generator=gen,
+                             device=dev)
+        bias = torch.where(torch.arange(S, device=dev)[None, :]
+                           < lens[:, None], 0.0, -1e9).float().contiguous()
+        got = att.fused_attention_seq_major(q, k, v, bias, 0.125).float()
+        ref = att.attention_reference(q, k, v, bias, 0.125).float()
+        torch.cuda.synchronize()
+        diff = (got - ref).abs()
+        e = diff.max().item()
+        share = (diff > 0).float().mean().item()
+        # one bf16 ulp of the output, plus one ulp of a probability times
+        # max |v|: a probability or an output rounded to the other side of
+        # a bf16 boundary after float32 sums in another order
+        tol = 2.0 ** -8 * (ref.abs().max().item() + v.abs().max().item())
+        phase(f"  K8 B={B} S={S} N={N} D=64: max_abs_err={e:.3e} "
+              f"tol={tol:.3e}, {share:.2e} of elements differ "
+              f"(limit {K8_MAX_SHARE:.0e})")
+        if (not e <= tol or not share <= K8_MAX_SHARE
+                or not torch.isfinite(got).all()):
+            raise AssertionError(f"K8 disagrees with its plain version: max "
+                                 f"abs err {e}, share differing {share}")
+        err = max(err, e)
+        if S != ENC_LEN:
+            continue
+        ms = time_ms(lambda: att.fused_attention_seq_major(q, k, v, bias,
+                                                           0.125))
+        plain = time_ms(lambda: att.attention_reference(q, k, v, bias,
+                                                        0.125))
+        mask = bias[:, None, None, :].to(torch.bfloat16)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=0.125))
+        b_ms, b_by = bound(4 * B * S * N * 64 * 2 + B * S * 4,
+                           4 * B * N * S * S * 64, BF16_FLOP_PER_S)
+        phase(f"  K8 B={B} S={S} N={N}: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        entry = dict(name="K8_attention", route="cuda",
+                     source="cocodr_tpu_torch/csrc/attention.cu",
+                     replaces="cocodr_tpu/ops/pallas_attention.py:41",
+                     ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=lib)
+    entry["max_abs_err"] = err
+    return entry
 
 
 def check_k2(mips, corpus, gen, dev):
@@ -425,6 +608,7 @@ def check_results(vals, ids, scores, ref_v, tol):
 def kernel_counters():
     """name -> (wrapper, attribute) of every kernel's launch count."""
     from cocodr_tpu_torch.ops import (
+        attention,
         ffn,
         mips_blockmax,
         mips_exact2,
@@ -437,8 +621,20 @@ def kernel_counters():
             "K2_dual_sweep_packed": (mips_hier.dual_sweep, "pack_launches"),
             "K3_topk": (mips_hier.topk, "launches"),
             "K6_int8_sweep": (mips_int8.int8_sweep, "launches"),
+            "K7_ffn_block_int8": (ffn.fused_ffn_block_int8, "launches"),
+            "K8_attention": (attention.fused_attention_seq_major,
+                             "launches"),
             "K9_top2_sweep": (mips_exact2.top2_sweep, "launches"),
             "K10_block32_sweep": (mips_blockmax.block_sweep, "launches")}
+
+
+def check_counts(path, counts, expect):
+    """Every count equal to the path's own: expect names the kernels the
+    path launches, every other count must be 0."""
+    want = {name: 0 for name in counts}
+    want.update(expect)
+    if counts != want:
+        raise AssertionError(f"{path}: launch counts {counts} != {want}")
 
 
 def zero_counts():
@@ -542,11 +738,18 @@ def search(gen, dev, corpus, corpus_i8, dim_scale):
     return counts
 
 
-SERVE_MODES = {  # mode -> (ServeConfig flags, sweep kernel, K3 per call)
-    "default": ({}, "K2_dual_sweep", 3),
-    "fast_search": ({"fast_search": True}, "K2_dual_sweep_packed", 2),
-    "quantize_int8": ({"quantize_int8": True}, "K6_int8_sweep", 2),
+# mode -> (ServeConfig flags, matmul_int8 tower, launches per call of the
+# kernels other than the tower's FFN kernel, which launches once a layer)
+SERVE_MODES = {
+    "default": ({}, False, {"K2_dual_sweep": 1, "K3_topk": 3}),
+    "fast_search": ({"fast_search": True}, False,
+                    {"K2_dual_sweep_packed": 1, "K3_topk": 2}),
+    "quantize_int8": ({"quantize_int8": True}, False,
+                      {"K6_int8_sweep": 1, "K3_topk": 2}),
+    "int8_encode": ({}, True, {"K2_dual_sweep": 1, "K3_topk": 3}),
+    "exact_fp32": ({"exact_fp32": True}, False, {}),
 }
+EXACT_MODES = ("default", "int8_encode", "exact_fp32")
 
 
 def serve(args, dev, corpus):
@@ -554,27 +757,35 @@ def serve(args, dev, corpus):
     from cocodr_tpu_torch.models.bert import BertConfig
     from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
 
-    cfg = BertConfig.base(dtype=torch.bfloat16)
-    model = build_dual_encoder("rdot_nll_condenser", cfg, device=dev,
-                               generator=torch.Generator().manual_seed(
-                                   args.seed))
+    def tower(int8):
+        # the same random weights from the seed; the int8 tower keeps its
+        # FFN weights float32 and quantizes them per call (K7)
+        cfg = BertConfig.base(dtype=torch.bfloat16, matmul_int8=int8)
+        return build_dual_encoder("rdot_nll_condenser", cfg, device=dev,
+                                  generator=torch.Generator().manual_seed(
+                                      args.seed))
+
+    models = {False: tower(False)}
     counts = {}
-    for mode in SERVE_MODES:
-        counts[mode] = serve_mode(args, dev, corpus, model, mode)
+    for mode, (_, int8, _) in SERVE_MODES.items():
+        if int8 not in models:
+            models[int8] = tower(int8)
+        counts[mode] = serve_mode(args, dev, corpus, models[int8], mode)
     return counts
 
 
 def serve_mode(args, dev, corpus, model, mode):
     from cocodr_tpu_torch.pipelines.serve import RetrievalService, ServeConfig
 
-    flags, sweep, k3_per_call = SERVE_MODES[mode]
+    flags, int8, per_call = SERVE_MODES[mode]
     svc = RetrievalService(
         model, HashTokenizer(), corpus,
         cfg=ServeConfig(top_k=TOP_K, max_query_len=QUERY_LEN,
                         max_batch=BATCH, **flags),
         device=dev,
     )
-    phase(f"  {mode}: service up, BERT-base bf16, {svc.n_docs} docs "
+    tower = "int8 FFN (K7)" if int8 else "bf16"
+    phase(f"  {mode}: service up, BERT-base {tower}, {svc.n_docs} docs "
           f"resident as {svc.corpus.dtype}")
     rng = np.random.default_rng(args.seed)
     batches = [make_queries(rng, BATCH) for _ in range(3)]
@@ -582,19 +793,18 @@ def serve_mode(args, dev, corpus, model, mode):
     svc.search(make_queries(rng, BATCH))  # warm-up: cuBLAS, allocator
     torch.cuda.synchronize()
 
+    ffn_kernel = "K7_ffn_block_int8" if int8 else "K1_ffn_block"
     zero_counts()
     t = time.perf_counter()
     results = list(svc.search_stream(batches))
     stream_s = time.perf_counter() - t
     one = svc.search(single)
     calls = len(batches) + 1
-    counts = read_counts(f"serve {mode}", ["K1_ffn_block", sweep, "K3_topk"])
     layers = model.cfg.bert.num_hidden_layers
-    expect = {name: 0 for name in counts}
-    expect.update({"K1_ffn_block": layers * calls, sweep: calls,
-                   "K3_topk": k3_per_call * calls})
-    if counts != expect:
-        raise AssertionError(f"launch counts {counts} != {expect}")
+    expect = {name: n * calls for name, n in per_call.items()}
+    expect[ffn_kernel] = layers * calls
+    counts = read_counts(f"serve {mode}", list(expect))
+    check_counts(f"serve {mode}", counts, expect)
 
     errs, recalls = [], []
     with torch.inference_mode():
@@ -608,13 +818,13 @@ def serve_mode(args, dev, corpus, model, mode):
                                   torch.from_numpy(tok_mask).to(dev))
             scores, ref_v, ref_i = exact_search(emb[:len(texts)], corpus,
                                                 TOP_K)
-            if mode == "default":
+            if mode in EXACT_MODES:
                 tol = 1e-4 * max(1.0, scores.abs().max().item())
                 errs.append(check_results(vals, ids, scores, ref_v, tol))
             else:
                 check_approximate(mode, vals, ids, svc.n_docs, TOP_K)
                 recalls.append(recall(ids, ref_i))
-    if mode == "default":
+    if mode in EXACT_MODES:
         phase(f"  results equal the exact plain search: max score err "
               f"{max(errs):.3e} (tol 1e-4 x max |score|)")
     else:
@@ -669,6 +879,193 @@ def serve_mode(args, dev, corpus, model, mode):
     return counts
 
 
+def write_records(args, path):
+    """ENC_DOCS records of lengths uniform in 16..128, token ids in
+    [1000, 30522), through the port's RecordWriter. -> a TokenCache."""
+    from cocodr_tpu_torch.data.records import RecordWriter, TokenCache
+
+    rng = np.random.default_rng(args.seed)
+    lengths = rng.integers(16, ENC_LEN + 1, ENC_DOCS)
+    tokens = rng.integers(1000, 30522, (ENC_DOCS, ENC_LEN))
+    with RecordWriter(path, ENC_LEN) as w:
+        for n, row in zip(lengths, tokens):
+            w.write(row[:n])
+    return TokenCache(path)
+
+
+# configuration -> (BertConfig changes, length buckets, records)
+ENCODE_CONFIGS = {
+    "a_default": ({}, (), ENC_DOCS),
+    "b_buckets": ({}, (32, 64, 128), ENC_DOCS),
+    "c_fused_attention": ({"attention_impl": "fused"}, (), ENC_DOCS),
+    "d_matmul_int8": ({"matmul_int8": True}, (), ENC_DOCS),
+    "e_bert_large": ({"large": True}, (), LARGE_DOCS),
+}
+CPU_DOCS = {"a_default": 16, "c_fused_attention": 16, "d_matmul_int8": 16,
+            "e_bert_large": 4}
+# min per-row cosine, card against the plain versions on the CPU: bf16
+# activations rounded at other points after float32 sums in other orders
+CPU_COSINE = 0.999
+# min per-row cosine against (a): bucketing changes only the padding the
+# attention masks, fused attention rounds the probabilities before PV;
+# the int8 bound is tests/test_int8_encode.py's
+VS_DEFAULT_COSINE = {"b_buckets": 0.999, "c_fused_attention": 0.999,
+                     "d_matmul_int8": 0.99}
+
+
+def cosines(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                             * np.linalg.norm(b, axis=1))
+
+
+def expected_encode_counts(name, bert, cache, buckets, n):
+    """The launches of one encode configuration: one FFN kernel (K1, or K7
+    with matmul_int8) per layer and batch, and K8 per layer and batch with
+    fused attention (every bucket width is a multiple of 8)."""
+    if buckets:
+        lengths = cache.lengths()[:n]
+        edges = (0,) + tuple(buckets)
+        batches = sum(
+            math.ceil(int(((lengths > lo) & (lengths <= hi)).sum())
+                      / ENC_BATCH)
+            for lo, hi in zip(edges, edges[1:]))
+    else:
+        batches = math.ceil(n / ENC_BATCH)
+    per_batch = bert.num_hidden_layers * batches
+    expect = {("K7_ffn_block_int8" if bert.matmul_int8 else "K1_ffn_block"):
+              per_batch}
+    if bert.attention_impl == "fused":
+        expect["K8_attention"] = per_batch
+    return expect, batches
+
+
+def layer_breakdown(name, model, tokens, mask):
+    """Card time of the first encoder layer and of its parts at a
+    full-width batch (CUDA events, median of 5): self-attention (the Q, K,
+    V projections and the attention itself, einsum or K8), the output
+    projection with the residual add, and the rest of the layer, the FFN
+    half-layer (K1 or K7)."""
+    from cocodr_tpu_torch.models.bert import linear, make_attention_bias
+
+    bert = model.encoder
+    layer = bert.encoder.layer[0]
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        ids = torch.as_tensor(tokens).to(dev)
+        bias = make_attention_bias(torch.as_tensor(mask).to(dev))
+        pos = torch.arange(ids.shape[1], device=dev)[None, :]
+        h = bert.embeddings(ids, torch.zeros_like(ids), pos)
+        ctx = layer.attention.self(h, bias)
+        attn = time_ms(lambda: layer.attention.self(h, bias), runs=5)
+        proj = time_ms(lambda: h + linear(ctx, layer.attention.output.dense,
+                                          bert.cfg.dtype), runs=5)
+        whole = time_ms(lambda: layer(h, bias), runs=5)
+    phase(f"  encode {name} layer 0 of {bert.cfg.num_hidden_layers}: "
+          f"{whole:.3f} ms = self-attention {attn:.3f} + output projection "
+          f"{proj:.3f} + FFN half-layer {whole - attn - proj:.3f} (card, "
+          f"by difference)")
+
+
+def encode_config(args, dev, cache, name):
+    """encode_cache over one configuration -> (embeddings, counts)."""
+    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+    from cocodr_tpu_torch.pipelines.encode import (
+        EncodeConfig,
+        Encoder,
+        encode_cache,
+    )
+
+    changes, buckets, n = ENCODE_CONFIGS[name]
+    changes = dict(changes)
+    make = BertConfig.large if changes.pop("large", False) else BertConfig.base
+    bert = make(dtype=torch.bfloat16, **changes)
+    model = build_dual_encoder("rdot_nll_condenser", bert, device=dev,
+                               generator=torch.Generator().manual_seed(
+                                   args.seed))
+    enc = Encoder(model, is_query=False, device=dev)
+    tokens, mask = cache.batch_with_mask(np.arange(ENC_BATCH))
+    enc.collect(enc.dispatch(tokens, mask))  # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+
+    cfg = EncodeConfig(batch_size=ENC_BATCH, length_buckets=buckets)
+    idx = np.arange(n)
+    zero_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    out = encode_cache(enc, cache, cfg, indices=idx)
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t
+    span = start.elapsed_time(end)
+    expect, batches = expected_encode_counts(name, bert, cache, buckets, n)
+    counts = read_counts(f"encode {name}", list(expect))
+    check_counts(f"encode {name}", counts, expect)
+    if out.shape != (n, bert.hidden_size) or not np.isfinite(out).all():
+        raise AssertionError(f"encode {name}: bad output {out.shape}")
+
+    # the host's time to enqueue one full-width batch on an idle card (a
+    # run of batches would fill the launch queue and time the card), beside
+    # the batch's span on the card: when the two are close, the host's
+    # launches bound encoding
+    enq = []
+    with torch.inference_mode():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            enc(tokens, mask)
+            enq.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        batch_ms = time_ms(lambda: enc(tokens, mask), runs=5)
+    card = nvidia_smi()
+    phase(f"  encode {name}: {n / wall:.1f} docs/s ({n} docs, {batches} "
+          f"batches of {ENC_BATCH}, {wall:.3f} s host clock, card span "
+          f"{span:.1f} ms); per full-width batch: card {batch_ms:.3f} ms, "
+          f"host enqueue {statistics.median(enq):.3f} ms [{card}]")
+    if not buckets:  # (b) runs (a)'s model
+        layer_breakdown(name, model, tokens, mask)
+
+    if name in CPU_DOCS:
+        # the same model on the CPU takes the kernels' plain versions
+        m = CPU_DOCS[name]
+        cpu_enc = Encoder(copy.deepcopy(model).cpu(), device="cpu")
+        ref = encode_cache(cpu_enc, cache, EncodeConfig(batch_size=m),
+                           indices=np.arange(m), prefetch_depth=0)
+        cos = cosines(out[:m], ref)
+        phase(f"  encode {name}: {m} records re-encoded on the CPU through "
+              f"the plain versions: min cosine {cos.min():.6f} (bound "
+              f"{CPU_COSINE}), max abs diff "
+              f"{np.abs(out[:m] - ref).max():.4f}")
+        if not cos.min() >= CPU_COSINE:
+            raise AssertionError(f"encode {name}: card and CPU disagree")
+    del enc, model
+    return out, counts
+
+
+def encode(args, dev):
+    """The encode phase -> {configuration: counts}."""
+    counts, outs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        cache = write_records(args, os.path.join(tmp, "passages"))
+        phase(f"  {len(cache)} records (max_len {cache.max_len}, lengths "
+              f"16..128) written and mapped in "
+              f"{time.perf_counter() - t:.2f} s")
+        for name in ENCODE_CONFIGS:
+            outs[name], counts[name] = encode_config(args, dev, cache, name)
+            torch.cuda.empty_cache()
+    for name, bound_cos in VS_DEFAULT_COSINE.items():
+        cos = cosines(outs[name], outs["a_default"])
+        phase(f"  encode {name} against a_default: min cosine "
+              f"{cos.min():.6f}, mean {cos.mean():.6f} (bound {bound_cos})")
+        if not cos.min() >= bound_cos:
+            raise AssertionError(f"encode {name} disagrees with a_default")
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -684,7 +1081,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     import cocodr_tpu_torch
-    from cocodr_tpu_torch.ops import _build, ffn, mips_hier, mips_int8
+    from cocodr_tpu_torch.ops import _build, attention, ffn, mips_hier
+    from cocodr_tpu_torch.ops import mips_int8
 
     if Path(cocodr_tpu_torch.__file__).resolve().parent.parent != ROOT:
         raise RuntimeError("cocodr_tpu_torch must come from this checkout")
@@ -703,6 +1101,9 @@ def main() -> None:
     corpus = make_corpus(gen, dev)
     kernels.append(check_k2(mips_hier, corpus, gen, dev))
     kernels.append(check_k3(mips_hier, gen, dev))
+    kernels.append(check_k4(ffn, gen, dev))
+    kernels.append(check_k7(ffn, gen, dev))
+    kernels.append(check_k8(attention, gen, dev))
     corpus_i8, dim_scale = mips_int8.quantize_corpus_int8(corpus)
     sweeps = check_sweeps(gen, dev, corpus, corpus_i8, dim_scale)
 
@@ -712,16 +1113,29 @@ def main() -> None:
 
     phase("serve")
     serve_counts = serve(args, dev, corpus)
+    del corpus
+    torch.cuda.empty_cache()
+
+    phase("encode")
+    encode_counts = encode(args, dev)
 
     # each kernel's numbers at the shape of the path that launches it, and
-    # its launches on that path
-    paths = {"K1_ffn_block": serve_counts["default"],
-             "K2_dual_sweep": serve_counts["default"],
-             "K3_topk": serve_counts["default"],
-             "K2_dual_sweep_packed": serve_counts["fast_search"],
-             "K6_int8_sweep": serve_counts["quantize_int8"],
-             "K9_top2_sweep": search_counts,
-             "K10_block32_sweep": search_counts}
+    # its launches on that path: (path's counts, the wrapper's counter)
+    paths = {"K1_ffn_block": (serve_counts["default"], "K1_ffn_block"),
+             "K2_dual_sweep": (serve_counts["default"], "K2_dual_sweep"),
+             "K3_topk": (serve_counts["default"], "K3_topk"),
+             "K2_dual_sweep_packed": (serve_counts["fast_search"],
+                                      "K2_dual_sweep_packed"),
+             "K4_ffn_block_chunked": (encode_counts["e_bert_large"],
+                                      "K1_ffn_block"),
+             "K6_int8_sweep": (serve_counts["quantize_int8"],
+                               "K6_int8_sweep"),
+             "K7_ffn_block_int8": (encode_counts["d_matmul_int8"],
+                                   "K7_ffn_block_int8"),
+             "K8_attention": (encode_counts["c_fused_attention"],
+                              "K8_attention"),
+             "K9_top2_sweep": (search_counts, "K9_top2_sweep"),
+             "K10_block32_sweep": (search_counts, "K10_block32_sweep")}
     sources = {
         "K2_dual_sweep_packed": ("mips_sweep.cu", "pallas_mips.py:100",
                                  BATCH),
@@ -736,7 +1150,9 @@ def main() -> None:
                             replaces="cocodr_tpu/ops/" + replaces,
                             library_ms=None, **sweeps[name, q_rows]))
     for entry in kernels:
-        entry["launches"] = paths[entry["name"]][entry["name"]]
+        counts, counter = paths[entry["name"]]
+        entry["launches"] = counts[counter]
+    kernels.sort(key=lambda e: list(paths).index(e["name"]))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -34,68 +34,15 @@
 #include <cuda_runtime.h>
 
 #include "gemm_nt.cuh"
+#include "rowwise.cuh"
 
 namespace {
 
-constexpr int kThreads = gemm::kThreads;
-constexpr int kRowsPerBlock = kThreads / 32;  // ln kernels: a warp per row
+using namespace rowwise;
+
 constexpr int kUpBM = 128, kUpBN = 128;
 constexpr int kDownBM = 64, kDownBN = 128;
-
-enum Act { kGelu = 0, kGeluTanh = 1, kRelu = 2 };
-
-__device__ __forceinline__ float activation(float x, int act) {
-  if (act == kGelu) return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
-  if (act == kGeluTanh) {
-    const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-    return 0.5f * x * (1.0f + tanhf(inner));
-  }
-  return fmaxf(x, 0.0f);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ void unpack8(const uint4& raw, float* f) {
-  const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) f[e] = __bfloat162float(x[e]);
-}
-
-__device__ __forceinline__ uint4 pack8(const float* f) {
-  __align__(16) __nv_bfloat16 x[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) x[e] = __float2bfloat16(f[e]);
-  return *reinterpret_cast<const uint4*>(x);
-}
-
-// LayerNorm statistics of a models/bert.LayerNorm: mean, then the mean of
-// the squared centred values; a warp reads its row in 8-wide vectors.
-template <class Load8>
-__device__ __forceinline__ void row_stats(Load8 load8, int H, float eps,
-                                          float* mean, float* rstd) {
-  const int lane = threadIdx.x & 31;
-  float s = 0.0f;
-  for (int c = lane * 8; c < H; c += 256) {
-    float f[8];
-    load8(c, f);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) s += f[e];
-  }
-  const float m = warp_sum(s) / H;
-  float v = 0.0f;
-  for (int c = lane * 8; c < H; c += 256) {
-    float f[8];
-    load8(c, f);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v += (f[e] - m) * (f[e] - m);
-  }
-  *mean = m;
-  *rstd = rsqrtf(warp_sum(v) / H + eps);
-}
+static_assert(kThreads == gemm::kThreads, "row and GEMM blocks share a size");
 
 __global__ void __launch_bounds__(kThreads)
 ln1_kernel(const __nv_bfloat16* __restrict__ r, const float* __restrict__ s1,
@@ -171,35 +118,8 @@ ffn_down_kernel(const __nv_bfloat16* __restrict__ h,
       const float u32 = (x[e] - m) * rs * s1[c + e] + c1[c + e];
       o[e] = (u32 + v[e]) + __bfloat162float(b2[c + e]);
     }
-    float4* dst = reinterpret_cast<float4*>(&z[static_cast<size_t>(t) * H + c]);
-    dst[0] = make_float4(o[0], o[1], o[2], o[3]);
-    dst[1] = make_float4(o[4], o[5], o[6], o[7]);
+    store8_f32(&z[static_cast<size_t>(t) * H + c], o);
   });
-}
-
-__global__ void __launch_bounds__(kThreads)
-ln2_kernel(const float* __restrict__ z, const float* __restrict__ s2,
-           const float* __restrict__ c2, __nv_bfloat16* __restrict__ out,
-           int T, int H, float eps) {
-  const int t = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (t >= T) return;  // warp-uniform; no barrier in this kernel
-  const int lane = threadIdx.x & 31;
-  const float* row = z + static_cast<size_t>(t) * H;
-  auto load8 = [&](int c, float* f) {
-    const float4 a = *reinterpret_cast<const float4*>(&row[c]);
-    const float4 b = *reinterpret_cast<const float4*>(&row[c + 4]);
-    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-  };
-  float m, rs;
-  row_stats(load8, H, eps, &m, &rs);
-  for (int c = lane * 8; c < H; c += 256) {
-    float f[8];
-    load8(c, f);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) f[e] = (f[e] - m) * rs * s2[c + e] + c2[c + e];
-    *reinterpret_cast<uint4*>(&out[static_cast<size_t>(t) * H + c]) = pack8(f);
-  }
 }
 
 }  // namespace
@@ -225,9 +145,9 @@ extern "C" int cocodr_ffn_block_bf16(const void* r, const void* s1, const void* 
   auto* st = static_cast<float*>(stats);
   auto* hb = static_cast<__nv_bfloat16*>(h);
   auto* zf = static_cast<float*>(z);
-  const int row_blocks = (T + kRowsPerBlock - 1) / kRowsPerBlock;
+  const int rows = row_blocks(T);
 
-  ln1_kernel<<<row_blocks, kThreads, 0, s>>>(rb, s1f, c1f, ub, st, T, H, eps);
+  ln1_kernel<<<rows, kThreads, 0, s>>>(rb, s1f, c1f, ub, st, T, H, eps);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
@@ -253,8 +173,8 @@ extern "C" int cocodr_ffn_block_bf16(const void* r, const void* s1, const void* 
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  ln2_kernel<<<row_blocks, kThreads, 0, s>>>(zf, static_cast<const float*>(s2),
-                                             static_cast<const float*>(c2),
-                                             static_cast<__nv_bfloat16*>(out), T, H, eps);
+  ln2_kernel<<<rows, kThreads, 0, s>>>(zf, static_cast<const float*>(s2),
+                                       static_cast<const float*>(c2),
+                                       static_cast<__nv_bfloat16*>(out), T, H, eps);
   return cudaGetLastError();
 }

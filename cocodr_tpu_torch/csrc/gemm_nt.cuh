@@ -176,19 +176,23 @@ __device__ __forceinline__ void mainloop(
   __syncthreads();
 }
 
-// (bf16 tiles) Hands each lane 8 consecutive accumulator values of one row
-// of each of the warp's fragments: epi(row, col, v[8]) with (row, col) the
-// global coordinates of v[0]. Uses kThreads / 32 * 16 * kScrLd floats of smem.
-template <int BM, int BN, class Epi>
+// Hands each lane 8 consecutive accumulator values (float for bf16 tiles,
+// int for int8 tiles) of one row of each of the warp's fragments:
+// epi(row, col, v[8]) with (row, col) the global coordinates of v[0]. Every
+// lane of the warp calls epi for every fragment, so epi may use warp
+// shuffles. Uses kThreads / 32 * 16 * kScrLd 4-byte words of smem.
+template <int BM, int BN, typename E = __nv_bfloat16, class Epi>
 __device__ __forceinline__ void epilogue(
-    typename Tile<BM, BN>::Acc (&acc)[Tile<BM, BN>::kFM][Tile<BM, BN>::kFN],
+    typename Tile<BM, BN, E>::Acc (&acc)[Tile<BM, BN, E>::kFM]
+                                        [Tile<BM, BN, E>::kFN],
     void* smem, int m0, int n0, Epi epi) {
-  using T = Tile<BM, BN>;
+  using T = Tile<BM, BN, E>;
+  using AccT = typename Operand<E>::Acc;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int wm = warp >> 2;
   const int wn = warp & 3;
-  float* scr = static_cast<float*>(smem) + warp * 16 * kScrLd;
+  AccT* scr = static_cast<AccT*>(smem) + warp * 16 * kScrLd;
   const int er = lane >> 1;
   const int ec = (lane & 1) * 8;
 #pragma unroll
@@ -197,7 +201,7 @@ __device__ __forceinline__ void epilogue(
     for (int j = 0; j < T::kFN; ++j) {
       wmma::store_matrix_sync(scr, acc[i][j], kScrLd, wmma::mem_row_major);
       __syncwarp();
-      float v[8];
+      AccT v[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) v[e] = scr[er * kScrLd + ec + e];
       __syncwarp();

@@ -6,7 +6,10 @@ like an HF checkpoint); compute runs in `BertConfig.dtype` (bf16 on the
 card) with float32 LayerNorm statistics and float32 attention scores and
 softmax statistics, as in the JAX package. The half-layer after attention
 (LN1 -> FFN -> +residual -> LN2) is one call of `ops.ffn.ffn_block`, the
-K1 kernel on the card.
+K1 kernel on the card, or of `ops.ffn.ffn_block_int8` (K7) when
+`BertConfig.matmul_int8` is set. With `attention_impl="fused"` the
+attention of a sequence length divisible by 8 is one call of
+`ops.attention.fused_attention_seq_major` (K8).
 
 This slice carries the inference path of BERT positions: no dropout (a
 module in training mode with nonzero dropout raises), no RoBERTa position
@@ -21,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cocodr_tpu_torch.ops.ffn import ffn_block, layer_norm_f32
+from cocodr_tpu_torch.ops.attention import fused_attention_seq_major
+from cocodr_tpu_torch.ops.ffn import ffn_block, ffn_block_int8, layer_norm_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,10 +43,28 @@ class BertConfig:
     initializer_range: float = 0.02
     layer_norm_eps: float = 1e-12
     dtype: torch.dtype = torch.float32  # compute dtype
+    # 'einsum' (default) or 'fused': K8 for sequence lengths divisible by 8
+    attention_impl: str = "einsum"
+    # W8A8 int8 FFN half-layers (K7), an inference mode; the FFN weights
+    # stay float32 and are quantized per call, as in the JAX package
+    matmul_int8: bool = False
+
+    def __post_init__(self):
+        if self.attention_impl not in ("einsum", "fused"):
+            raise ValueError(
+                f"attention_impl must be 'einsum' or 'fused', got "
+                f"{self.attention_impl!r}"
+            )
 
     @classmethod
     def base(cls, **kw) -> "BertConfig":
         return cls(**kw)
+
+    @classmethod
+    def large(cls, **kw) -> "BertConfig":
+        return cls(**{**dict(hidden_size=1024, num_hidden_layers=24,
+                             num_attention_heads=16, intermediate_size=4096),
+                      **kw})
 
     @classmethod
     def tiny(cls, **kw) -> "BertConfig":
@@ -120,9 +142,10 @@ class BertSelfAttention(nn.Module):
         self.value = nn.Linear(H, H)
 
     def forward(self, h, attn_bias):
-        """Einsum attention with float32 scores and max; the softmax
-        division is applied to the context, (exp(s - max)·V) / Σexp, as in
-        cocodr_tpu/models/bert.py."""
+        """K8 when attention_impl is 'fused' and S % 8 == 0, as in the JAX
+        package; otherwise einsum attention with float32 scores and max,
+        the softmax division applied to the context, (exp(s - max)·V) /
+        Σexp, as in cocodr_tpu/models/bert.py."""
         cfg = self.cfg
         B, S, H = h.shape
         N, D = cfg.num_attention_heads, cfg.head_dim
@@ -130,6 +153,11 @@ class BertSelfAttention(nn.Module):
         q = linear(h, self.query, dt).view(B, S, N, D)
         k = linear(h, self.key, dt).view(B, S, N, D)
         v = linear(h, self.value, dt).view(B, S, N, D)
+        if cfg.attention_impl == "fused" and S % 8 == 0:
+            bias = attn_bias[:, 0, 0, :].contiguous()
+            ctx = fused_attention_seq_major(q, k, v, bias,
+                                            1.0 / math.sqrt(D))
+            return ctx.reshape(B, S, H)
         scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
         scores = scores * (1.0 / math.sqrt(D)) + attn_bias
         m = scores.amax(-1, keepdim=True)
@@ -189,6 +217,19 @@ class BertLayer(nn.Module):
         B, S, H = r.shape
         ln1, ln2 = self.attention.output.LayerNorm, self.output.LayerNorm
         up, down = self.intermediate.dense, self.output.dense
+        if cfg.matmul_int8:
+            if self.training and cfg.hidden_dropout_prob > 0:
+                raise ValueError(
+                    "matmul_int8 is an inference mode (no int8 backward, no "
+                    "dropout inside the fused block); call .eval() or zero "
+                    "hidden_dropout_prob"
+                )
+            out = ffn_block_int8(
+                r.reshape(B * S, H), ln1.weight, ln1.bias,
+                up.weight, up.bias, down.weight, down.bias,
+                ln2.weight, ln2.bias, cfg.hidden_act, cfg.layer_norm_eps,
+            )
+            return out.view(B, S, H)
         out = ffn_block(
             r.reshape(B * S, H), ln1.weight, ln1.bias,
             up.weight.to(dt), up.bias.to(dt),
@@ -243,9 +284,16 @@ def cast_matmul_weights(module: nn.Module, dtype: torch.dtype) -> None:
     place. The forward casts them to that dtype on every call anyway, so
     the results are unchanged; a server saves the casts (about a dozen
     launches and ~40 MB of traffic per bert-base layer and batch).
-    LayerNorm parameters stay float32, as the kernels take them."""
+    LayerNorm parameters stay float32, as the kernels take them, and so do
+    the FFN weights of a matmul_int8 layer: K7 quantizes them from float32,
+    as the JAX package does, and bf16-rounded weights would give other int8
+    values and scales."""
+    keep = set()
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Embedding)):
+        if isinstance(m, BertLayer) and m.cfg.matmul_int8:
+            keep.update((m.intermediate.dense, m.output.dense))
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Embedding)) and m not in keep:
             m.to(dtype)
 
 

@@ -1,11 +1,20 @@
-"""K1: the fused FFN half-layer LN1 -> dense -> GELU -> dense -> +residual
--> LN2 of a post-LN BERT block.
+"""K1 and K7: the fused FFN half-layer LN1 -> dense -> GELU -> dense ->
++residual -> LN2 of a post-LN BERT block, in bf16 (K1) and in W8A8 int8
+(K7).
 
-Counterpart of cocodr_tpu/ops/pallas_ffn.py (`fused_ffn_block` with
-f_chunks=1 and its dispatcher `ffn_block`). The CUDA kernel is
-`csrc/ffn_block.cu`; `ffn_block_reference` is its plain PyTorch version.
-Both reproduce the TPU kernel, not `_xla_ffn_block`: the residual into LN2
-is LN1's float32 output u32, added in float32.
+Counterpart of cocodr_tpu/ops/pallas_ffn.py: `fused_ffn_block` with
+f_chunks=1 and its dispatcher `ffn_block` (K1, kernel `csrc/ffn_block.cu`),
+and `fused_ffn_block_int8` with its dispatcher `ffn_block_int8` (K7,
+kernel `csrc/ffn_block_int8.cu`). `ffn_block_reference` and
+`ffn_block_int8_reference` are the kernels' plain PyTorch versions. Both
+reproduce the TPU kernels, not the XLA fallbacks: the residual into LN2 is
+LN1's float32 output u32, added in float32 as (u32 + y) + b2.
+
+K1 also computes the F-chunked kernel of the JAX package
+(`_ffn_block_chunked_kernel`, K4, which streams bert-large's weights
+through VMEM): chunking was a VMEM work-around, and the port's kernel takes
+any H and F that are multiples of 128. The chunked kernel sums
+(u32 + b2) + sum of the chunks' y in float32, in another order.
 
 Weights are in nn.Linear layout: w1 [F, H], w2 [H, F] (the JAX package
 passes the transposes, kernel [H, F] and [F, H]).
@@ -16,6 +25,11 @@ import torch
 import torch.nn.functional as F
 
 from cocodr_tpu_torch.ops import _build
+from cocodr_tpu_torch.ops.int8_matmul import (
+    int8_matmul,
+    quantize_cols,
+    quantize_rows,
+)
 
 ACTIVATIONS = {"gelu": 0, "gelu_new": 1, "relu": 2}
 
@@ -37,6 +51,32 @@ def layer_norm_f32(x32, scale, bias, eps):
     mean = x32.mean(-1, keepdim=True)
     var = (x32 - mean).square().mean(-1, keepdim=True)
     return (x32 - mean) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+
+
+def _check_no_grad(name, *params):
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        raise NotImplementedError(
+            f"{name} has no backward kernel yet; call it under "
+            "torch.no_grad() or torch.inference_mode()"
+        )
+
+
+def _require_layer_norms(H, *params):
+    for name, p in zip(("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias"),
+                       params):
+        _build.require_cuda_operand(name, p, (torch.float32,), 1)
+        if p.shape != (H,):
+            raise ValueError(f"{name}: expected ({H},), got {tuple(p.shape)}")
+
+
+def _require_widths(T, H, Fdim):
+    if H % 128 or Fdim % 128:
+        raise ValueError(
+            f"the kernel takes H % 128 == 0 and F % 128 == 0; got H={H}, "
+            f"F={Fdim}"
+        )
+    if T > 65535 * 64:
+        raise ValueError(f"T={T} exceeds the kernel's grid")
 
 
 def ffn_block_reference(r, ln1_scale, ln1_bias, w1, b1, w2, b2, ln2_scale,
@@ -63,25 +103,17 @@ def fused_ffn_block(r, ln1_scale, ln1_bias, w1, b1, w2, b2, ln2_scale,
                                    ln2_scale, ln2_bias, act, eps)
     if act not in ACTIVATIONS:
         raise ValueError(f"unknown activation {act}")
-    params = (r, ln1_scale, ln1_bias, w1, b1, w2, b2, ln2_scale, ln2_bias)
-    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
-        raise NotImplementedError(
-            "fused_ffn_block has no backward kernel yet; call it under "
-            "torch.no_grad() or torch.inference_mode()"
-        )
+    _check_no_grad("fused_ffn_block", r, ln1_scale, ln1_bias, w1, b1, w2,
+                   b2, ln2_scale, ln2_bias)
     T, H = r.shape
     Fdim = w1.shape[0]
-    bf16, f32 = (torch.bfloat16,), (torch.float32,)
+    bf16 = (torch.bfloat16,)
     _build.require_cuda_operand("r", r, bf16, 2)
     _build.require_cuda_operand("w1", w1, bf16, 2)
     _build.require_cuda_operand("w2", w2, bf16, 2)
     _build.require_cuda_operand("b1", b1, bf16, 1)
     _build.require_cuda_operand("b2", b2, bf16, 1)
-    for name, p in (("ln1_scale", ln1_scale), ("ln1_bias", ln1_bias),
-                    ("ln2_scale", ln2_scale), ("ln2_bias", ln2_bias)):
-        _build.require_cuda_operand(name, p, f32, 1)
-        if p.shape != (H,):
-            raise ValueError(f"{name}: expected ({H},), got {tuple(p.shape)}")
+    _require_layer_norms(H, ln1_scale, ln1_bias, ln2_scale, ln2_bias)
     if (w1.shape != (Fdim, H) or w2.shape != (H, Fdim) or b1.shape != (Fdim,)
             or b2.shape != (H,)):
         raise ValueError(
@@ -89,13 +121,7 @@ def fused_ffn_block(r, ln1_scale, ln1_bias, w1, b1, w2, b2, ln2_scale,
             f"H={H}; got {tuple(w1.shape)}, {tuple(b1.shape)}, "
             f"{tuple(w2.shape)}, {tuple(b2.shape)}"
         )
-    if H % 128 or Fdim % 128:
-        raise ValueError(
-            f"the kernel takes H % 128 == 0 and F % 128 == 0; got H={H}, "
-            f"F={Fdim}"
-        )
-    if T > 65535 * 64:
-        raise ValueError(f"T={T} exceeds the kernel's grid")
+    _require_widths(T, H, Fdim)
     out = torch.empty_like(r)
     if T == 0:
         return out
@@ -120,7 +146,111 @@ def fused_ffn_block(r, ln1_scale, ln1_bias, w1, b1, w2, b2, ln2_scale,
 fused_ffn_block.launches = 0
 
 # The name models/bert.py calls, as in the JAX package. There the
-# dispatcher picks between the Pallas kernel and XLA by backend and weight
-# size; here the wrapper itself picks by the tensor's device, and one
-# kernel covers both bert-base and bert-large widths.
+# dispatcher picks between the Pallas kernel (weights resident or streamed
+# in F chunks) and XLA by backend and weight size; here the wrapper itself
+# picks by the tensor's device, and one kernel covers both bert-base and
+# bert-large widths.
 ffn_block = fused_ffn_block
+
+
+# --- K7: the W8A8 half-layer ----------------------------------------------
+
+def ffn_block_int8_reference(r, ln1_scale, ln1_bias, w1q, sw1, b1, w2q, sw2,
+                             b2, ln2_scale, ln2_bias, act: str = "gelu",
+                             eps: float = 1e-12):
+    """Plain version of K7, the TPU kernel's arithmetic in its order.
+    r [T, H]; w1q [F, H] and w2q [H, F] int8 with per-output-channel
+    float32 scales sw1 [F], sw2 [H]; biases and LayerNorm parameters
+    float32. Activations are quantized per token in float32, the int8
+    products summed exactly; the result is cast to r.dtype."""
+    u32 = layer_norm_f32(r.float(), ln1_scale, ln1_bias, eps)
+    uq, su = quantize_rows(u32)
+    h = int8_matmul(uq, w1q).float() * (su * sw1.float()[None, :])
+    h = activation(act)(h + b1.float())
+    hq, sh = quantize_rows(h)
+    y = int8_matmul(hq, w2q).float() * (sh * sw2.float()[None, :])
+    z32 = u32 + y + b2.float()
+    return layer_norm_f32(z32, ln2_scale, ln2_bias, eps).to(r.dtype)
+
+
+def fused_ffn_block_int8(r, ln1_scale, ln1_bias, w1q, sw1, b1, w2q, sw2, b2,
+                         ln2_scale, ln2_bias, act: str = "gelu",
+                         eps: float = 1e-12):
+    """K7 wrapper. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (bf16 r; int8 w1q [F, H], w2q [H, F]; float32
+    scales, biases and LayerNorm parameters; H and F multiples of 128) or
+    raises. Inference only."""
+    if r.device.type == "cpu":
+        return ffn_block_int8_reference(r, ln1_scale, ln1_bias, w1q, sw1, b1,
+                                        w2q, sw2, b2, ln2_scale, ln2_bias,
+                                        act, eps)
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {act}")
+    _check_no_grad("fused_ffn_block_int8", r, ln1_scale, ln1_bias, sw1, b1,
+                   sw2, b2, ln2_scale, ln2_bias)
+    T, H = r.shape
+    Fdim = w1q.shape[0]
+    i8, f32 = (torch.int8,), (torch.float32,)
+    _build.require_cuda_operand("r", r, (torch.bfloat16,), 2)
+    _build.require_cuda_operand("w1q", w1q, i8, 2)
+    _build.require_cuda_operand("w2q", w2q, i8, 2)
+    for name, p in (("sw1", sw1), ("b1", b1), ("sw2", sw2), ("b2", b2)):
+        _build.require_cuda_operand(name, p, f32, 1)
+    _require_layer_norms(H, ln1_scale, ln1_bias, ln2_scale, ln2_bias)
+    if (w1q.shape != (Fdim, H) or w2q.shape != (H, Fdim)
+            or sw1.shape != (Fdim,) or b1.shape != (Fdim,)
+            or sw2.shape != (H,) or b2.shape != (H,)):
+        raise ValueError(
+            f"weights must be w1q [F, H], sw1 [F], b1 [F], w2q [H, F], "
+            f"sw2 [H], b2 [H] with H={H}; got {tuple(w1q.shape)}, "
+            f"{tuple(sw1.shape)}, {tuple(b1.shape)}, {tuple(w2q.shape)}, "
+            f"{tuple(sw2.shape)}, {tuple(b2.shape)}"
+        )
+    _require_widths(T, H, Fdim)
+    out = torch.empty_like(r)
+    if T == 0:
+        return out
+    # scratch between the kernel's launches: uq and its row scales, LN1's
+    # (mean, rstd) per row, the running max |h| per row (float bits as
+    # int32), h in float32, hq and its row scales, the pre-LN2 sum z
+    dev = r.device
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    uq = empty((T, H), torch.int8)
+    stats = empty((T, 2), torch.float32)
+    su = empty((T,), torch.float32)
+    hmax = empty((T,), torch.int32)
+    h = empty((T, Fdim), torch.float32)
+    hq = empty((T, Fdim), torch.int8)
+    sh = empty((T,), torch.float32)
+    z = empty((T, H), torch.float32)
+    p = _build.ptr
+    err = _build.library().lib.cocodr_ffn_block_int8(
+        p(r), p(ln1_scale), p(ln1_bias), p(w1q), p(sw1), p(b1), p(w2q),
+        p(sw2), p(b2), p(ln2_scale), p(ln2_bias), p(uq), p(stats), p(su),
+        p(hmax), p(h), p(hq), p(sh), p(z), p(out),
+        T, H, Fdim, ACTIVATIONS[act], eps, _build.stream_of(r),
+    )
+    _build.check(err, "ffn_block_int8 kernel")
+    fused_ffn_block_int8.launches += 1
+    return out
+
+
+fused_ffn_block_int8.launches = 0
+
+
+def ffn_block_int8(r, ln1_scale, ln1_bias, w1, b1, w2, b2, ln2_scale,
+                   ln2_bias, act: str = "gelu", eps: float = 1e-12):
+    """The W8A8 half-layer from float weights (nn.Linear layout): quantizes
+    w1 [F, H] and w2 [H, F] per output channel, then calls K7's wrapper.
+    The weights are quantized as float32, as the JAX package quantizes its
+    float32 parameters: a caller that holds them in bf16 gets other int8
+    values and scales (models/bert.py::cast_matmul_weights keeps them
+    float32 for this path)."""
+    w1q, sw1 = quantize_cols(w1)
+    w2q, sw2 = quantize_cols(w2)
+    return fused_ffn_block_int8(r, ln1_scale, ln1_bias, w1q, sw1[:, 0],
+                                b1.float(), w2q, sw2[:, 0], b2.float(),
+                                ln2_scale, ln2_bias, act, eps)

@@ -1,1 +1,1 @@
-"""End-to-end pipelines of the port (serving)."""
+"""End-to-end pipelines of the port (encoding, serving)."""

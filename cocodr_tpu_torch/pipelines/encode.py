@@ -1,0 +1,205 @@
+"""Corpus and query encoding: the counterpart of cocodr_tpu/pipelines/encode.py.
+
+`encode_cache` reads batches of token records off a `data.records.TokenCache`
+(gathered on a prefetch thread), encodes them with an `Encoder` (the query
+or body tower of a models.dual_encoder.DualEncoder) and returns the
+embeddings [N, D] as a host numpy array. With `EncodeConfig.length_buckets`
+records are grouped by length and each group runs at its bucket's width.
+
+PyTorch launches asynchronously, so the loop keeps one batch in flight: it
+enqueues batch i + 1 before it reads batch i's embeddings back (a copy to
+pinned host memory that waits on an event of batch i alone). The JAX
+package's `to_host` field is not carried over: the JAX function ignores it
+and always returns host arrays, as this one does. Multi-vector encoding
+(`encode_cache_multivector`) comes with the multi-chunk models (ROADMAP.md
+Queue 1 item 3), and a mesh with sharding (item 11).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from cocodr_tpu_torch.data.prefetch import prefetch
+from cocodr_tpu_torch.models.bert import cast_matmul_weights
+from cocodr_tpu_torch.ops._device import resolve_device
+from cocodr_tpu_torch.utils.misc import add_embedding_noise
+
+
+@dataclasses.dataclass
+class EncodeConfig:
+    batch_size: int = 512
+    emb_dtype: np.dtype = np.float32
+    # e.g. (32, 64, 128): encode short records at narrower widths
+    length_buckets: tuple = ()
+
+
+class Encoder:
+    """The embedding function of one tower on one device.
+
+    The model is moved to `device` and put in eval mode, and its matmul
+    weights are held in the compute dtype (`cast_matmul_weights`, which
+    keeps a matmul_int8 model's FFN weights float32). noise_level > 0 adds
+    the reference's Gaussian embedding perturbation, drawn fresh for every
+    batch from one generator seeded `noise_seed` (the JAX package folds
+    the batch number into one key)."""
+
+    def __init__(self, model, mesh=None, is_query: bool = False,
+                 noise_level: float = 0.0, noise_seed: int = 0,
+                 device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "sharded encoding is not ported yet: ROADMAP.md Queue 1 "
+                "item 11 (parallel/*)"
+            )
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        cast_matmul_weights(self.model, model.cfg.bert.dtype)
+        self._method = (self.model.query_emb if is_query
+                        else self.model.body_emb)
+        self.noise_level = noise_level
+        self._gen = None
+        if noise_level > 0.0:
+            self._gen = torch.Generator(device=self.device)
+            self._gen.manual_seed(noise_seed)
+
+    def __call__(self, ids, mask):
+        """ids, mask [B, S] (numpy or tensors) -> embeddings [B, D] on the
+        device, in the compute dtype; returns before the card finishes."""
+        ids = torch.as_tensor(ids).to(self.device, non_blocking=True)
+        mask = torch.as_tensor(mask).to(self.device, non_blocking=True)
+        with torch.inference_mode():
+            emb = self._method(ids, mask)
+            if self._gen is not None:
+                emb = add_embedding_noise(emb, self._gen, self.noise_level)
+        return emb
+
+    def dispatch(self, ids, mask):
+        """Enqueue one batch and the copy of its float32 embeddings to
+        pinned host memory; -> a handle for collect()."""
+        with torch.inference_mode():
+            emb = self(ids, mask).float()
+            if self.device.type != "cuda":
+                return emb, None
+            host = torch.empty(emb.shape, dtype=emb.dtype, pin_memory=True)
+            host.copy_(emb, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        return host, done
+
+    @staticmethod
+    def collect(handle) -> np.ndarray:
+        """Wait for a dispatch() handle -> float32 numpy [B, D]."""
+        host, done = handle
+        if done is not None:
+            done.synchronize()
+        return host.numpy()
+
+
+def _encode_stream(encoder, stream, emit):
+    """emit(key, pad, embeddings) for every (key, pad, tokens, mask) of
+    the stream, in order, with the next batch enqueued before the current
+    one is read back."""
+    pending = None
+    for key, pad, tokens, mask in stream:
+        handle = encoder.dispatch(tokens, mask)
+        if pending is not None:
+            emit(pending[0], pending[1], encoder.collect(pending[2]))
+        pending = (key, pad, handle)
+    if pending is not None:
+        emit(pending[0], pending[1], encoder.collect(pending[2]))
+
+
+def _padded_batches(cache, idx, bs, width=None):
+    """(start, pad, tokens, mask) per batch of idx; the trailing batch is
+    padded to bs by repeating its last index (one shape for every batch);
+    width cuts the columns to a bucket's width."""
+    for s in range(0, len(idx), bs):
+        chunk = idx[s:s + bs]
+        pad = bs - len(chunk)
+        if pad:
+            chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad)])
+        tokens, mask = cache.batch_with_mask(chunk)
+        if width is not None:
+            tokens = np.ascontiguousarray(tokens[:, :width])
+            mask = np.ascontiguousarray(mask[:, :width])
+        yield s, pad, tokens, mask
+
+
+def _stream(batches, prefetch_depth):
+    if prefetch_depth > 0:
+        return prefetch(batches, depth=prefetch_depth, device_put=False)
+    return batches
+
+
+def encode_cache(
+    encoder: Encoder,
+    cache,
+    cfg: EncodeConfig = EncodeConfig(),
+    indices: Optional[np.ndarray] = None,
+    progress: Optional[Callable[[int, int], None]] = None,
+    prefetch_depth: int = 2,
+) -> np.ndarray:
+    """Encode all (or the selected) records of a token cache -> [N, D]
+    embeddings in cfg.emb_dtype, in the order of `indices`.
+
+    The trailing partial batch is padded to the full batch size and trimmed
+    on output. Record gathers run `prefetch_depth` batches ahead on a
+    background thread. progress(done, total) is called after every batch
+    (after every bucket with length_buckets)."""
+    n = len(cache) if indices is None else len(indices)
+    idx = np.arange(n) if indices is None else np.asarray(indices)
+    if cfg.length_buckets:
+        return _encode_bucketed(encoder, cache, cfg, idx, progress,
+                                prefetch_depth)
+    bs = cfg.batch_size
+    out = None
+
+    def emit(s, pad, emb):
+        nonlocal out
+        if pad:
+            emb = emb[:bs - pad]
+        if out is None:
+            out = np.empty((n, emb.shape[-1]), cfg.emb_dtype)
+        out[s:s + len(emb)] = emb
+        if progress:
+            progress(min(s + bs, n), n)
+
+    _encode_stream(encoder,
+                   _stream(_padded_batches(cache, idx, bs), prefetch_depth),
+                   emit)
+    return out
+
+
+def _encode_bucketed(encoder, cache, cfg, idx, progress, prefetch_depth):
+    """Length-bucketed encode: records are grouped by token length into
+    cfg.length_buckets (ascending widths; the last must cover max_len), a
+    record of length l going to the bucket (lo, width] that holds it, and
+    each group runs at its bucket's width. Output order matches `idx`."""
+    lengths = cache.lengths()[idx]
+    buckets = sorted(cfg.length_buckets)
+    assert buckets[-1] >= cache.max_len, (buckets, cache.max_len)
+    bs = cfg.batch_size
+    out = None
+
+    for b, width in enumerate(buckets):
+        lo = buckets[b - 1] if b else 0
+        sel = np.nonzero((lengths > lo) & (lengths <= width))[0]
+        if len(sel) == 0:
+            continue
+
+        def emit(s, pad, emb, sel=sel):
+            nonlocal out
+            if pad:
+                emb = emb[:bs - pad]
+            if out is None:
+                out = np.empty((len(idx), emb.shape[-1]), cfg.emb_dtype)
+            out[sel[s:s + len(emb)]] = emb
+
+        batches = _padded_batches(cache, idx[sel], bs, width)
+        _encode_stream(encoder, _stream(batches, prefetch_depth), emit)
+        if progress:
+            progress(width, buckets[-1])
+    return out

@@ -108,3 +108,89 @@ def test_residual_is_float32():
                                    1e-12).to(torch.bfloat16)
     f32_res = tffn.ffn_block_reference(*args)
     assert not torch.equal(f32_res, bf16_res)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_chunked_kernel_at_bert_large_widths(dtype):
+    """K4: the JAX package streams bert-large's FFN weights through VMEM
+    in F chunks (`fused_ffn_block` with f_chunks > 1, the chunked Pallas
+    kernel); the port's K1 takes H = 1024, F = 4096 whole. T = 16, weights
+    at BERT's init scale (std 0.02). The chunked kernel sums
+    (u32 + b2) + y_0 + y_1 where K1 sums (u32 + y) + b2. Tolerance:
+    float32, 2e-5 for sums in another order and the A&S erf polynomial;
+    bf16, one bf16 ulp of the output (2^-7 relative, |out| < 8), for a
+    rounding of h or out on the other side of a bf16 boundary."""
+    H_L, F_L = 1024, 4096
+    rng = np.random.RandomState(5)
+    f = np.float32
+    x = dict(
+        r=rng.randn(16, H_L).astype(f),
+        s1=(1 + 0.1 * rng.randn(H_L)).astype(f),
+        c1=(0.1 * rng.randn(H_L)).astype(f),
+        w1=(0.02 * rng.randn(H_L, F_L)).astype(f),
+        b1=(0.02 * rng.randn(F_L)).astype(f),
+        w2=(0.02 * rng.randn(F_L, H_L)).astype(f),
+        b2=(0.02 * rng.randn(H_L)).astype(f),
+        s2=(1 + 0.1 * rng.randn(H_L)).astype(f),
+        c2=(0.1 * rng.randn(H_L)).astype(f),
+    )
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = fused_ffn_block(*_jax_args(x, jdt), token_tile=16, f_chunks=2,
+                           interpret=True)
+    want = np.asarray(want, np.float32)
+    got = tffn.ffn_block_reference(*_torch_args(x, tdt)).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+    else:
+        np.testing.assert_allclose(got, want, atol=2 ** -7 * 8, rtol=0)
+        assert np.mean(got != want) < 0.01
+
+
+def _bert_base_block(T=128, seed=0):
+    """r [T, 768] and a half-layer's weights at BERT's init scale (std
+    0.02), float32, in nn.Linear layout."""
+    rng = np.random.RandomState(seed)
+    H_, F_ = 768, 3072
+    t = lambda a: torch.from_numpy(a.astype(np.float32))  # noqa: E731
+    return (t(rng.randn(T, H_)), t(1 + 0.1 * rng.randn(H_)),
+            t(0.1 * rng.randn(H_)), t(0.02 * rng.randn(F_, H_)),
+            t(0.02 * rng.randn(F_)), t(0.02 * rng.randn(H_, F_)),
+            t(0.02 * rng.randn(H_)), t(1 + 0.1 * rng.randn(H_)),
+            t(0.1 * rng.randn(H_)))
+
+
+def _k1_variant(variant, r, s1, c1, w1, b1, w2, b2, s2, c2):
+    """K1's function with its sums in float64 (another order, the same
+    rounding points), or with one rounding point moved."""
+    bf = torch.bfloat16
+    dt = torch.float64 if variant == "sum_order" else torch.float32
+    u32 = tffn.layer_norm_f32(r.float().to(dt), s1.to(dt), c1.to(dt), 1e-12)
+    u = u32 if variant == "u_unrounded" else u32.to(bf).to(dt)
+    h = tffn.activation("gelu")(u @ w1.to(dt).t() + b1.to(dt))
+    h = h if variant == "h_unrounded" else h.to(bf).to(dt)
+    res = u32.to(bf).to(dt) if variant == "residual_rounded" else u32
+    z = res + h @ w2.to(dt).t() + b2.to(dt)
+    return tffn.layer_norm_f32(z, s2.to(dt), c2.to(dt), 1e-12).to(bf)
+
+
+@pytest.mark.parametrize("variant", ["sum_order", "h_unrounded",
+                                     "u_unrounded", "residual_rounded"])
+def test_k1_share_limit_separates_rounding_points(variant):
+    """chip_smoke.py holds K1 to its plain version by two bounds: two bf16
+    ulps of the largest output, and at most 5% of outputs differing at
+    all. Here, at bert-base widths (T = 128, bf16), sums taken in another
+    order (float64) stay under 5%, while a kernel that moved one rounding
+    point (h or u left in float32, or a bf16 residual) moves more than 10%
+    of the outputs although it stays inside the max-abs bound."""
+    x = _bert_base_block()
+    bf = torch.bfloat16
+    args = (x[0].to(bf), x[1], x[2], x[3].to(bf), x[4].to(bf), x[5].to(bf),
+            x[6].to(bf), x[7], x[8])
+    ref = tffn.ffn_block_reference(*args).float()
+    diff = (_k1_variant(variant, *args).float() - ref).abs()
+    share = (diff > 0).float().mean().item()
+    assert diff.max().item() <= 2.0 ** -6 * ref.abs().max().item()
+    if variant == "sum_order":
+        assert share < 0.05
+    else:
+        assert share > 0.10

@@ -19,7 +19,9 @@ MODULES = [
     "cocodr_tpu_torch",
     "cocodr_tpu_torch.ops._build",
     "cocodr_tpu_torch.ops._device",
+    "cocodr_tpu_torch.ops.attention",
     "cocodr_tpu_torch.ops.ffn",
+    "cocodr_tpu_torch.ops.int8_matmul",
     "cocodr_tpu_torch.ops.mips",
     "cocodr_tpu_torch.ops.mips_blockmax",
     "cocodr_tpu_torch.ops.mips_exact2",
@@ -30,7 +32,13 @@ MODULES = [
     "cocodr_tpu_torch.models.convert",
     "cocodr_tpu_torch.parallel",
     "cocodr_tpu_torch.parallel.topk",
+    "cocodr_tpu_torch.pipelines.encode",
     "cocodr_tpu_torch.pipelines.serve",
+    "cocodr_tpu_torch.data",
+    "cocodr_tpu_torch.data.prefetch",
+    "cocodr_tpu_torch.data.records",
+    "cocodr_tpu_torch.utils",
+    "cocodr_tpu_torch.utils.misc",
     "chip_smoke",
 ]
 

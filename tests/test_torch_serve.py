@@ -223,3 +223,61 @@ def test_exact_fp32_matches_jax_service(tower):
     jv, ji = jsvc.search(QUERIES)
     tv, ti = svc.search(QUERIES)
     _same_ranking(tv, ti, jv, ji, tol=1e-3)
+
+
+def test_int8_encode_service_matches_jax_service(tower):
+    """A matmul_int8 query tower (the JAX `serve --int8-encode`) behind the
+    default search, against the JAX service with the same int8 tower and
+    weights. Tolerance 1e-3 as in test_search_matches_jax_service; the
+    int8 towers agree to ~1e-6."""
+    _, params, _, corpus = tower
+    jcfg = dataclasses.replace(JaxBertConfig.tiny(), intermediate_size=128,
+                               matmul_int8=True)
+    jmodel = jax_build("rdot_nll_condenser", jcfg)
+    jsvc = JaxService(jmodel, params, tokenizer, corpus, doc_ids=DOC_IDS,
+                      cfg=JaxServeConfig(top_k=5, max_query_len=8,
+                                         max_batch=8))
+    cfg = MODEL_REGISTRY["rdot_nll_condenser"](
+        BertConfig.tiny(intermediate_size=128, matmul_int8=True))
+    model = DualEncoder(cfg)
+    model.load_state_dict(convert.params_from_jax(jax.device_get(params),
+                                                  cfg))
+    svc = RetrievalService(model, tokenizer, corpus, doc_ids=DOC_IDS,
+                           cfg=ServeConfig(top_k=5, max_query_len=8,
+                                           max_batch=8), device="cpu")
+    jv, ji = jsvc.search(QUERIES)
+    tv, ti = svc.search(QUERIES)
+    _same_ranking(tv, ti, jv, ji, tol=1e-3)
+
+
+def test_int8_service_quantizes_float32_weights(tower):
+    """With bf16 compute the service holds its matmul weights in bf16, but
+    a matmul_int8 tower's FFN weights stay float32: its query embeddings
+    equal those of an uncast copy of the tower (which quantizes its
+    float32 weights per call, as the JAX package does), and differ from a
+    tower whose FFN weights were rounded to bf16 first."""
+    state = tower[2].state_dict()
+    cfg = MODEL_REGISTRY["rdot_nll_condenser"](
+        BertConfig.tiny(intermediate_size=128, matmul_int8=True,
+                        dtype=torch.bfloat16))
+
+    def fresh():
+        model = DualEncoder(cfg).eval()
+        model.load_state_dict(state)
+        return model
+
+    svc = RetrievalService(fresh(), tokenizer, tower[3],
+                           cfg=ServeConfig(top_k=5, max_query_len=8,
+                                           max_batch=8), device="cpu")
+    ffn_w = svc.model.encoder.encoder.layer[0].intermediate.dense.weight
+    assert ffn_w.dtype == torch.float32
+    rounded = fresh()
+    for layer in rounded.encoder.encoder.layer:
+        for lin in (layer.intermediate.dense, layer.output.dense):
+            lin.weight.data = lin.weight.data.to(torch.bfloat16).float()
+    ids, mask = svc._tokenize(QUERIES[:8])
+    ids, mask = torch.from_numpy(ids), torch.from_numpy(mask)
+    with torch.inference_mode():
+        got = svc.model.query_emb(ids, mask)
+        assert torch.equal(got, fresh().query_emb(ids, mask))
+        assert not torch.equal(got, rounded.query_emb(ids, mask))
