@@ -14,7 +14,8 @@ Phases, each printed with its elapsed seconds:
      and encode shapes), K2 dual block-max sweep and K3 extract-max top-k
      at the serving shapes; K4 (K1 at bert-large widths), K7 (W8A8 FFN
      half-layer, bert-base and bert-large widths) and K8 (fused attention,
-     beside scaled_dot_product_attention) at the encode shapes; then the
+     beside scaled_dot_product_attention) at the encode shapes, K5 (the
+     FFN of the dropout path) at the training shapes; then the
      sweeps K2 (plain and packed), K6 (int8), K9 (top-2 certificate) and
      K10 (block-32) at Q = 64 and Q = 1024 over the 1,048,576-doc corpus,
      packed argmaxes held exactly wherever a block's top two scores differ
@@ -38,11 +39,24 @@ Phases, each printed with its elapsed seconds:
      matmul_int8 (K7), (e) bert-large (24 layers) on the first 8,192
      records; docs/s, card span and the host's enqueue time of each; the
      first records of (a), (c), (d) and (e) re-encoded on the CPU through
-     the plain versions, and (b), (c), (d) held against (a) by cosine.
-Every path (the search phase, each serve mode, each encode configuration)
-runs with every kernel's launch count set to 0 just before it and read
-just after, and fails if a kernel of the path never launched or a count
-differs from the path's own. Then one JSON line of per-kernel numbers,
+     the plain versions, and (b), (c), (d) held against (a) by cosine;
+  7. train: BM25-warmup training of BERT-base (rdot_nll_condenser, random
+     weights from the seed, bf16 compute, batch 64 of 128-token triples of
+     hashed words) through run_warmup: with dropout 0.1, every FFN runs K5
+     (36 per step); 20 steps saving at 10 and 20, then a second run_warmup
+     that resumes from checkpoint-20 to step 25; triplets/s, the card's
+     forward, backward and optimizer ms per step beside the host's time
+     to issue them, K5's share of the forward, the card's busy share of
+     one profiled step, peak memory and the step's bound; then 5 steps
+     without
+     dropout and with attention_impl="fused" (K1 and K8, 36 per step
+     each); then one step at batch 8, dropout off, on the card and on the
+     CPU through the plain versions from the same weights, held together
+     by the loss and the clipped gradients' cosines.
+Every path (the search phase, each serve mode, each encode configuration,
+each training run) runs with every kernel's launch count set to 0 just
+before it and read just after, and fails if a kernel of the path never
+launched or a count differs from the path's own. Then one JSON line of per-kernel numbers,
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and the process exits
 non-zero; a hang ends at the watchdog with a traceback.
@@ -95,8 +109,29 @@ LARGE_DOCS = 8192  # bert-large encodes the first records only
 # Limits on the share of outputs where a kernel and its plain version differ
 # at all (check_ffn and check_k8 give the readings they separate).
 K1_MAX_SHARE = 0.05
+K5_MAX_SHARE = 0.05
 K7_MAX_SHARE = 0.01
 K8_MAX_SHARE = 0.01
+TRAIN_BATCH = 64  # triples per step (the warmup preset's large batch)
+TRAIN_LEN = 128  # max_seq_len of every tower
+TRAIN_T = TRAIN_BATCH * TRAIN_LEN  # T of K5 (one tower's FFN)
+TRAIN_STEPS, TRAIN_SAVE, TRAIN_RESUME = 20, 10, 25
+NODROP_STEPS = 5
+CMP_BATCH = 8  # the card-against-CPU step, at full depth
+# card against the CPU's plain versions, one step, dropout off. bf16
+# rounding at other places moves the clipped gradients: at BERT-base,
+# random weights, on the H100 the global cosine was 0.9936 and the loss
+# 1.6% apart; bf16 against float32 on the CPU gives 0.9949, 1.4% and a
+# worst tensor of 0.925. With 2 layers the three towers' embeddings
+# barely depend on their inputs (loss ~ln 2), the gradient is a
+# difference of near-equal terms, and rounding alone took the cosine to
+# 0.96. A backward that ignores a kernel's input or differentiates
+# another formulation gives cosines of 0.0-0.7, or leaves the global
+# cosine near 1 and the worst tensor near 0 (q ignored in K8's
+# backward): tests/test_torch_train.py::test_compare_bounds_*.
+CMP_LOSS_RTOL = 0.05
+CMP_GLOBAL_COSINE = 0.98
+CMP_TENSOR_COSINE = 0.8
 
 
 def phase(msg: str) -> None:
@@ -258,6 +293,41 @@ def check_k4(ffn, gen, dev):
                 replaces="cocodr_tpu/ops/pallas_ffn.py:156", max_abs_err=err,
                 ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
+
+
+def check_k5(ffn, gen, dev):
+    """K5 (the FFN of the dropout path) at bert-base widths: a ragged T,
+    the training path's T = 64 * 128 (one tower of a warmup step) and the
+    JAX warmup preset's T = 256 * 128. Besides the max-abs bound, the share
+    of outputs that differ at all stays under K5_MAX_SHARE: on the CPU
+    (tests/test_torch_ffn.py, test_k5_share_limit_*; T = 128) sums in
+    another order move 0.5% of them, a moved rounding point (h in float32,
+    a bf16 pre-activation, y rounded before b2) 27-59%. -> the summary
+    entry of T = TRAIN_T."""
+    H, F = 768, 3072
+    errs, out = [], None
+    for T in (1000, TRAIN_T, 4 * TRAIN_T):
+        x, _, _, w1, b1, w2, b2, _, _ = ffn_inputs(gen, dev, T, H, F)
+        args = (x, w1, b1, w2, b2)
+        errs.append(check_ffn("K5", ffn.fused_ffn, ffn.ffn_reference, args,
+                              f"T={T} H={H} F={F}", K5_MAX_SHARE))
+        if T == 1000:
+            continue
+        ms = time_ms(lambda: ffn.fused_ffn(*args))
+        plain = time_ms(lambda: ffn.ffn_reference(*args))
+        # x in, out, both weights, both biases (bf16)
+        b_ms, b_by = bound(2 * T * H * 2 + 2 * H * F * 2 + (F + H) * 2,
+                           4 * T * H * F, BF16_FLOP_PER_S)
+        phase(f"  K5 T={T}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        if out is None:
+            out = dict(name="K5_ffn", route="cuda",
+                       source="cocodr_tpu_torch/csrc/ffn_block.cu",
+                       replaces="cocodr_tpu/ops/pallas_ffn.py:62",
+                       ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None)
+    out["max_abs_err"] = max(errs)
+    return out
 
 
 def check_k7(ffn, gen, dev):
@@ -617,6 +687,7 @@ def kernel_counters():
     )
 
     return {"K1_ffn_block": (ffn.fused_ffn_block, "launches"),
+            "K5_ffn": (ffn.fused_ffn, "launches"),
             "K2_dual_sweep": (mips_hier.dual_sweep, "launches"),
             "K2_dual_sweep_packed": (mips_hier.dual_sweep, "pack_launches"),
             "K3_topk": (mips_hier.topk, "launches"),
@@ -1066,6 +1137,360 @@ def encode(args, dev):
     return counts
 
 
+def write_triples(args, path, n):
+    """n lines of `query \t positive \t negative`: queries of 4-15 and
+    passages of 30-119 random words (hashed by HashTokenizer, truncated at
+    TRAIN_LEN tokens)."""
+    rng = np.random.default_rng(args.seed + 1)
+
+    def text(lo, hi):
+        return " ".join(f"w{x}" for x in rng.integers(0, 50000,
+                                                       rng.integers(lo, hi)))
+
+    with open(path, "w", encoding="utf8") as f:
+        for _ in range(n):
+            f.write(f"{text(4, 16)}\t{text(30, 120)}\t{text(30, 120)}\n")
+    return path
+
+
+def train_step_flops(bert, tokens):
+    """Operations of one warmup step (three towers, `tokens` tokens of
+    TRAIN_LEN-token sequences), counted from the code: per token and
+    layer the forward's Q, K, V and output projections (8 H^2), the
+    scores and the PV product (4 S H) and the FFN (4 H F); the backward
+    twice the forward's; the backward's recompute of the FFN (K1's and
+    K5's autograd.Functions run the XLA pair again, 4 H F)."""
+    H, F, L = bert.hidden_size, bert.intermediate_size, bert.num_hidden_layers
+    fwd = 8 * H * H + 4 * TRAIN_LEN * H + 4 * H * F
+    return tokens * L * (3 * fwd + 4 * H * F)
+
+
+class StepRecorder:
+    """Wraps a train step: synchronises after each step and records its
+    step number, loss (float), end time on the host clock and every
+    kernel's launches in the step."""
+
+    def __init__(self, step):
+        self.step, self.records, self.launches = step, [], []
+
+    def __call__(self, state, batch, gens):
+        before = {n: getattr(f, a) for n, (f, a) in kernel_counters().items()}
+        loss, acc = self.step(state, batch, gens)
+        value = loss.item()  # waits for the card
+        self.records.append((state.step, value, time.perf_counter()))
+        self.launches.append({n: getattr(f, a) - before[n]
+                              for n, (f, a) in kernel_counters().items()})
+        return loss, acc
+
+
+class CountingTokenizer(HashTokenizer):
+    calls = 0
+
+    def __call__(self, texts, **kw):
+        self.calls += 1
+        return super().__call__(texts, **kw)
+
+
+def warmup_run(args, dev, path, ckpt, bert, steps, resume, dropout):
+    """One run_warmup of a model built from the seed, to step `steps` ->
+    (state, recorder, tokenizer)."""
+    from cocodr_tpu_torch.core.configs import OptimizerConfig
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+    from cocodr_tpu_torch.pipelines.train_step import build_train_step
+    from cocodr_tpu_torch.pipelines.warmup import WarmupConfig, run_warmup
+    from cocodr_tpu_torch.utils.train_state import TrainState
+
+    model = build_dual_encoder("rdot_nll_condenser", bert, device=dev,
+                               generator=torch.Generator().manual_seed(
+                                   args.seed))
+    opt = OptimizerConfig(lr=2e-4, warmup_steps=5, total_steps=100
+                          ).build(model.parameters())
+    state = TrainState(model, opt)
+    rec, tok = StepRecorder(build_train_step()), CountingTokenizer()
+    cfg = WarmupConfig(max_seq_len=TRAIN_LEN, batch_size=TRAIN_BATCH,
+                       num_epochs=1, save_steps=TRAIN_SAVE, max_steps=steps,
+                       log_every=10 ** 9, keep_checkpoints=2)
+    run_warmup(state, rec, path, tok, cfg, ckpt, resume=resume,
+               dropout_seed=args.seed if dropout else None)
+    return state, rec, tok
+
+
+def check_steps(name, rec, first_step, last_step, per_step):
+    """Steps first_step..last_step ran, each launching exactly per_step
+    (every other kernel 0 times), each loss finite -> the losses."""
+    for i, launched in enumerate(rec.launches):
+        check_counts(f"{name} step {first_step + i}", launched, per_step)
+    steps = [r[0] for r in rec.records]
+    losses = [r[1] for r in rec.records]
+    if steps != list(range(first_step, last_step + 1)):
+        raise AssertionError(f"{name}: steps {steps}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: non-finite loss in {losses}")
+    return losses
+
+
+def step_phases(state, batch, seed, dev, runs=3):
+    """A dropout step's forward (three towers and the loss), backward and
+    optimizer (clip + LAMB): card ms (CUDA events) and the host's ms to
+    issue each (host clock, no synchronisation inside the step; where the
+    two are close, the card waits on the host), medians of `runs`."""
+    from cocodr_tpu_torch.pipelines.train_step import (
+        apply_gradients,
+        dropout_generators,
+        nll_loss,
+    )
+
+    card, host = [], []
+    for _ in range(runs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        gens = dropout_generators(seed, state.step, dev)
+        state.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        ev[0].record()
+        loss, _ = nll_loss(state.model, batch, gens)
+        ev[1].record()
+        t.append(time.perf_counter())
+        loss.backward()
+        ev[2].record()
+        t.append(time.perf_counter())
+        apply_gradients(state, 1.0)
+        ev[3].record()
+        t.append(time.perf_counter())
+        ev[3].synchronize()
+        card.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        host.append([(t[i + 1] - t[i]) * 1e3 for i in range(3)])
+    return ([statistics.median(c[i] for c in card) for i in range(3)],
+            [statistics.median(h[i] for h in host) for i in range(3)])
+
+
+def step_busy(state, batch, seed, dev):
+    """One dropout step under torch.profiler -> the card's kernel time
+    summed from the trace, ms (0 when the trace holds no device time).
+    The profiler's own host cost stretches the traced step's wall time
+    2-3x, so the busy time is held against an unprofiled step's card
+    span instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cocodr_tpu_torch.pipelines.train_step import (
+        apply_gradients,
+        dropout_generators,
+        nll_loss,
+    )
+
+    gens = dropout_generators(seed, state.step, dev)
+    state.optimizer.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loss, _ = nll_loss(state.model, batch, gens)
+        loss.backward()
+        apply_gradients(state, 1.0)
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def compare_step(args, dev, path, bert):
+    """One step at CMP_BATCH, dropout off, on the card (K1, K8) and on the
+    CPU (their plain versions) from the same weights and batch: the loss
+    and the clipped gradients (global cosine and the worst tensor's)."""
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+    from cocodr_tpu_torch.pipelines.train_step import (
+        clip_by_global_norm_,
+        nll_loss,
+    )
+    from cocodr_tpu_torch.pipelines.warmup import (
+        TripleTextBatcher,
+        stream_triples,
+    )
+
+    triples = [t for t, _ in zip(stream_triples(path), range(CMP_BATCH))]
+    arrays = TripleTextBatcher(HashTokenizer(), TRAIN_LEN).collate(triples)
+    model = build_dual_encoder("rdot_nll_condenser", bert, device=dev,
+                               generator=torch.Generator().manual_seed(
+                                   args.seed + 2))
+    cpu_model = copy.deepcopy(model).cpu()
+    out = {}
+    zero_counts()
+    for name, m in (("card", model), ("cpu", cpu_model)):
+        d = next(m.parameters()).device
+        t = time.perf_counter()
+        loss, _ = nll_loss(m, {k: torch.from_numpy(v).to(d)
+                               for k, v in arrays.items()})
+        loss.backward()
+        clip_by_global_norm_(m.parameters(), 1.0)
+        out[name] = (loss.item(), {k: p.grad.detach().double().cpu()
+                                   for k, p in m.named_parameters()})
+        phase(f"  compare: {name} step {time.perf_counter() - t:.2f} s, "
+              f"loss {out[name][0]:.6f}")
+        if name == "card":
+            counts = read_counts("compare (card)", ["K1_ffn_block",
+                                                    "K8_attention"])
+            check_counts("compare (card)", counts, {
+                "K1_ffn_block": 3 * bert.num_hidden_layers,
+                "K8_attention": 3 * bert.num_hidden_layers})
+    (la, ga), (lb, gb) = out["card"], out["cpu"]
+    rel, glob, worst, cos = step_agreement(la, ga, lb, gb)
+    phase(f"  compare card vs CPU (batch {CMP_BATCH}, dropout off): loss "
+          f"{la:.6f} vs {lb:.6f} (rel {rel:.2e}, bound {CMP_LOSS_RTOL}); "
+          f"clipped-gradient cosine {glob:.6f} (bound {CMP_GLOBAL_COSINE}); "
+          f"worst tensor {worst} {cos:.6f} (bound {CMP_TENSOR_COSINE})")
+    if not steps_agree(rel, glob, cos):
+        raise AssertionError("card and CPU train steps disagree")
+
+
+def step_agreement(loss_a, grads_a, loss_b, grads_b):
+    """Two train steps' losses and {name: gradient} -> (relative loss
+    difference, global cosine of all gradients, the name and cosine of
+    the worst tensor). The key projections' biases are left out of the
+    worst: their exact gradient is zero (a softmax does not see a
+    constant added to a row of scores), so theirs is rounding noise."""
+    a = torch.cat([g.double().flatten() for g in grads_a.values()])
+    b = torch.cat([grads_b[k].double().flatten() for k in grads_a])
+    glob = (a @ b / (a.norm() * b.norm())).item()
+    per = {}
+    for k, ga in grads_a.items():
+        if k.endswith("attention.self.key.bias"):
+            continue
+        ga, gb = ga.double().flatten(), grads_b[k].double().flatten()
+        per[k] = (ga @ gb / (ga.norm() * gb.norm()).clamp_min(1e-300)).item()
+    worst = min(per, key=per.get)
+    return (abs(loss_a - loss_b) / max(abs(loss_b), 1e-6), glob, worst,
+            per[worst])
+
+
+def steps_agree(rel, glob, cos):
+    return (rel <= CMP_LOSS_RTOL and glob >= CMP_GLOBAL_COSINE
+            and cos >= CMP_TENSOR_COSINE)
+
+
+def train(args, dev, k5_ms):
+    """The train phase -> the dropout run's launch counts."""
+    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.pipelines.warmup import (
+        TripleTextBatcher,
+        stream_triples,
+    )
+    from cocodr_tpu_torch.utils.train_state import (
+        latest_checkpoint,
+        list_checkpoints,
+        load_checkpoint,
+    )
+
+    bert = BertConfig.base(dtype=torch.bfloat16)
+    layers = bert.num_hidden_layers
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_triples(args, os.path.join(tmp, "triples.tsv"),
+                             TRAIN_BATCH * (TRAIN_RESUME + 2))
+        ckpt = os.path.join(tmp, "ckpt")
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        state, rec, _ = warmup_run(args, dev, path, ckpt, bert, TRAIN_STEPS,
+                                   resume=False, dropout=True)
+        counts = read_counts("train (dropout)", ["K5_ffn"])
+        check_counts("train (dropout)", counts,
+                     {"K5_ffn": 3 * layers * TRAIN_STEPS})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = check_steps("train", rec, 1, TRAIN_STEPS,
+                             {"K5_ffn": 3 * layers})
+        # host-clock step intervals after 2 untimed steps, leaving out the
+        # interval that holds the save at TRAIN_SAVE
+        ends = {s: t for s, _, t in rec.records}
+        gaps = [ends[s] - ends[s - 1] for s in range(3, TRAIN_STEPS + 1)
+                if s != TRAIN_SAVE + 1]
+        tps = TRAIN_BATCH * len(gaps) / sum(gaps)
+        saved = [os.path.basename(p) for p in list_checkpoints(ckpt)]
+        if saved != [f"checkpoint-{TRAIN_SAVE}", f"checkpoint-{TRAIN_STEPS}"]:
+            raise AssertionError(f"checkpoints {saved}")
+        final = {k: v.clone() for k, v in state.model.state_dict().items()}
+        del state
+        torch.cuda.empty_cache()
+
+        # resume: a fresh model takes checkpoint-20 and skips 20 batches
+        # before tokenizing them
+        zero_counts()
+        state, rec2, tok = warmup_run(args, dev, path, ckpt, bert,
+                                      TRAIN_RESUME, resume=True, dropout=True)
+        counts2 = read_counts("train (resume)", ["K5_ffn"])
+        check_counts("train (resume)", counts2, {
+            "K5_ffn": 3 * layers * (TRAIN_RESUME - TRAIN_STEPS)})
+        losses += check_steps("train (resume)", rec2, TRAIN_STEPS + 1,
+                              TRAIN_RESUME, {"K5_ffn": 3 * layers})
+        # the tokenizer ran only for the batches after step 20 (3 calls a
+        # batch, and up to 3 batches prefetched past the last step)
+        if tok.calls > 3 * (TRAIN_RESUME - TRAIN_STEPS + 3):
+            raise AssertionError(f"resume tokenized {tok.calls // 3} batches")
+        check = copy.deepcopy(state)
+        load_checkpoint(os.path.join(ckpt, f"checkpoint-{TRAIN_STEPS}"),
+                        check)
+        for k, v in check.model.state_dict().items():
+            if not torch.equal(v, final[k]):
+                raise AssertionError(f"checkpoint-{TRAIN_STEPS} lost {k}")
+        del check, final
+        if not latest_checkpoint(ckpt).endswith(f"-{TRAIN_RESUME}"):
+            raise AssertionError("no checkpoint at the end of the resume")
+        phase(f"  losses: steps 1-5 mean {statistics.mean(losses[:5]):.4f}, "
+              f"steps {TRAIN_RESUME - 4}-{TRAIN_RESUME} mean "
+              f"{statistics.mean(losses[-5:]):.4f}; all "
+              f"{', '.join(f'{x:.4f}' for x in losses)}")
+
+        triples = [t for t, _ in zip(stream_triples(path),
+                                     range(TRAIN_BATCH))]
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 TripleTextBatcher(HashTokenizer(), TRAIN_LEN)
+                 .collate(triples).items()}
+        (fwd, bwd, opt), host = step_phases(state, batch, args.seed, dev)
+        busy = step_busy(state, batch, args.seed, dev)
+        span = fwd + bwd + opt
+        phase(f"  one profiled step: card kernels busy {busy:.3f} ms against "
+              f"an unprofiled step's {span:.3f} ms card span: busy share "
+              + (f"{busy / span:.3f}" if busy > 0
+                 else "not measured (the trace holds no device time)"))
+        flops = train_step_flops(bert, 3 * TRAIN_T)
+        b_ms = flops / BF16_FLOP_PER_S * 1e3
+        card = nvidia_smi()
+        phase(f"  train (dropout 0.1, batch {TRAIN_BATCH} x {TRAIN_LEN}): "
+              f"{tps:.1f} triplets/s (host clock, {len(gaps)} steps after "
+              f"2 untimed); card ms per step: forward {fwd:.3f}, backward "
+              f"{bwd:.3f}, optimizer {opt:.3f} (total {fwd + bwd + opt:.3f});"
+              f" host ms to issue them {host[0]:.3f}, {host[1]:.3f}, "
+              f"{host[2]:.3f}; K5 {3 * layers} x {k5_ms:.4f} ms = "
+              f"{100 * 3 * layers * k5_ms / fwd:.1f}% of the forward; peak "
+              f"memory {peak:.2f} GiB; step bound {b_ms:.3f} ms "
+              f"({flops / 1e12:.2f} TFLOP at 989 TFLOP/s, operations) "
+              f"[{card}]")
+        del state, batch
+        torch.cuda.empty_cache()
+
+        # no dropout, fused attention: K1 and K8 on every layer
+        nodrop = BertConfig.base(dtype=torch.bfloat16,
+                                 attention_impl="fused")
+        zero_counts()
+        state, rec3, _ = warmup_run(args, dev, path,
+                                    os.path.join(tmp, "ckpt_nodrop"), nodrop,
+                                    NODROP_STEPS, resume=False, dropout=False)
+        counts3 = read_counts("train (no dropout, fused attention)",
+                              ["K1_ffn_block", "K8_attention"])
+        check_counts("train (no dropout, fused attention)", counts3, {
+            "K1_ffn_block": 3 * layers * NODROP_STEPS,
+            "K8_attention": 3 * layers * NODROP_STEPS})
+        nd = check_steps("train (no dropout)", rec3, 1, NODROP_STEPS,
+                         {"K1_ffn_block": 3 * layers,
+                          "K8_attention": 3 * layers})
+        ends = [t for _, _, t in rec3.records]
+        nd_tps = TRAIN_BATCH * (len(ends) - 2) / (ends[-1] - ends[1])
+        phase(f"  train (no dropout, fused attention): {nd_tps:.1f} "
+              f"triplets/s over steps 3-{NODROP_STEPS}; losses "
+              f"{', '.join(f'{x:.4f}' for x in nd)}")
+        del state
+        torch.cuda.empty_cache()
+
+        compare_step(args, dev, path, nodrop)
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1097,7 +1522,8 @@ def main() -> None:
     phase(f"  built={lib.built} in {lib.seconds:.2f} s: {lib.path}")
 
     phase("kernel checks")
-    kernels = [check_k1(ffn, gen, dev)]
+    k5 = check_k5(ffn, gen, dev)
+    kernels = [check_k1(ffn, gen, dev), k5]
     corpus = make_corpus(gen, dev)
     kernels.append(check_k2(mips_hier, corpus, gen, dev))
     kernels.append(check_k3(mips_hier, gen, dev))
@@ -1118,6 +1544,10 @@ def main() -> None:
 
     phase("encode")
     encode_counts = encode(args, dev)
+    torch.cuda.empty_cache()
+
+    phase("train")
+    train_counts = train(args, dev, k5["ms"])
 
     # each kernel's numbers at the shape of the path that launches it, and
     # its launches on that path: (path's counts, the wrapper's counter)
@@ -1128,6 +1558,7 @@ def main() -> None:
                                       "K2_dual_sweep_packed"),
              "K4_ffn_block_chunked": (encode_counts["e_bert_large"],
                                       "K1_ffn_block"),
+             "K5_ffn": (train_counts, "K5_ffn"),
              "K6_int8_sweep": (serve_counts["quantize_int8"],
                                "K6_int8_sweep"),
              "K7_ffn_block_int8": (encode_counts["d_matmul_int8"],

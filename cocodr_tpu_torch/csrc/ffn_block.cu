@@ -30,6 +30,19 @@
 // per byte, so the bf16 tensor cores bound it (~0.039 ms at 989 TFLOP/s).
 // The GEMMs multiply with WMMA (mma.sync) fragments fed by a 3-stage
 // cp.async ring, not wgmma fed by TMA, so they stay short of that bound.
+//
+// K5: the FFN without LayerNorm or residual, the dropout path of a training
+// layer (dropout sits between the FFN output and the residual add),
+//   h   = bf16(act(x . W1^T + b1))   (float32 accumulation and activation)
+//   out = bf16(h . W2^T + b2)        (b2 added in float32)
+// with x [T, H] bf16 and the weights as above. Replaces
+// cocodr_tpu/ops/pallas_ffn.py::_ffn_kernel (called through fused_ffn),
+// which holds both weights and the [tokens, F] intermediate in VMEM. Here it
+// is two launches on one stream: K1's up GEMM as it is (x in place of u),
+// writing h [T, F] bf16 through device memory, and a down GEMM whose
+// epilogue adds b2 and rounds. Bound on the H100: 4*T*H*F operations
+// (77.3 GFLOP at T = 8192, bert-base: 0.078 ms at 989 TFLOP/s) against
+// ~35 MB of x, weights and out, so the tensor cores bound it, as for K1.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -122,7 +135,74 @@ ffn_down_kernel(const __nv_bfloat16* __restrict__ h,
   });
 }
 
+__global__ void __launch_bounds__(kThreads)
+ffn_out_kernel(const __nv_bfloat16* __restrict__ h,
+               const __nv_bfloat16* __restrict__ w2,
+               const __nv_bfloat16* __restrict__ b2,
+               __nv_bfloat16* __restrict__ out, int T, int H, int F) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using Tile = gemm::Tile<kDownBM, kDownBN>;
+  const int m0 = blockIdx.y * kDownBM;
+  const int n0 = blockIdx.x * kDownBN;
+  Tile::Acc acc[Tile::kFM][Tile::kFN];
+  gemm::mainloop<kDownBM, kDownBN>(acc, reinterpret_cast<__nv_bfloat16*>(smem),
+                                   h, w2, m0, n0, T, H, F);
+  gemm::epilogue<kDownBM, kDownBN>(acc, smem, m0, n0, [&](int t, int c, float* v) {
+    if (t >= T) return;
+    float o[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = v[e] + __bfloat162float(b2[c + e]);
+    *reinterpret_cast<uint4*>(&out[static_cast<size_t>(t) * H + c]) = pack8(o);
+  });
+}
+
+// h = bf16(act(x . W1^T + b1)), the up GEMM of K1 and K5.
+cudaError_t launch_up(const __nv_bfloat16* x, const void* w1, const void* b1,
+                      __nv_bfloat16* h, int T, int H, int F, int act,
+                      cudaStream_t s) {
+  constexpr size_t up_smem = gemm::Tile<kUpBM, kUpBN>::kSmemBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      ffn_up_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(up_smem));
+  if (e != cudaSuccess) return e;
+  const dim3 up_grid(F / kUpBN, (T + kUpBM - 1) / kUpBM);
+  ffn_up_kernel<<<up_grid, kThreads, up_smem, s>>>(
+      x, static_cast<const __nv_bfloat16*>(w1),
+      static_cast<const __nv_bfloat16*>(b1), h, T, H, F, act);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int T, int H, int F, int act) {
+  return T <= 0 || H <= 0 || H % kDownBN || F <= 0 || F % kUpBN ||
+         act < kGelu || act > kRelu || (T + kDownBM - 1) / kDownBM > 65535;
+}
+
 }  // namespace
+
+// x [T, H] bf16 -> out [T, H] bf16 (K5), through the scratch buffer h
+// [T, F] bf16. H % 128 == 0, F % 128 == 0, every pointer 16-byte aligned.
+extern "C" int cocodr_ffn_bf16(const void* x, const void* w1, const void* b1,
+                               const void* w2, const void* b2, void* h,
+                               void* out, int T, int H, int F, int act,
+                               void* stream) {
+  if (bad_shape(T, H, F, act)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* hb = static_cast<__nv_bfloat16*>(h);
+  cudaError_t e = launch_up(static_cast<const __nv_bfloat16*>(x), w1, b1, hb,
+                            T, H, F, act, s);
+  if (e != cudaSuccess) return e;
+
+  constexpr size_t down_smem = gemm::Tile<kDownBM, kDownBN>::kSmemBytes;
+  e = cudaFuncSetAttribute(ffn_out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(down_smem));
+  if (e != cudaSuccess) return e;
+  const dim3 down_grid(H / kDownBN, (T + kDownBM - 1) / kDownBM);
+  ffn_out_kernel<<<down_grid, kThreads, down_smem, s>>>(
+      hb, static_cast<const __nv_bfloat16*>(w2),
+      static_cast<const __nv_bfloat16*>(b2), static_cast<__nv_bfloat16*>(out),
+      T, H, F);
+  return cudaGetLastError();
+}
 
 // r [T, H] bf16 -> out [T, H] bf16, through the scratch buffers u [T, H]
 // bf16, stats [T, 2] float32, h [T, F] bf16 and z [T, H] float32.
@@ -133,10 +213,7 @@ extern "C" int cocodr_ffn_block_bf16(const void* r, const void* s1, const void* 
                                      void* u, void* stats, void* h, void* z, void* out,
                                      int T, int H, int F, int act, float eps,
                                      void* stream) {
-  if (T <= 0 || H <= 0 || H % kDownBN || F <= 0 || F % kUpBN || act < kGelu ||
-      act > kRelu || (T + kDownBM - 1) / kDownBM > 65535) {
-    return cudaErrorInvalidValue;
-  }
+  if (bad_shape(T, H, F, act)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* rb = static_cast<const __nv_bfloat16*>(r);
   const auto* s1f = static_cast<const float*>(s1);
@@ -151,15 +228,7 @@ extern "C" int cocodr_ffn_block_bf16(const void* r, const void* s1, const void* 
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  constexpr size_t up_smem = gemm::Tile<kUpBM, kUpBN>::kSmemBytes;
-  e = cudaFuncSetAttribute(ffn_up_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(up_smem));
-  if (e != cudaSuccess) return e;
-  const dim3 up_grid(F / kUpBN, (T + kUpBM - 1) / kUpBM);
-  ffn_up_kernel<<<up_grid, kThreads, up_smem, s>>>(
-      ub, static_cast<const __nv_bfloat16*>(w1), static_cast<const __nv_bfloat16*>(b1),
-      hb, T, H, F, act);
-  e = cudaGetLastError();
+  e = launch_up(ub, w1, b1, hb, T, H, F, act, s);
   if (e != cudaSuccess) return e;
 
   constexpr size_t down_smem = gemm::Tile<kDownBM, kDownBN>::kSmemBytes;

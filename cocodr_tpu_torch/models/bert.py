@@ -4,16 +4,28 @@ Post-LayerNorm transformer with exact-erf GELU. Parameters are float32
 (nn.Linear layout, HuggingFace BertModel names, so the state dict reads
 like an HF checkpoint); compute runs in `BertConfig.dtype` (bf16 on the
 card) with float32 LayerNorm statistics and float32 attention scores and
-softmax statistics, as in the JAX package. The half-layer after attention
-(LN1 -> FFN -> +residual -> LN2) is one call of `ops.ffn.ffn_block`, the
-K1 kernel on the card, or of `ops.ffn.ffn_block_int8` (K7) when
-`BertConfig.matmul_int8` is set. With `attention_impl="fused"` the
-attention of a sequence length divisible by 8 is one call of
-`ops.attention.fused_attention_seq_major` (K8).
+softmax statistics, as in the JAX package.
 
-This slice carries the inference path of BERT positions: no dropout (a
-module in training mode with nonzero dropout raises), no RoBERTa position
-ids, no pooler, no hidden-state collection.
+The half-layer after attention (LN1 -> FFN -> +residual -> LN2) is one
+call of `ops.ffn.ffn_block`, the K1 kernel on the card, or of
+`ops.ffn.ffn_block_int8` (K7, inference only) when `BertConfig.matmul_int8`
+is set. A module that trains with hidden_dropout_prob > 0 takes the
+semi-fused path instead, which keeps the reference's dropout placement:
+LN1, then `ops.ffn.ffn` (K5 on the card; `ffn_impl="dense"` takes the bf16
+nn.Linear pair), dropout, the residual add and LN2. With
+`attention_impl="fused"` the attention of a sequence length divisible by 8
+is one call of `ops.attention.attention` (K8) unless attention dropout
+runs. K1, K5 and K8 take gradients: their backward recomputes the XLA
+formulation, as the JAX package's custom VJPs do.
+
+Dropout sits where the JAX package puts it: on the embeddings output, on
+the unnormalised bf16 attention exponentials (after their sum is taken),
+on the attention output and on the FFN output, each before its residual
+add. Its masks come from the `torch.Generator` the caller hands to
+`forward`; the port never draws from the global RNG.
+
+Not carried over yet: RoBERTa position ids, the pooler, hidden-state
+collection and remat (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -24,8 +36,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cocodr_tpu_torch.ops.attention import fused_attention_seq_major
-from cocodr_tpu_torch.ops.ffn import ffn_block, ffn_block_int8, layer_norm_f32
+from cocodr_tpu_torch.ops.attention import attention
+from cocodr_tpu_torch.ops.ffn import (
+    activation,
+    ffn,
+    ffn_block,
+    ffn_block_int8,
+    layer_norm_f32,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +62,12 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     dtype: torch.dtype = torch.float32  # compute dtype
     # 'einsum' (default) or 'fused': K8 for sequence lengths divisible by 8
+    # when no attention dropout runs
     attention_impl: str = "einsum"
+    # FFN formulation: 'fused' (default) runs the half-layer as K1, or K5
+    # on the dropout path; 'dense' runs the bf16 nn.Linear pair between
+    # the two LayerNorms, with or without dropout
+    ffn_impl: str = "fused"
     # W8A8 int8 FFN half-layers (K7), an inference mode; the FFN weights
     # stay float32 and are quantized per call, as in the JAX package
     matmul_int8: bool = False
@@ -54,6 +77,10 @@ class BertConfig:
             raise ValueError(
                 f"attention_impl must be 'einsum' or 'fused', got "
                 f"{self.attention_impl!r}"
+            )
+        if self.ffn_impl not in ("dense", "fused"):
+            raise ValueError(
+                f"ffn_impl must be 'dense' or 'fused', got {self.ffn_impl!r}"
             )
 
     @classmethod
@@ -105,13 +132,25 @@ def linear(x, layer: nn.Linear, dtype):
     return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
 
 
-def _check_inference(module: nn.Module, cfg: BertConfig) -> None:
-    if module.training and (cfg.hidden_dropout_prob
-                            or cfg.attention_probs_dropout_prob):
-        raise NotImplementedError(
-            "the port has no dropout path yet (training comes in a later "
-            "slice); call .eval()"
+def dropout(x, p: float, generator: torch.Generator):
+    """flax.linen.Dropout's inverted dropout: each element kept with
+    probability 1 - p (a uniform draw from `generator` below 1 - p), kept
+    elements divided by 1 - p in x's dtype, the rest zero."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+def _dropout(module: nn.Module, x, p: float, generator):
+    """Dropout of a module in training mode with p > 0; else x."""
+    if not module.training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError(
+            "a training forward with dropout needs generator=<a "
+            "torch.Generator on the input's device>; the port never draws "
+            "from the global RNG"
         )
+    return dropout(x, p, generator)
 
 
 class BertEmbeddings(nn.Module):
@@ -124,12 +163,14 @@ class BertEmbeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, H)
         self.LayerNorm = LayerNorm(H, cfg.layer_norm_eps, cfg.dtype)
 
-    def forward(self, input_ids, token_type_ids, position_ids):
+    def forward(self, input_ids, token_type_ids, position_ids,
+                generator=None):
         dt = self.cfg.dtype
         h = (self.word_embeddings(input_ids).to(dt)
              + self.position_embeddings(position_ids).to(dt)
              + self.token_type_embeddings(token_type_ids).to(dt))
-        return self.LayerNorm(h)
+        return _dropout(self, self.LayerNorm(h), self.cfg.hidden_dropout_prob,
+                        generator)
 
 
 class BertSelfAttention(nn.Module):
@@ -141,11 +182,13 @@ class BertSelfAttention(nn.Module):
         self.key = nn.Linear(H, H)
         self.value = nn.Linear(H, H)
 
-    def forward(self, h, attn_bias):
-        """K8 when attention_impl is 'fused' and S % 8 == 0, as in the JAX
-        package; otherwise einsum attention with float32 scores and max,
-        the softmax division applied to the context, (exp(s - max)·V) /
-        Σexp, as in cocodr_tpu/models/bert.py."""
+    def forward(self, h, attn_bias, generator=None):
+        """K8 when attention_impl is 'fused', S % 8 == 0 and no attention
+        dropout runs, as in the JAX package; otherwise einsum attention
+        with float32 scores and a max held constant under
+        differentiation, the softmax division applied to the context,
+        (exp(s - max)·V) / Σexp, and dropout on the bf16 exponentials
+        after their sum is taken, as in cocodr_tpu/models/bert.py."""
         cfg = self.cfg
         B, S, H = h.shape
         N, D = cfg.num_attention_heads, cfg.head_dim
@@ -153,16 +196,18 @@ class BertSelfAttention(nn.Module):
         q = linear(h, self.query, dt).view(B, S, N, D)
         k = linear(h, self.key, dt).view(B, S, N, D)
         v = linear(h, self.value, dt).view(B, S, N, D)
-        if cfg.attention_impl == "fused" and S % 8 == 0:
+        p = cfg.attention_probs_dropout_prob
+        if (cfg.attention_impl == "fused" and S % 8 == 0
+                and (not self.training or p == 0.0)):
             bias = attn_bias[:, 0, 0, :].contiguous()
-            ctx = fused_attention_seq_major(q, k, v, bias,
-                                            1.0 / math.sqrt(D))
+            ctx = attention(q, k, v, bias, 1.0 / math.sqrt(D))
             return ctx.reshape(B, S, H)
         scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
         scores = scores * (1.0 / math.sqrt(D)) + attn_bias
-        m = scores.amax(-1, keepdim=True)
+        m = scores.amax(-1, keepdim=True).detach()
         unnorm = torch.exp(scores - m).to(dt)
         denom = unnorm.float().sum(-1)  # [B, N, S]
+        unnorm = _dropout(self, unnorm, p, generator)
         ctx = torch.einsum("bnqk,bknd->bqnd", unnorm, v)
         ctx = (ctx.float() / denom.transpose(1, 2)[..., None]).to(dt)
         return ctx.reshape(B, S, H)
@@ -200,7 +245,8 @@ class BertOutput(nn.Module):
 
 
 class BertLayer(nn.Module):
-    """One post-LN block: attention, then the fused half-layer."""
+    """One post-LN block: attention, then the half-layer: K1 (or K7), or
+    in training with hidden dropout the semi-fused path."""
 
     def __init__(self, cfg: BertConfig):
         super().__init__()
@@ -209,16 +255,19 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(cfg)
         self.output = BertOutput(cfg)
 
-    def forward(self, h, attn_bias):
+    def forward(self, h, attn_bias, generator=None):
         cfg = self.cfg
         dt = cfg.dtype
-        ctx = self.attention.self(h, attn_bias)
-        r = h + linear(ctx, self.attention.output.dense, dt)
+        p = cfg.hidden_dropout_prob
+        ctx = self.attention.self(h, attn_bias, generator)
+        r = h + _dropout(self, linear(ctx, self.attention.output.dense, dt),
+                         p, generator)
         B, S, H = r.shape
         ln1, ln2 = self.attention.output.LayerNorm, self.output.LayerNorm
         up, down = self.intermediate.dense, self.output.dense
+        hidden_dropout = self.training and p > 0
         if cfg.matmul_int8:
-            if self.training and cfg.hidden_dropout_prob > 0:
+            if hidden_dropout:
                 raise ValueError(
                     "matmul_int8 is an inference mode (no int8 backward, no "
                     "dropout inside the fused block); call .eval() or zero "
@@ -230,13 +279,24 @@ class BertLayer(nn.Module):
                 ln2.weight, ln2.bias, cfg.hidden_act, cfg.layer_norm_eps,
             )
             return out.view(B, S, H)
-        out = ffn_block(
-            r.reshape(B * S, H), ln1.weight, ln1.bias,
-            up.weight.to(dt), up.bias.to(dt),
-            down.weight.to(dt), down.bias.to(dt),
-            ln2.weight, ln2.bias, cfg.hidden_act, cfg.layer_norm_eps,
-        )
-        return out.view(B, S, H)
+        if cfg.ffn_impl == "fused" and not hidden_dropout:
+            out = ffn_block(
+                r.reshape(B * S, H), ln1.weight, ln1.bias,
+                up.weight.to(dt), up.bias.to(dt),
+                down.weight.to(dt), down.bias.to(dt),
+                ln2.weight, ln2.bias, cfg.hidden_act, cfg.layer_norm_eps,
+            )
+            return out.view(B, S, H)
+        # the semi-fused path: dropout between the FFN and the residual add
+        x = ln1(r)
+        if cfg.ffn_impl == "fused":
+            y = ffn(x.reshape(B * S, H), up.weight.to(dt), up.bias.to(dt),
+                    down.weight.to(dt), down.bias.to(dt),
+                    cfg.hidden_act).view(B, S, H)
+        else:
+            y = linear(activation(cfg.hidden_act)(linear(x, up, dt)), down,
+                       dt)
+        return ln2(x + _dropout(self, y, p, generator))
 
 
 class BertEncoder(nn.Module):
@@ -246,9 +306,9 @@ class BertEncoder(nn.Module):
             BertLayer(cfg) for _ in range(cfg.num_hidden_layers)
         )
 
-    def forward(self, h, attn_bias):
+    def forward(self, h, attn_bias, generator=None):
         for layer in self.layer:
-            h = layer(h, attn_bias)
+            h = layer(h, attn_bias, generator)
         return h
 
 
@@ -261,8 +321,10 @@ class BertModel(nn.Module):
         self.embeddings = BertEmbeddings(cfg)
         self.encoder = BertEncoder(cfg)
 
-    def forward(self, input_ids, attention_mask=None, token_type_ids=None):
-        _check_inference(self, self.cfg)
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                generator=None):
+        """generator: the torch.Generator (on the inputs' device) that
+        dropout draws from in training mode; unused in eval mode."""
         B, S = input_ids.shape
         if S > self.cfg.max_position_embeddings:
             raise ValueError(
@@ -275,8 +337,9 @@ class BertModel(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         position_ids = torch.arange(S, device=dev)[None, :]
-        h = self.embeddings(input_ids, token_type_ids, position_ids)
-        return self.encoder(h, make_attention_bias(attention_mask))
+        h = self.embeddings(input_ids, token_type_ids, position_ids,
+                            generator)
+        return self.encoder(h, make_attention_bias(attention_mask), generator)
 
 
 def cast_matmul_weights(module: nn.Module, dtype: torch.dtype) -> None:

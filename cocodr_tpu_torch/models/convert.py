@@ -2,7 +2,9 @@
 
 The tests run both packages on the same weights: they take the flax tree as
 numpy (`jax.device_get(params)`) and load the result of these functions
-into the port's modules. The name mapping is the HuggingFace one of
+into the port's modules. `load_jax_train_state` carries a whole JAX
+TrainState (params, LAMB moments, step, schedule count) into the port, so
+that a run started in the JAX package continues in the port. The name mapping is the HuggingFace one of
 cocodr_tpu/models/hf.py (`bert_params_to_torch`), kept here as a copy so
 that the port imports nothing of the JAX package.
 
@@ -94,3 +96,28 @@ def params_from_jax(params: Mapping, cfg: DualEncoderConfig
         out["head.layer_norm.weight"] = _t(head["layer_norm"]["scale"])
         out["head.layer_norm.bias"] = _t(head["layer_norm"]["bias"])
     return out
+
+
+def load_jax_train_state(state, jax_state, cfg: DualEncoderConfig):
+    """A JAX DualEncoder TrainState trained with cocodr_tpu.optim.lamb
+    (fetched to the host, jax.device_get) -> the port's
+    utils.train_state.TrainState `state`, in place; -> state.
+
+    Reads jax_state.step, .params and .opt_state, optax's chain state
+    (ScaleByLambState(mu, nu), ScaleByScheduleState(count)). mu and nu have
+    the params' tree, so the params' mapping splits their [L, ...] leaves
+    per layer too; they become the Lamb optimizer's exp_avg and exp_avg_sq,
+    and count its schedule count."""
+    model, opt = state.model, state.optimizer
+    dev = next(model.parameters()).device
+    model.load_state_dict(params_from_jax(jax_state.params, cfg))
+    lamb_state, sched_state = jax_state.opt_state
+    mu = params_from_jax(lamb_state.mu, cfg)
+    nu = params_from_jax(lamb_state.nu, cfg)
+    for name, p in model.named_parameters():
+        opt.state[p] = {"exp_avg": mu[name].to(dev),
+                        "exp_avg_sq": nu[name].to(dev)}
+    for group in opt.param_groups:
+        group["count"] = int(np.asarray(sched_state.count))
+    state.step = int(np.asarray(jax_state.step))
+    return state

@@ -2,7 +2,9 @@
 cocodr_tpu/models/dual_encoder.py for the shared-tower model types
 `rdot_nll` (CLS + linear/LayerNorm head) and `rdot_nll_condenser` (raw
 CLS). Query and document towers share weights; multi-chunk documents, the
-DPR two-tower model and the tanh pooler come with later slices.
+DPR two-tower model and the tanh pooler come with later slices. In training
+each tower's forward takes its own dropout generator
+(pipelines/train_step.py::embed_triplet).
 """
 from __future__ import annotations
 
@@ -78,16 +80,24 @@ class DualEncoder(nn.Module):
         self.head = (ProjectionHead(cfg.bert, cfg.head_dim)
                      if cfg.use_head else None)
 
-    def _emb(self, input_ids, attention_mask, token_type_ids=None):
-        last = self.encoder(input_ids, attention_mask, token_type_ids)
+    def _emb(self, input_ids, attention_mask, token_type_ids=None,
+             generator=None):
+        last = self.encoder(input_ids, attention_mask, token_type_ids,
+                            generator)
         e = pool(last, attention_mask, self.cfg.pooling)
         return self.head(e) if self.head is not None else e
 
-    def query_emb(self, input_ids, attention_mask, token_type_ids=None):
-        return self._emb(input_ids, attention_mask, token_type_ids)
+    def query_emb(self, input_ids, attention_mask, token_type_ids=None,
+                  generator=None):
+        """generator: the dropout masks' torch.Generator in training mode
+        (models.bert.BertModel.forward)."""
+        return self._emb(input_ids, attention_mask, token_type_ids,
+                         generator)
 
-    def body_emb(self, input_ids, attention_mask, token_type_ids=None):
-        return self._emb(input_ids, attention_mask, token_type_ids)
+    def body_emb(self, input_ids, attention_mask, token_type_ids=None,
+                 generator=None):
+        return self._emb(input_ids, attention_mask, token_type_ids,
+                         generator)
 
     def forward(self, input_ids, attention_mask):
         return self.query_emb(input_ids, attention_mask)

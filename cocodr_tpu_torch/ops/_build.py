@@ -45,6 +45,7 @@ _F = ctypes.c_float
 # that ctypes never cuts a 64-bit address to a 32-bit int)
 SIGNATURES = {
     "cocodr_ffn_block_bf16": [_P] * 14 + [_I, _I, _I, _I, _F, _P],
+    "cocodr_ffn_bf16": [_P] * 7 + [_I, _I, _I, _I, _P],
     "cocodr_ffn_block_int8": [_P] * 20 + [_I, _I, _I, _I, _F, _P],
     "cocodr_attention_bf16": [_P] * 5 + [_I, _I, _I, _I, _F, _P],
     "cocodr_dual_sweep_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],

@@ -8,16 +8,20 @@ models/bert.py: the softmax is normalised in float32 BEFORE the PV product
 (probabilities rounded to the compute dtype), where the einsum path
 multiplies the unnormalised exponentials by V and divides afterwards.
 
-models/bert.py takes this path when `BertConfig.attention_impl == "fused"`
-and S % 8 == 0, as the JAX package does. Inference only: the JAX
-package's backward recomputes through XLA, and the port's comes with
-training.
+models/bert.py takes this path through `attention` when
+`BertConfig.attention_impl == "fused"`, S % 8 == 0 and no attention dropout
+runs (eval mode, or attention_probs_dropout_prob == 0), as the JAX package
+does. `attention` is a torch.autograd.Function, as the JAX dispatcher is a
+jax.custom_vjp: the forward runs K8, the backward recomputes the einsum
+formulation `xla_attention_seq` and returns its gradients (no backward
+kernel, as in the JAX package); the bias gets a zero gradient.
 """
 from __future__ import annotations
 
 import torch
 
 from cocodr_tpu_torch.ops import _build
+from cocodr_tpu_torch.ops._recompute import recompute_grads
 
 HEAD_DIM = 64  # bert-base and bert-large
 MAX_SEQ = 512  # max_position_embeddings
@@ -39,14 +43,10 @@ def attention_reference(q, k, v, bias, scale: float):
 def fused_attention_seq_major(q, k, v, bias, scale: float):
     """K8 wrapper: q, k, v [B, S, N, D], bias [B, S] -> [B, S, N, D]. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel (bf16
-    q, k, v; float32 bias; D = 64, S % 8 == 0, S <= 512) or raises."""
+    q, k, v; float32 bias; D = 64, S % 8 == 0, S <= 512) or raises.
+    Forward only: the gradient is `attention`'s."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, bias, scale)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "fused_attention_seq_major has no backward kernel yet; call it "
-            "under torch.no_grad() or torch.inference_mode()"
-        )
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.require_cuda_operand(name, t, (torch.bfloat16,), 4)
     _build.require_cuda_operand("bias", bias, (torch.float32,), 2)
@@ -76,3 +76,38 @@ def fused_attention_seq_major(q, k, v, bias, scale: float):
 
 
 fused_attention_seq_major.launches = 0
+
+
+def xla_attention_seq(q, k, v, bias, scale: float):
+    """The einsum formulation on [B, S, N, D] tensors (counterpart of
+    pallas_attention.py::_xla_attention_seq): float32 scores and softmax,
+    probabilities rounded to the compute dtype, a compute-dtype PV
+    product."""
+    scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
+    scores = scores * scale + bias.float()[:, None, None, :]
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bnqk,bknd->bqnd", probs, v)
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale = scale
+        return fused_attention_seq_major(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv = recompute_grads(
+            lambda q, k, v: xla_attention_seq(q, k, v, bias, ctx.scale),
+            (q, k, v), ctx.needs_input_grad, grad_out)
+        dbias = torch.zeros_like(bias) if ctx.needs_input_grad[3] else None
+        return dq, dk, dv, dbias, None
+
+
+def attention(q, k, v, bias, scale: float):
+    """The attention models/bert.py calls with attention_impl="fused"
+    (counterpart of pallas_attention.py::attention): K8 forward, the
+    gradient of `xla_attention_seq`."""
+    return _Attention.apply(q, k, v, bias, scale)

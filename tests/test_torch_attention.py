@@ -13,7 +13,9 @@ import torch
 
 from cocodr_tpu.models.bert import BertConfig as JaxBertConfig
 from cocodr_tpu.models.bert import BertModel as JaxBertModel
+from cocodr_tpu.ops.pallas_attention import attention as jax_attention
 from cocodr_tpu.ops.pallas_attention import fused_attention_seq_major as jax_k8
+from cocodr_tpu_torch.models import bert as tbert
 from cocodr_tpu_torch.models import convert
 from cocodr_tpu_torch.models.bert import BertConfig, BertModel
 from cocodr_tpu_torch.ops import attention as tatt
@@ -166,3 +168,50 @@ def test_k8_share_limit_separates_rounding_points(variant):
         assert share < 0.01
     else:
         assert share > 0.10
+
+
+def test_attention_grads_match_jax_dispatcher():
+    """K8's autograd.Function: gradients for q, k, v against jax.grad of
+    pallas_attention.attention (a custom_vjp whose backward is the einsum
+    formulation's), and a zero bias gradient, as there. float32 with a
+    padding bias, tolerance 1e-5."""
+    q, k, v, bias = _qkv(B=3, S=16, N=2, D=8, seed=5)
+    ct = np.random.RandomState(6).randn(*q.shape).astype(np.float32)
+
+    def loss(q, k, v, bias):
+        return jnp.sum(jax_attention(q, k, v, bias, 0.35) * ct)
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(a) for a in (q, k, v, bias)))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v, bias)]
+    out = tatt.attention(*leaves, 0.35)
+    assert torch.equal(out.detach(), tatt.attention_reference(
+        *(t.detach() for t in leaves), 0.35))
+    (out * torch.from_numpy(ct)).sum().backward()
+    for name, w, t in zip("qkv", want, leaves):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+    assert not np.asarray(want[3]).any()
+    assert torch.equal(leaves[3].grad, torch.zeros_like(leaves[3]))
+
+
+def test_bert_fused_attention_trains_through_k8_without_attention_dropout(
+        monkeypatch):
+    """A training-mode BERT with attention_impl="fused" and attention
+    dropout 0 takes `attention` (K8's autograd.Function; its plain version
+    on the CPU); with attention dropout it keeps the einsum path, as the
+    JAX package does. Gradients reach the query projection either way."""
+    calls = []
+    monkeypatch.setattr(tbert, "attention",
+                        lambda *a: calls.append(1) or tatt.attention(*a))
+    for p_att, want_calls in ((0.0, 2), (0.1, 0)):
+        cfg = BertConfig.tiny(attention_impl="fused", hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=p_att)
+        model = BertModel(cfg).train()
+        calls.clear()
+        out = model(torch.randint(5, 100, (2, 8)),
+                    generator=torch.Generator().manual_seed(0))
+        out.sum().backward()
+        assert len(calls) == want_calls
+        g = model.encoder.layer[0].attention.self.query.weight.grad
+        assert g is not None and g.abs().sum() > 0

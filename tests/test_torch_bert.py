@@ -131,10 +131,30 @@ def test_build_dual_encoder_is_seeded_and_in_eval_mode():
         build_dual_encoder("dpr", cfg, device="cpu")
 
 
-def test_training_mode_with_dropout_raises():
+def test_training_mode_with_dropout_raises(monkeypatch):
+    """A training-mode forward with dropout raises without a generator (the
+    port never draws from the global RNG, whose state stays as it was);
+    with one it runs and takes the semi-fused path: K5's `ffn` once a
+    layer, K1's `ffn_block` never."""
+    import cocodr_tpu_torch.models.bert as tbert
+
     model = BertModel(BertConfig.tiny()).train()
-    with pytest.raises(NotImplementedError):
-        model(torch.ones((1, 4), dtype=torch.long))
+    ids = torch.ones((1, 4), dtype=torch.long)
+    rng = torch.get_rng_state()
+    with pytest.raises(ValueError, match="generator"):
+        model(ids)
+    assert torch.equal(torch.get_rng_state(), rng)
+    calls = {"ffn": 0, "ffn_block": 0}
+    for name in calls:
+        real = getattr(tbert, name)
+        monkeypatch.setattr(
+            tbert, name,
+            lambda *a, _n=name, _f=real: calls.__setitem__(_n, calls[_n] + 1)
+            or _f(*a))
+    out = model(ids, generator=torch.Generator().manual_seed(0))
+    assert out.shape == (1, 4, 32) and torch.isfinite(out).all()
+    assert calls == {"ffn": 2, "ffn_block": 0}
+    assert torch.equal(torch.get_rng_state(), rng)
 
 
 def test_bf16_compute_stays_close_to_f32():

@@ -19,6 +19,7 @@ MODULES = [
     "cocodr_tpu_torch",
     "cocodr_tpu_torch.ops._build",
     "cocodr_tpu_torch.ops._device",
+    "cocodr_tpu_torch.ops._recompute",
     "cocodr_tpu_torch.ops.attention",
     "cocodr_tpu_torch.ops.ffn",
     "cocodr_tpu_torch.ops.int8_matmul",
@@ -34,11 +35,22 @@ MODULES = [
     "cocodr_tpu_torch.parallel.topk",
     "cocodr_tpu_torch.pipelines.encode",
     "cocodr_tpu_torch.pipelines.serve",
+    "cocodr_tpu_torch.pipelines.train_step",
+    "cocodr_tpu_torch.pipelines.warmup",
     "cocodr_tpu_torch.data",
     "cocodr_tpu_torch.data.prefetch",
     "cocodr_tpu_torch.data.records",
+    "cocodr_tpu_torch.data.streams",
+    "cocodr_tpu_torch.losses",
+    "cocodr_tpu_torch.losses.nll",
+    "cocodr_tpu_torch.optim",
+    "cocodr_tpu_torch.optim.lamb",
+    "cocodr_tpu_torch.optim.schedules",
+    "cocodr_tpu_torch.core",
+    "cocodr_tpu_torch.core.configs",
     "cocodr_tpu_torch.utils",
     "cocodr_tpu_torch.utils.misc",
+    "cocodr_tpu_torch.utils.train_state",
     "chip_smoke",
 ]
 
@@ -49,7 +61,8 @@ def test_import_leaves_jax_and_jax_package_out():
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'transformers', 'cocodr_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'transformers', "
+        "'cocodr_tpu')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
@@ -62,8 +75,9 @@ def test_import_leaves_jax_and_jax_package_out():
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_no_jax_import_in_source(path):
     text = path.read_text()
-    pattern = (r"^\s*(import\s+(jax|jaxlib|flax|transformers|cocodr_tpu)\b"
-               r"|from\s+(jax|jaxlib|flax|transformers|cocodr_tpu)[\s.])")
+    pattern = (r"^\s*(import\s+(jax|jaxlib|flax|optax|transformers|cocodr_tpu)"
+               r"\b|from\s+(jax|jaxlib|flax|optax|transformers|cocodr_tpu)"
+               r"[\s.])")
     assert not re.search(pattern, text, re.M), path
 
 
