@@ -10,8 +10,11 @@ Phases, each printed with its elapsed seconds:
   3. kernel checks: each kernel against its plain PyTorch version on the
      card, with its time, the plain version's time, the time of one
      library call that computes the same function where there is one, and
-     the least time the card could take: K1 fused FFN half-layer (serving
-     and encode shapes), K2 dual block-max sweep and K3 extract-max top-k
+     the least time the card could take (K1, K4, K5 and K8 by loops of
+     back-to-back launches, K3 and K8 in turns with torch.topk and
+     scaled_dot_product_attention): K1 fused FFN half-layer (serving
+     and encode shapes; checked also at T = 64 and ragged T at bert-base
+     and bert-large widths), K2 dual block-max sweep and K3 extract-max top-k
      at the serving shapes; K4 (K1 at bert-large widths), K7 (W8A8 FFN
      half-layer, bert-base and bert-large widths) and K8 (fused attention,
      beside scaled_dot_product_attention) at the encode shapes, K5 (the
@@ -148,7 +151,9 @@ def nvidia_smi() -> str:
 
 
 def time_ms(fn, runs: int = 10, warmup: int = 2) -> float:
-    """Median device time of fn() over `runs` calls, CUDA events."""
+    """Median device time of fn() over `runs` calls, CUDA events around
+    each single call (the host's work between the first event and the
+    launch counts too: the plain versions are timed so)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -162,6 +167,52 @@ def time_ms(fn, runs: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# a sleep kernel ahead of a timed loop: ~25 ms at the H100's 1,980 MHz,
+# longer than the host takes to issue the loop's launches
+SLEEP_CYCLES = 50_000_000
+
+
+def loop_ms(fn, n: int) -> float:
+    """Device time per call of n back-to-back calls of fn between one pair
+    of CUDA events. The card sleeps first while the host issues the calls,
+    so the events time the card's work alone, with no launch, event or
+    host cost between two calls: a kernel of 30 us timed one launch per
+    event pair reads mostly those costs."""
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def time_turns(kernel, library, n: int, rounds: int = 3):
+    """A kernel and the library call that computes the same function, each
+    timed by loop_ms in turns (kernel, library, library, kernel) for
+    `rounds` rounds, so that both see the card in the same state ->
+    (median kernel ms, median library ms)."""
+    for fn in (kernel, library, kernel, library):
+        fn()
+    torch.cuda.synchronize()
+    ks, ls = [], []
+    for _ in range(rounds):
+        ks.append(loop_ms(kernel, n))
+        ls.append(loop_ms(library, n))
+        ls.append(loop_ms(library, n))
+        ks.append(loop_ms(kernel, n))
+    return statistics.median(ks), statistics.median(ls)
+
+
+def device_ms(fn, n: int) -> float:
+    """Median of three loop_ms readings after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    return statistics.median(loop_ms(fn, n) for _ in range(3))
 
 
 def bound(nbytes: float, ops: float, op_rate: float):
@@ -249,23 +300,85 @@ def ffn_bytes(T, H, F, w_bytes, b_bytes):
     return 2 * T * H * 2 + 2 * H * F * w_bytes + (F + H) * b_bytes + 4 * H * 4
 
 
+def time_ffn(name, kern, plain, args, nbytes, ops, rate, loops):
+    """A half-layer kernel's device time (loop_ms over `loops` calls) and
+    its single-launch time (time_ms, as PRs 4-7 timed it), the plain
+    version's and the bound -> (device ms, plain ms, bound ms, bound by)."""
+    ms = device_ms(lambda: kern(*args), loops)
+    single = time_ms(lambda: kern(*args))
+    plain_ms = time_ms(lambda: plain(*args))
+    b_ms, b_by = bound(nbytes, ops, rate)
+    phase(f"  {name}: kernel {ms:.4f} ms ({single:.4f} ms one launch per "
+          f"event pair), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}), {100 * b_ms / ms:.1f}% of it")
+    return ms, plain_ms, b_ms, b_by
+
+
+def kernel_split(fn, runs: int = 5) -> dict:
+    """Device ms per call of each CUDA kernel that fn launches, summed by
+    kernel name over a torch.profiler trace of `runs` calls (empty when
+    the trace holds no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / runs / 1e3
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+# K1's four launches, by a part of their kernels' names
+K1_PARTS = (("LN1", "ln1_kernel"), ("up GEMM", "UpEpi"),
+            ("down GEMM", "ResidualEpi"), ("LN2", "ln2_kernel"))
+
+
+def k1_split(ffn, args):
+    """Where K1's time goes at the args' shape: each launch's device ms
+    from a profiler trace, beside torch.mm of the up GEMM's shape (r .
+    W1^T, no bias or GELU; a yardstick for the GEMM main loop)."""
+    split = kernel_split(lambda: ffn.fused_ffn_block(*args))
+    parts = {name: sum(ms for key, ms in split.items() if tag in key)
+             for name, tag in K1_PARTS}
+    r, w1 = args[0], args[3]
+    mm = device_ms(lambda: torch.mm(r, w1.t()), 20)
+    T, H = r.shape
+    what = (", ".join(f"{name} {ms:.4f}" for name, ms in parts.items())
+            if split else "not measured (the trace holds no device time)")
+    phase(f"  K1 T={T} H={H} launches (device ms, profiler): {what}; "
+          f"torch.mm of the up GEMM's shape {mm:.4f} ms")
+
+
+# token counts of the K1/K4/K5 card checks: one served query (T = 64, half
+# of a GEMM's 128-row tile, the rest zeros from TMA), ragged T (1000, and
+# 4,104 = 4,096 + 8 rows in a last tile), the serving batch and the encode
+# path's T
+FFN_CHECK_T = (64, 1000, 4096, 4104, ENC_TOKENS)
+
+
 def check_k1(ffn, gen, dev):
-    """K1 at T = 64 * 64 tokens (serving), bert-base widths, bf16; a
-    ragged T; and the encode path's T = 256 * 128."""
+    """K1 at bert-base widths, bf16, at FFN_CHECK_T; timed at T = 64 * 64
+    tokens (serving) and the encode path's T = 256 * 128."""
     H, F = 768, 3072
     errs = [check_ffn("K1", ffn.fused_ffn_block, ffn.ffn_block_reference,
                       ffn_inputs(gen, dev, T, H, F), f"T={T} H={H} F={F}",
                       K1_MAX_SHARE)
-            for T in (4096, 1000, ENC_TOKENS)]
+            for T in FFN_CHECK_T]
     out = None
     for T in (4096, ENC_TOKENS):
         args = ffn_inputs(gen, dev, T, H, F)
-        ms = time_ms(lambda: ffn.fused_ffn_block(*args))
-        plain = time_ms(lambda: ffn.ffn_block_reference(*args))
-        b_ms, b_by = bound(ffn_bytes(T, H, F, 2, 2), 4 * T * H * F,
-                           BF16_FLOP_PER_S)
-        phase(f"  K1 T={T}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})")
+        ms, plain, b_ms, b_by = time_ffn(
+            f"K1 T={T}", ffn.fused_ffn_block, ffn.ffn_block_reference, args,
+            ffn_bytes(T, H, F, 2, 2), 4 * T * H * F, BF16_FLOP_PER_S,
+            100 if T == 4096 else 20)
+        if T == ENC_TOKENS:
+            k1_split(ffn, args)
         if out is None:  # the serving shape stands for K1 in the summary
             out = dict(name="K1_ffn_block", route="cuda",
                        source="cocodr_tpu_torch/csrc/ffn_block.cu",
@@ -277,49 +390,50 @@ def check_k1(ffn, gen, dev):
 
 def check_k4(ffn, gen, dev):
     """K4: the JAX package's F-chunked half-layer (bert-large widths,
-    H = 1024, F = 4096) is K1's function; K1 at the encode path's T."""
-    T, H, F = ENC_TOKENS, 1024, 4096
+    H = 1024, F = 4096) is K1's function; K1 at FFN_CHECK_T, timed at the
+    encode path's T."""
+    H, F = 1024, 4096
+    errs = [check_ffn("K4 (K1)", ffn.fused_ffn_block, ffn.ffn_block_reference,
+                      ffn_inputs(gen, dev, T, H, F), f"T={T} H={H} F={F}",
+                      K1_MAX_SHARE)
+            for T in FFN_CHECK_T]
+    T = ENC_TOKENS
     args = ffn_inputs(gen, dev, T, H, F)
-    err = check_ffn("K4 (K1)", ffn.fused_ffn_block, ffn.ffn_block_reference,
-                    args, f"T={T} H={H} F={F}", K1_MAX_SHARE)
-    ms = time_ms(lambda: ffn.fused_ffn_block(*args))
-    plain = time_ms(lambda: ffn.ffn_block_reference(*args))
-    b_ms, b_by = bound(ffn_bytes(T, H, F, 2, 2), 4 * T * H * F,
-                       BF16_FLOP_PER_S)
-    phase(f"  K4 (K1) T={T} H={H} F={F}: kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    ms, plain, b_ms, b_by = time_ffn(
+        f"K4 (K1) T={T} H={H} F={F}", ffn.fused_ffn_block,
+        ffn.ffn_block_reference, args, ffn_bytes(T, H, F, 2, 2),
+        4 * T * H * F, BF16_FLOP_PER_S, 20)
+    k1_split(ffn, args)
     return dict(name="K4_ffn_block_chunked", route="cuda",
                 source="cocodr_tpu_torch/csrc/ffn_block.cu",
-                replaces="cocodr_tpu/ops/pallas_ffn.py:156", max_abs_err=err,
-                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                replaces="cocodr_tpu/ops/pallas_ffn.py:156",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
 
 
 def check_k5(ffn, gen, dev):
-    """K5 (the FFN of the dropout path) at bert-base widths: a ragged T,
-    the training path's T = 64 * 128 (one tower of a warmup step) and the
-    JAX warmup preset's T = 256 * 128. Besides the max-abs bound, the share
-    of outputs that differ at all stays under K5_MAX_SHARE: on the CPU
-    (tests/test_torch_ffn.py, test_k5_share_limit_*; T = 128) sums in
-    another order move 0.5% of them, a moved rounding point (h in float32,
-    a bf16 pre-activation, y rounded before b2) 27-59%. -> the summary
-    entry of T = TRAIN_T."""
+    """K5 (the FFN of the dropout path) at bert-base widths at
+    FFN_CHECK_T, the training path's T = 64 * 128 (one tower of a warmup
+    step) and the JAX warmup preset's T = 256 * 128; timed at the last
+    two. Besides the max-abs bound, the share of outputs that differ at
+    all stays under K5_MAX_SHARE: on the CPU (tests/test_torch_ffn.py,
+    test_k5_share_limit_*; T = 128) sums in another order move 0.5% of
+    them, a moved rounding point (h in float32, a bf16 pre-activation, y
+    rounded before b2) 27-59%. -> the summary entry of T = TRAIN_T."""
     H, F = 768, 3072
     errs, out = [], None
-    for T in (1000, TRAIN_T, 4 * TRAIN_T):
+    for T in sorted(set(FFN_CHECK_T + (TRAIN_T, 4 * TRAIN_T))):
         x, _, _, w1, b1, w2, b2, _, _ = ffn_inputs(gen, dev, T, H, F)
         args = (x, w1, b1, w2, b2)
         errs.append(check_ffn("K5", ffn.fused_ffn, ffn.ffn_reference, args,
                               f"T={T} H={H} F={F}", K5_MAX_SHARE))
-        if T == 1000:
+        if T not in (TRAIN_T, 4 * TRAIN_T):
             continue
-        ms = time_ms(lambda: ffn.fused_ffn(*args))
-        plain = time_ms(lambda: ffn.ffn_reference(*args))
         # x in, out, both weights, both biases (bf16)
-        b_ms, b_by = bound(2 * T * H * 2 + 2 * H * F * 2 + (F + H) * 2,
-                           4 * T * H * F, BF16_FLOP_PER_S)
-        phase(f"  K5 T={T}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})")
+        ms, plain, b_ms, b_by = time_ffn(
+            f"K5 T={T}", ffn.fused_ffn, ffn.ffn_reference, args,
+            2 * T * H * 2 + 2 * H * F * 2 + (F + H) * 2, 4 * T * H * F,
+            BF16_FLOP_PER_S, 50 if T == TRAIN_T else 20)
         if out is None:
             out = dict(name="K5_ffn", route="cuda",
                        source="cocodr_tpu_torch/csrc/ffn_block.cu",
@@ -365,9 +479,12 @@ def check_k7(ffn, gen, dev):
 
 def check_k8(att, gen, dev):
     """K8 at the encode shape B = 256, S = 128, N = 12, D = 64, with a
-    padding bias (lengths 16..128), beside scaled_dot_product_attention on
-    the same inputs (timed only: it defers no rounding the way K8 does).
-    Also odd shapes: bucket widths, S not a multiple of 16, S = 512.
+    padding bias (lengths 16..128), timed in turns with
+    scaled_dot_product_attention on the same inputs (time_turns; SDPA is
+    timed only: it defers no rounding the way K8 does). Also odd shapes:
+    bucket widths, S not a multiple of 16, the kernel's two-pass schedule
+    (S > 128) with its shared-memory ring two deep (S = 384) and one deep
+    (S = 392, 512).
     Besides the bound, the share of outputs that differ at all stays under
     K8_MAX_SHARE: on the CPU (tests/test_torch_attention.py,
     test_k8_share_limit_separates_rounding_points; B = 16, S = 128,
@@ -378,8 +495,8 @@ def check_k8(att, gen, dev):
 
     err = 0.0
     for B, S, N in ((ENC_BATCH, ENC_LEN, 12), (ENC_BATCH, 32, 12),
-                    (ENC_BATCH, 64, 16), (8, 200, 16), (4, 512, 16),
-                    (3, 40, 3)):
+                    (ENC_BATCH, 64, 16), (8, 200, 16), (4, 384, 12),
+                    (4, 392, 12), (4, 512, 16), (3, 40, 3)):
         q, k, v = (torch.randn(B, S, N, 64, generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
         lens = torch.randint(min(16, S), S + 1, (B,), generator=gen,
@@ -406,19 +523,23 @@ def check_k8(att, gen, dev):
         err = max(err, e)
         if S != ENC_LEN:
             continue
-        ms = time_ms(lambda: att.fused_attention_seq_major(q, k, v, bias,
-                                                           0.125))
+        single = time_ms(lambda: att.fused_attention_seq_major(
+            q, k, v, bias, 0.125))
         plain = time_ms(lambda: att.attention_reference(q, k, v, bias,
                                                         0.125))
         mask = bias[:, None, None, :].to(torch.bfloat16)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, scale=0.125))
+        ms, lib = time_turns(
+            lambda: att.fused_attention_seq_major(q, k, v, bias, 0.125),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                   scale=0.125), 100)
         b_ms, b_by = bound(4 * B * S * N * 64 * 2 + B * S * 4,
                            4 * B * N * S * S * 64, BF16_FLOP_PER_S)
-        phase(f"  K8 B={B} S={S} N={N}: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})")
+        phase(f"  K8 B={B} S={S} N={N}: kernel {ms:.4f} ms, "
+              f"scaled_dot_product_attention {lib:.4f} ms (in turns, 100 "
+              f"launches an event pair: {ms / lib:.2f}x); one launch per "
+              f"event pair {single:.4f} ms; plain {plain:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it")
         entry = dict(name="K8_attention", route="cuda",
                      source="cocodr_tpu_torch/csrc/attention.cu",
                      replaces="cocodr_tpu/ops/pallas_attention.py:41",
@@ -489,13 +610,15 @@ def check_k3(mips, gen, dev):
     out = None
     for W in (N_DOCS // 512, 64 * TOP_K, 8 * TOP_K):
         x = torch.randn(Q, W, generator=gen, device=dev)
-        ms = time_ms(lambda: mips.topk(x, k))
+        ms, lib = time_turns(lambda: mips.topk(x, k),
+                             lambda: torch.topk(x, k, dim=1), 200)
         plain = time_ms(lambda: mips.topk_reference(x, k))
-        lib = time_ms(lambda: torch.topk(x, k, dim=1))
         Wp = -(-W // 128) * 128
         b_ms, b_by = bound(Q * W * 4 + Q * k * 8, k * Q * Wp, FP32_OP_PER_S)
-        phase(f"  K3 [{Q},{W}] k={k}: kernel {ms:.4f} ms, plain {plain:.4f}"
-              f" ms, torch.topk {lib:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        phase(f"  K3 [{Q},{W}] k={k}: kernel {ms:.4f} ms, torch.topk "
+              f"{lib:.4f} ms (in turns, 200 launches an event pair: "
+              f"{ms / lib:.2f}x), plain {plain:.4f} ms, bound {b_ms:.6f} ms "
+              f"({b_by})")
         if out is None:  # the widest shape stands for K3 in the summary
             out = dict(name="K3_topk", route="cuda",
                        source="cocodr_tpu_torch/csrc/topk.cu",

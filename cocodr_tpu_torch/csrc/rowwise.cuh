@@ -1,7 +1,6 @@
-// Row-wise pieces of the FFN half-layer kernels (K1 in ffn_block.cu, K7 in
-// ffn_block_int8.cu; attention.cu takes the warp reductions for its softmax
-// rows): warp reductions, 8-wide bf16 vector packing, the
-// activation, the LayerNorm statistics of models/bert.LayerNorm, and the
+// Row-wise pieces of the FFN half-layer kernels (K1 and K5 in ffn_block.cu,
+// K7 in ffn_block_int8.cu): warp reductions, 8-wide bf16 vector packing,
+// the activation, the LayerNorm statistics of models/bert.LayerNorm, and the
 // final LN2 pass. Every row pass gives one warp to one row, which it reads
 // in 8-element vectors (H a multiple of 8).
 #pragma once
@@ -88,8 +87,72 @@ __device__ __forceinline__ void row_stats(Load8 load8, int H, float eps,
   *rstd = rsqrtf(warp_sum(v) / H + eps);
 }
 
-// out = bf16(LN2(z)), z [T, H] float32; one warp per row. Static: each
-// kernel source that includes this header has its own copy.
+// A row of at most kRowVec * 256 values held in registers, read once: the
+// lane's 8-wide vectors at columns lane * 8 + 256 * i, the order in which
+// row_stats reads them, so that the statistics come out the same.
+constexpr int kRowVec = 4;  // H <= 1,024: bert-base and bert-large
+
+template <class Load8>
+__device__ __forceinline__ void load_row(Load8 load8, int H,
+                                         float (&f)[kRowVec][8]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < kRowVec; ++i) {
+    if (lane * 8 + 256 * i < H) load8(lane * 8 + 256 * i, f[i]);
+  }
+}
+
+__device__ __forceinline__ void held_row_stats(const float (&f)[kRowVec][8],
+                                               int H, float eps, float* mean,
+                                               float* rstd) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kRowVec; ++i) {
+    if (lane * 8 + 256 * i < H) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s += f[i][e];
+    }
+  }
+  const float m = warp_sum(s) / H;
+  float v = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kRowVec; ++i) {
+    if (lane * 8 + 256 * i < H) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v += (f[i][e] - m) * (f[i][e] - m);
+    }
+  }
+  *mean = m;
+  *rstd = rsqrtf(warp_sum(v) / H + eps);
+}
+
+// dst[c..c+7] = bf16((f - m) * rs * scale + bias) for each of the lane's
+// vectors, scale and bias float32 [H]
+template <class Store8>
+__device__ __forceinline__ void normalize_row(float (&f)[kRowVec][8], int H,
+                                              float m, float rs,
+                                              const float* scale,
+                                              const float* bias,
+                                              Store8 store8) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < kRowVec; ++i) {
+    const int c = lane * 8 + 256 * i;
+    if (c < H) {
+      float sc[8], bi[8];
+      load8_f32(&scale[c], sc);
+      load8_f32(&bias[c], bi);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[i][e] = (f[i][e] - m) * rs * sc[e] + bi[e];
+      store8(c, f[i]);
+    }
+  }
+}
+
+// out = bf16(LN2(z)), z [T, H] float32; one warp per row, held in
+// registers when H <= kRowVec * 256. Static: each kernel source that
+// includes this header has its own copy.
 static __global__ void __launch_bounds__(kThreads)
 ln2_kernel(const float* __restrict__ z, const float* __restrict__ s2,
            const float* __restrict__ c2, __nv_bfloat16* __restrict__ out,
@@ -98,15 +161,26 @@ ln2_kernel(const float* __restrict__ z, const float* __restrict__ s2,
   if (t >= T) return;  // warp-uniform; no barrier in this kernel
   const int lane = threadIdx.x & 31;
   const float* row = z + static_cast<size_t>(t) * H;
+  __nv_bfloat16* orow = out + static_cast<size_t>(t) * H;
   auto load8 = [&](int c, float* f) { load8_f32(&row[c], f); };
+  auto store8 = [&](int c, const float* f) {
+    *reinterpret_cast<uint4*>(&orow[c]) = pack8(f);
+  };
   float m, rs;
+  if (H <= kRowVec * 256) {
+    float f[kRowVec][8];
+    load_row(load8, H, f);
+    held_row_stats(f, H, eps, &m, &rs);
+    normalize_row(f, H, m, rs, s2, c2, store8);
+    return;
+  }
   row_stats(load8, H, eps, &m, &rs);
   for (int c = lane * 8; c < H; c += 256) {
     float f[8];
     load8(c, f);
 #pragma unroll
     for (int e = 0; e < 8; ++e) f[e] = (f[e] - m) * rs * s2[c + e] + c2[c + e];
-    *reinterpret_cast<uint4*>(&out[static_cast<size_t>(t) * H + c]) = pack8(f);
+    store8(c, f);
   }
 }
 

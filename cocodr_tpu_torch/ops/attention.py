@@ -57,10 +57,10 @@ def fused_attention_seq_major(q, k, v, bias, scale: float):
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}, "
             f"{tuple(bias.shape)}"
         )
-    if D != HEAD_DIM or S % 8 or S > MAX_SEQ or B > 65535:
+    if D != HEAD_DIM or S % 8 or S > MAX_SEQ:
         raise ValueError(
-            f"the kernel takes D == {HEAD_DIM}, S % 8 == 0, S <= {MAX_SEQ} "
-            f"and B <= 65535; got B={B}, S={S}, D={D}"
+            f"the kernel takes D == {HEAD_DIM}, S % 8 == 0 and S <= "
+            f"{MAX_SEQ}; got S={S}, D={D}"
         )
     out = torch.empty_like(q)
     if q.numel() == 0:

@@ -215,3 +215,69 @@ def test_bert_fused_attention_trains_through_k8_without_attention_dropout(
         assert len(calls) == want_calls
         g = model.encoder.layer[0].attention.self.query.weight.grad
         assert g is not None and g.abs().sum() > 0
+
+
+K8_MAX_SHARE = 0.01  # chip_smoke.py's limit on the share of outputs that differ
+K8_KEY_TILE = 64  # keys a tile of csrc/attention.cu's two passes holds
+
+
+def _k8_key_tile_schedule(q, k, v, bias, scale):
+    """csrc/attention.cu's order of the softmax at S > 128, emulated in
+    torch per row: pass 1 walks key tiles of 64 and keeps each row's running max and a running
+    sum of exponentials, rescaled whenever the max moves; pass 2 takes the
+    scores again, normalises them by the final max and sum, rounds the
+    probabilities to the compute dtype and multiplies them by V in
+    float32. With S <= 128 the kernel holds all of a row's scores at once
+    and takes the plain sum; the emulation still walks two tiles there."""
+    s = (torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * scale
+         + bias.float()[:, None, None, :])
+    m = torch.full(s.shape[:-1] + (1,), -float("inf"))
+    total = torch.zeros_like(m)
+    for t0 in range(0, s.shape[-1], K8_KEY_TILE):
+        tile = s[..., t0:t0 + K8_KEY_TILE]
+        tm = tile.amax(-1, keepdim=True)
+        ts = torch.exp(tile - tm).sum(-1, keepdim=True)
+        new = torch.maximum(m, tm)
+        total = total * torch.exp(m - new) + ts * torch.exp(tm - new)
+        m = new
+    probs = (torch.exp(s - m) / total).to(q.dtype)
+    ctx = torch.einsum("bnqk,bknd->bqnd", probs.float(), v.float())
+    return ctx.to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [128, 200, 512])
+def test_k8_key_tile_schedule_keeps_the_rounding_point(S, dtype):
+    """The kernel's two-pass schedule for S > 128 (one pass at S <= 128)
+    against attention_reference and the Pallas kernel in interpret mode,
+    B = 2, N = 2, D = 64, with a padding bias. float32: tolerance 1e-5, a
+    rescaled sum differs from the plain one only as a reordered sum does.
+    bf16: one bf16 ulp of the output plus one of a probability times
+    max |v| (a rounding that lands on the other side of a bf16 boundary),
+    and the share of outputs that differ at all under chip_smoke.py's
+    K8_MAX_SHARE, which a softmax rounded elsewhere exceeds
+    (test_k8_share_limit_separates_rounding_points)."""
+    rng = np.random.RandomState(S)
+    B, N, D = 2, 2, 64
+    q, k, v = (rng.randn(B, S, N, D).astype(np.float32) for _ in range(3))
+    lens = np.array([S, S - 8 * rng.randint(1, S // 8)])
+    bias = np.where(np.arange(S)[None, :] < lens[:, None], 0.0,
+                    -1e9).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    tbias = torch.from_numpy(bias)
+    got = _k8_key_tile_schedule(tq, tk, tv, tbias, 0.125).float()
+    ref = tatt.attention_reference(tq, tk, tv, tbias, 0.125).float()
+    jdt = getattr(jnp, dtype)
+    pallas = torch.from_numpy(np.array(jax_k8(
+        *(jnp.asarray(a, jdt) for a in (q, k, v)), jnp.asarray(bias), 0.125,
+        interpret=True), np.float32))
+    for want in (ref, pallas):
+        diff = (got - want).abs()
+        if dtype == "float32":
+            assert diff.max().item() <= 1e-5
+        else:
+            tol = 2.0 ** -8 * (want.abs().max().item()
+                               + tv.float().abs().max().item())
+            assert diff.max().item() <= tol
+            assert (diff > 0).float().mean().item() < K8_MAX_SHARE
