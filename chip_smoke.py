@@ -10,19 +10,24 @@ Phases, each printed with its elapsed seconds:
   3. kernel checks: each kernel against its plain PyTorch version on the
      card, with its time, the plain version's time, the time of one
      library call that computes the same function where there is one, and
-     the least time the card could take (K1, K4, K5 and K8 by loops of
-     back-to-back launches, K3 and K8 in turns with torch.topk and
-     scaled_dot_product_attention): K1 fused FFN half-layer (serving
+     the least time the card could take (K1, K2, K4, K5, K7, K8 and K10 by
+     loops of back-to-back launches, K3 and K8 in turns with torch.topk
+     and scaled_dot_product_attention): K1 fused FFN half-layer (serving
      and encode shapes; checked also at T = 64 and ragged T at bert-base
      and bert-large widths), K2 dual block-max sweep and K3 extract-max top-k
      at the serving shapes; K4 (K1 at bert-large widths), K7 (W8A8 FFN
-     half-layer, bert-base and bert-large widths) and K8 (fused attention,
-     beside scaled_dot_product_attention) at the encode shapes, K5 (the
-     FFN of the dropout path) at the training shapes; then the
-     sweeps K2 (plain and packed), K6 (int8), K9 (top-2 certificate) and
-     K10 (block-32) at Q = 64 and Q = 1024 over the 1,048,576-doc corpus,
-     packed argmaxes held exactly wherever a block's top two scores differ
-     by more than the tolerance;
+     half-layer, T = 64 to 32,768 at bert-base and bert-large widths, its
+     launches split by a profiler trace beside torch._int_mm of its GEMMs'
+     shapes) and K8 (fused attention, beside scaled_dot_product_attention)
+     at the encode shapes, K5 (the FFN of the dropout path) at the training
+     shapes; K1 then K7 on weights at one address (the TMA map cache);
+     then the sweeps K2 (plain and packed), K6 (int8), K9 (top-2
+     certificate) and K10 (block-32) at Q = 64 and Q = 1024 over the
+     1,048,576-doc corpus, packed argmaxes held exactly wherever a block's
+     top two scores differ by more than the tolerance, beside torch.mm of
+     the sweep's product at Q = 1024; K2 and K10 also at Q = 1 and 100, on
+     a 2,048-row corpus, at D = 96 (a k tail), and bit for bit on integer
+     inputs with repeated rows;
   4. search: search_topk over 1,024 row-normalised bf16 queries x the
      corpus at k = 100 with each method (pallas, exact2, fast, blockmax,
      refined, naive), plus mips_topk_int8 and mips_topk_blockmax_pallas:
@@ -445,36 +450,100 @@ def check_k5(ffn, gen, dev):
 
 
 def check_k7(ffn, gen, dev):
-    """K7 at a ragged T and at the encode path's T, bert-base and
-    bert-large widths. -> the summary entry of the bert-base shape at the
-    encode path's T (the path (d) runs)."""
-    errs = [check_ffn("K7", ffn.fused_ffn_block_int8,
-                      ffn.ffn_block_int8_reference,
-                      ffn_inputs(gen, dev, 1000, 768, 3072, int8=True),
-                      "T=1000 H=768 F=3072", K7_MAX_SHARE)]
-    out = None
+    """K7 at FFN_CHECK_T at bert-base and bert-large widths; timed by loops
+    of back-to-back launches (time_ffn, the one-launch time beside) at
+    T = 4,096 (serve int8_encode) and the encode path's T at bert-base, and
+    at the encode path's T at bert-large; its launches split by a profiler
+    trace at the encode path's T (k7_split). -> the summary entry of the
+    bert-base shape at the encode path's T (the path (d) runs)."""
+    errs, out = [], None
     for H, F in ((768, 3072), (1024, 4096)):
-        T = ENC_TOKENS
-        args = ffn_inputs(gen, dev, T, H, F, int8=True)
-        errs.append(check_ffn("K7", ffn.fused_ffn_block_int8,
-                              ffn.ffn_block_int8_reference, args,
-                              f"T={T} H={H} F={F}", K7_MAX_SHARE))
-        ms = time_ms(lambda: ffn.fused_ffn_block_int8(*args))
-        plain = time_ms(lambda: ffn.ffn_block_int8_reference(*args), runs=3,
-                        warmup=1)
-        # int8 weights, float32 scales and biases
-        b_ms, b_by = bound(ffn_bytes(T, H, F, 1, 8), 4 * T * H * F,
-                           INT8_OP_PER_S)
-        phase(f"  K7 T={T} H={H} F={F}: kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        if out is None:
-            out = dict(name="K7_ffn_block_int8", route="cuda",
-                       source="cocodr_tpu_torch/csrc/ffn_block_int8.cu",
-                       replaces="cocodr_tpu/ops/pallas_ffn.py:304",
-                       ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=None)
+        for T in FFN_CHECK_T:
+            args = ffn_inputs(gen, dev, T, H, F, int8=True)
+            errs.append(check_ffn("K7", ffn.fused_ffn_block_int8,
+                                  ffn.ffn_block_int8_reference, args,
+                                  f"T={T} H={H} F={F}", K7_MAX_SHARE))
+            if T != ENC_TOKENS and (T != 4096 or H != 768):
+                continue
+            # int8 weights, float32 scales and biases
+            ms, plain, b_ms, b_by = time_ffn(
+                f"K7 T={T} H={H} F={F}", ffn.fused_ffn_block_int8,
+                ffn.ffn_block_int8_reference, args, ffn_bytes(T, H, F, 1, 8),
+                4 * T * H * F, INT8_OP_PER_S, 100 if T == 4096 else 20)
+            if T == ENC_TOKENS:
+                k7_split(ffn, args, gen)
+                if out is None:
+                    out = dict(name="K7_ffn_block_int8", route="cuda",
+                               source="cocodr_tpu_torch/csrc/ffn_block_int8.cu",
+                               replaces="cocodr_tpu/ops/pallas_ffn.py:304",
+                               ms=ms, plain_ms=plain, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=None)
     out["max_abs_err"] = max(errs)
     return out
+
+
+# K7's five launches, by a part of their kernels' names
+K7_PARTS = (("LN1 + quantize", "ln1_quant_kernel"), ("up GEMM", "UpEpi"),
+            ("quantize h", "quant_h_kernel"), ("down GEMM", "DownEpi"),
+            ("LN2", "ln2_kernel"))
+
+
+def k7_split(ffn, args, gen):
+    """Where K7's time goes at the args' shape: each launch's device ms
+    from a profiler trace, beside torch._int_mm of its up and down GEMMs'
+    shapes (int8 operands, int32 products; no scales, bias or activation),
+    each timed in turns with K7 (time_turns): yardsticks for the int8 main
+    loop, not the kernel's function."""
+    split = kernel_split(lambda: ffn.fused_ffn_block_int8(*args))
+    parts = {name: sum(ms for key, ms in split.items() if tag in key)
+             for name, tag in K7_PARTS}
+    r, w1q, w2q = args[0], args[3], args[6]
+    T, H = r.shape
+    F = w1q.shape[0]
+    a_up = torch.randint(-127, 128, (T, H), generator=gen, device=r.device,
+                         dtype=torch.int8)
+    a_down = torch.randint(-127, 128, (T, F), generator=gen, device=r.device,
+                           dtype=torch.int8)
+    kern = lambda: ffn.fused_ffn_block_int8(*args)  # noqa: E731
+    k_up, up = time_turns(kern, lambda: torch._int_mm(a_up, w1q.t()), 10)
+    k_down, down = time_turns(kern, lambda: torch._int_mm(a_down, w2q.t()),
+                              10)
+    what = (", ".join(f"{name} {ms:.4f}" for name, ms in parts.items())
+            if split else "not measured (the trace holds no device time)")
+    phase(f"  K7 T={T} H={H} launches (device ms, profiler): {what}; "
+          f"torch._int_mm of the up GEMM's shape {up:.4f} ms, of the down "
+          f"GEMM's {down:.4f} ms (in turns with K7: {k_up:.4f}, "
+          f"{k_down:.4f} ms)")
+
+
+def check_map_cache(ffn, gen, dev):
+    """K1 and then K7 on weights at one address. gemm_wgmma.cuh caches a
+    TMA tensor map per (element type, address, shape, box), and the
+    caching allocator hands a freed block to the next tensor, so a bf16
+    W1 [F, H] and an int8 W1q [F, H] can lie at one address in turn. Here
+    both are views of one byte buffer: K1 runs on its W1 written there,
+    then K7 on its W1q written over it, then K1 again, each held against
+    its plain version as check_ffn holds them. With a key without the
+    element type, K7 would read its weight through K1's bf16 map."""
+    T, H, F = 4096, 768, 3072
+    k1 = ffn_inputs(gen, dev, T, H, F)
+    k7 = ffn_inputs(gen, dev, T, H, F, int8=True)
+    buf = torch.empty(F * H * 2, dtype=torch.uint8, device=dev)
+    w1 = buf.view(torch.bfloat16).view(F, H)
+    w1q = buf[:F * H].view(torch.int8).view(F, H)
+    if w1.data_ptr() != w1q.data_ptr():
+        raise AssertionError("the two views do not share an address")
+    for name in ("K1", "K7", "K1"):
+        if name == "K1":
+            w1.copy_(k1[3])
+            kern, plain = ffn.fused_ffn_block, ffn.ffn_block_reference
+            args, limit = k1[:3] + (w1,) + k1[4:], K1_MAX_SHARE
+        else:
+            w1q.copy_(k7[3])
+            kern, plain = ffn.fused_ffn_block_int8, ffn.ffn_block_int8_reference
+            args, limit = k7[:3] + (w1q,) + k7[4:], K7_MAX_SHARE
+        check_ffn(f"{name} (W1 at {buf.data_ptr():#x})", kern, plain, args,
+                  f"T={T} H={H} F={F}", limit)
 
 
 def check_k8(att, gen, dev):
@@ -564,13 +633,15 @@ def check_k2(mips, corpus, gen, dev):
           f"tol={tol:.3e}")
     if not err <= tol:
         raise AssertionError(f"K2 disagrees with its plain version: {err}")
-    ms = time_ms(lambda: mips.dual_sweep(q, corpus))
+    ms = device_ms(lambda: mips.dual_sweep(q, corpus), 20)
+    single = time_ms(lambda: mips.dual_sweep(q, corpus))
     plain = time_ms(lambda: mips.dual_sweep_reference(q, corpus))
     nbytes = N_DOCS * DIM * 2 + Q * DIM * 2 + Q * (N_DOCS // 8
                                                    + N_DOCS // 64) * 4
     b_ms, b_by = bound(nbytes, 2 * Q * N_DOCS * DIM, BF16_FLOP_PER_S)
-    phase(f"  K2: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by})")
+    phase(f"  K2: kernel {ms:.4f} ms ({single:.4f} ms one launch per event "
+          f"pair), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+          f"{100 * b_ms / ms:.1f}% of it")
     return dict(name="K2_dual_sweep", route="cuda",
                 source="cocodr_tpu_torch/csrc/mips_sweep.cu",
                 replaces="cocodr_tpu/ops/pallas_mips.py:100",
@@ -742,17 +813,103 @@ def check_sweeps(gen, dev, corpus, corpus_i8, dim_scale):
         for name, (kern, plain, elem, out_bytes, rate) in runs.items():
             if name == "K2_dual_sweep" and Q == BATCH:
                 continue  # check_k2 times it at the serving shape
-            ms = time_ms(kern)
+            if name in WGMMA_SWEEPS:
+                # loops of back-to-back launches, the one-launch time beside
+                ms = device_ms(kern, 20 if Q == BATCH else 5)
+                single = f" ({time_ms(kern):.4f} ms one launch per event pair)"
+            else:
+                ms, single = time_ms(kern), ""
             plain_ms = time_ms(plain)
             b_ms, b_by = bound((N + Q) * D * elem + Q * out_bytes,
                                2 * Q * N * D, rate)
             err, note = errs[name]
-            phase(f"  {name} Q={Q} N={N} D={D}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-                  f"max_abs_err={err} tol={tol:.3e} {note}")
+            phase(f"  {name} Q={Q} N={N} D={D}: kernel {ms:.4f} ms{single}, "
+                  f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"{100 * b_ms / ms:.1f}% of it; max_abs_err={err} "
+                  f"tol={tol:.3e} {note}")
             out[name, Q] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                 bound_by=b_by, max_abs_err=err)
+        if Q == SEARCH_Q:
+            # yardstick for the main loop: the same bf16 product into a
+            # [Q, N] bf16 matrix, no block maxima (not the sweep's function)
+            prod = torch.empty((Q, N), dtype=torch.bfloat16, device=dev)
+            k_ms, mm = time_turns(
+                runs["K2_dual_sweep"][0],
+                lambda: torch.mm(q, corpus.t(), out=prod), 3)
+            del prod
+            phase(f"  torch.mm of the sweep's [{Q}, {D}] x [{D}, {N}] bf16 "
+                  f"product: {mm:.4f} ms (in turns with K2: {k_ms:.4f} ms)")
     return out
+
+
+# the sweeps on gemm_wgmma.cuh's main loop (K6 and K9 keep gemm_nt.cuh's)
+WGMMA_SWEEPS = ("K2_dual_sweep", "K2_dual_sweep_packed", "K10_block32_sweep")
+# (Q, N, D) of check_sweep_shapes beside check_sweeps' Q = 64 and 1024
+# over the corpus: one query, a ragged query tile, a small corpus, and a
+# D that leaves a k tail past the last 64-column stage
+SWEEP_SHAPES = ((1, N_DOCS, DIM), (100, N_DOCS, DIM), (100, 2048, DIM),
+                (1, 2048, 96), (64, 2048, 96), (100, 2048, 96),
+                (1024, 2048, 96))
+
+
+def normed(gen, dev, n, d):
+    x = torch.randn(n, d, generator=gen, device=dev)
+    return (x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+
+
+def check_sweep_shapes(gen, dev, corpus):
+    """K2 (plain and packed) and K10 against their plain versions at
+    SWEEP_SHAPES, with check_sweeps' limits (1e-4 x max |score|, packed
+    argmaxes exact outside near-ties); then at Q = 100, N = 2,048, D = 96
+    with small integers (scores exact in every summation order) and
+    repeated corpus rows (ties inside a thread's column pair and across a
+    quad's lanes), where the kernels must equal their plain versions bit
+    for bit, first-occurrence argmaxes included."""
+    from cocodr_tpu_torch.ops import mips_blockmax, mips_hier
+
+    def sweeps(q, c):
+        return {"K2": mips_hier.dual_sweep(q, c),
+                "K2 packed": mips_hier.dual_sweep(q, c, pack=True),
+                "K10": (mips_blockmax.block_sweep(q, c),)}, {
+                "K2": mips_hier.dual_sweep_reference(q, c),
+                "K2 packed": mips_hier.dual_sweep_reference(q, c, pack=True),
+                "K10": (mips_blockmax.block_sweep_reference(q, c),)}
+
+    for Q, N, D in SWEEP_SHAPES:
+        c = corpus if N == N_DOCS else normed(gen, dev, N, D)
+        q = normed(gen, dev, Q, D)
+        tol = 1e-4 * max(1.0, mips_hier.scores(q, c[:131072]).abs().max()
+                         .item())
+        got, want = sweeps(q, c)
+        err = max((a - b).abs().max().item() for name in ("K2", "K10")
+                  for a, b in zip(got[name], want[name]))
+        if not err <= tol:
+            raise AssertionError(f"K2/K10 Q={Q} N={N} D={D}: {err}")
+        gaps = block_gaps(mips_hier, q, c, 8)
+        perr, ties = check_packed("K2 packed fine", got["K2 packed"][0],
+                                  want["K2 packed"][0], 3, gaps, tol)
+        cerr = (mips_hier.clear_low_bits(got["K2 packed"][1], 3)
+                - mips_hier.clear_low_bits(want["K2 packed"][1], 3)
+                ).abs().max().item()
+        if not cerr <= tol:
+            raise AssertionError(f"K2 packed coarse Q={Q} N={N} D={D}: {cerr}")
+        phase(f"  K2, K2 packed, K10 Q={Q} N={N} D={D}: max_abs_err="
+              f"{max(err, perr, cerr):.3e} tol={tol:.3e}, packed argmax "
+              f"equal outside {ties} near-tie fine blocks")
+    Q, N, D = 100, 2048, 96
+    q = torch.randint(-3, 4, (Q, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    c = torch.randint(-3, 4, (N, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    c[1::8] = c[0::8]  # equal rows 0 and 1 of every fine block: one pair
+    c[6::8] = c[3::8]  # rows 3 and 6: two lanes of a quad
+    got, want = sweeps(q, c)
+    for name in got:
+        if not all(torch.equal(a, b) for a, b in zip(got[name], want[name])):
+            raise AssertionError(f"{name} on exact integer scores differs "
+                                 f"from its plain version")
+    phase(f"  K2, K2 packed, K10 Q={Q} N={N} D={D}, integer inputs with "
+          f"repeated rows: equal to the plain versions bit for bit")
 
 
 def make_corpus(gen, dev):
@@ -1652,9 +1809,11 @@ def main() -> None:
     kernels.append(check_k3(mips_hier, gen, dev))
     kernels.append(check_k4(ffn, gen, dev))
     kernels.append(check_k7(ffn, gen, dev))
+    check_map_cache(ffn, gen, dev)
     kernels.append(check_k8(attention, gen, dev))
     corpus_i8, dim_scale = mips_int8.quantize_corpus_int8(corpus)
     sweeps = check_sweeps(gen, dev, corpus, corpus_i8, dim_scale)
+    check_sweep_shapes(gen, dev, corpus)
 
     phase("search")
     search_counts = search(gen, dev, corpus, corpus_i8, dim_scale)

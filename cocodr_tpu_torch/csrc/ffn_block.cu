@@ -34,8 +34,8 @@
 // activations and weights in flight in a 4-6 stage ring, two consumer
 // warpgroups multiply 128 x BN tiles with float32 accumulators in
 // registers, and the epilogues work on those registers. The output tile
-// is chosen per GEMM (see gemm() below) against wave quantisation at the
-// serving shape. Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W
+// is chosen per GEMM (gemm_wgmma.cuh's gemm_by_waves) against wave
+// quantisation at the serving shape. Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W
 // (loops of back-to-back launches): K1 0.1155 ms at T = 4096 and 0.823 ms
 // at T = 32,768 (38% of the bf16 peak), K4 1.251 ms, K5 0.175 ms at
 // T = 8192; the WMMA main loop fed by cp.async that this replaces took
@@ -61,8 +61,6 @@
 // for K1.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <initializer_list>
 
 #include "gemm_wgmma.cuh"
 #include "rowwise.cuh"
@@ -113,11 +111,6 @@ ln1_kernel(const __nv_bfloat16* __restrict__ r, const float* __restrict__ s1,
 // per-element and per-row inputs are read with __ldg (read-only for the
 // kernel: plain loads could alias the epilogue's own stores, and nvcc would
 // then issue each only after the store before it).
-__device__ __forceinline__ float2 ldg_bf16x2(const __nv_bfloat16* p) {
-  const unsigned int raw = __ldg(reinterpret_cast<const unsigned int*>(p));
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
-}
-
 __device__ __forceinline__ float2 pair(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
@@ -193,39 +186,12 @@ struct BiasEpi {
   }
 };
 
-// The GEMM of [T, K] activations by an [N, K] weight, with the output
-// tile of 128 x BN (BN in 256, 192, 128, dividing N) that needs the least
-// card time counted in waves of one tile per SM, ceil(tiles / SMs), each
-// wave costing BN + 64 (a wider tile spends less of its time outside the
-// main loop). At T = 4,096, bert-base, the down GEMMs (N = H = 768) take
-// 192 (128 tiles for 132 SMs, where 256 gives 96); at T = 32,768 they, and
-// the up GEMMs everywhere, take 256.
+// The bf16 GEMM of [T, K] activations by an [N, K] weight, its tile picked
+// by waves over the SMs (gemm_wgmma.cuh), with a pairwise epilogue.
 template <class Epi>
 cudaError_t gemm(const void* a, const void* w, int T, int N, int K, Epi epi,
                  cudaStream_t s) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) {
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (e != cudaSuccess) return e;
-  }
-  const long long m_tiles = (T + wg::kBM - 1) / wg::kBM;
-  int best = 0;
-  long long best_cost = 0;
-  for (const int bn : {256, 192, 128}) {
-    if (N % bn) continue;
-    const long long cost = (m_tiles * (N / bn) + sms - 1) / sms * (bn + 64);
-    if (best == 0 || cost < best_cost) {
-      best = bn;
-      best_cost = cost;
-    }
-  }
-  if (best == 256) return wg::gemm<256>(a, w, T, N, K, epi, s);
-  if (best == 192) return wg::gemm<192>(a, w, T, N, K, epi, s);
-  return wg::gemm<128>(a, w, T, N, K, epi, s);
+  return wg::gemm_by_waves<wg::Bf16>(a, w, T, N, K, wg::pairwise(epi), s);
 }
 
 // h = bf16(act(x . W1^T + b1)), the up GEMM of K1 and K5.
@@ -242,7 +208,7 @@ cudaError_t launch_up(const __nv_bfloat16* x, const void* w1, const void* b1,
 
 bool bad_shape(int T, int H, int F, int act) {
   return T <= 0 || H <= 0 || H % 128 || F <= 0 || F % 128 ||
-         act < kGelu || act > kRelu || (T + wg::kBM - 1) / wg::kBM > 65535;
+         act < kGelu || act > kRelu;
 }
 
 }  // namespace

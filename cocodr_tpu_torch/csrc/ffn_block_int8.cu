@@ -17,13 +17,13 @@
 // (3 MB at bert-base), and the row max of h is a reduction across the
 // blocks of the up GEMM. Here the half-layer is five launches on one
 // stream:
-//   ln1:   a warp per row: LN1 statistics (kept, [T, 2]), u32's per-row
-//          scale su [T] and uq [T, H] int8; zeroes the row's max |h|;
-//   up:    int8 GEMM uq . W1q^T (gemm_nt.cuh's int8 ring, int32 sums)
-//          whose epilogue dequantizes, adds b1, applies act, writes h
-//          [T, F] float32 and folds each row's max |h| in with atomicMax on
-//          the float bits (|h| >= 0, so the integer order is the float
-//          order);
+//   ln1:   a warp per row, the row held in registers: LN1 statistics
+//          (kept, [T, 2]), u32's per-row scale su [T] and uq [T, H] int8;
+//          zeroes the row's max |h|;
+//   up:    int8 GEMM uq . W1q^T whose epilogue dequantizes, adds b1,
+//          applies act, writes h [T, F] float32 and folds each row's max
+//          |h| into hmax [T] with one atomicMax on the float bits per row
+//          and block (|h| >= 0, so the integer order is the float order);
 //   quant: a warp per row: sh [T] and hq [T, F] int8;
 //   down:  int8 GEMM hq . W2q^T whose epilogue recomputes u32 from r and
 //          the kept statistics and writes z32 [T, H] float32;
@@ -35,23 +35,28 @@
 //
 // Bound on the H100: 4*T*H*F int8 operations (309 G at T = 32,768,
 // bert-base) against ~100 MB of r, weights and out: the int8 tensor cores
-// bound it (~0.156 ms at 1,979 TOP/s). The float32 h goes through device
-// memory (4*T*F bytes written and read, 403 MB at T = 32,768, bert-base),
-// and the GEMMs multiply with WMMA (mma.sync) fragments, not wgmma fed by
-// TMA, so the kernel stays well short of that bound.
+// bound it (~0.156 ms at 1,979 TOP/s). So both GEMMs run on
+// gemm_wgmma.cuh's int8 main loop: TMA loads of 128-column k-stages into a
+// ring, two consumer warpgroups on wgmma m64nBNk32 with int32 accumulators
+// in registers, and epilogues that work on those registers; the tile is
+// picked per GEMM by waves over the SMs, as for K1. h goes through device
+// memory in float32 (806 MB written and read at T = 32,768, bert-base; the
+// quantize pass runs near the memory rate). The schedule that keeps it
+// out, a second up GEMM whose epilogue recomputes h bit for bit (int8 sums
+// are exact) and quantizes it with the final row scale, was slower on the
+// H100 in development builds: the epilogue's activation, paid twice, costs
+// about as much as a tile's int8 products, and a block's epilogue does not
+// overlap its main loop, so the second GEMM took longer than the float32
+// traffic it saves.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "gemm_nt.cuh"
+#include "gemm_wgmma.cuh"
 #include "rowwise.cuh"
 
 namespace {
 
 using namespace rowwise;
-
-constexpr int kUpBM = 128, kUpBN = 128;
-constexpr int kDownBM = 64, kDownBN = 128;
-static_assert(kThreads == gemm::kThreads, "row and GEMM blocks share a size");
 
 // One element of models/bert.LayerNorm, ((x - mean) * rstd) * scale + bias,
 // each operation rounded on its own.
@@ -74,6 +79,13 @@ __device__ __forceinline__ uint2 quant8(const float* x, float s) {
   return *reinterpret_cast<const uint2*>(q);
 }
 
+// h = act(v * (su * sw1) + b1) of one output of the up GEMM
+template <int Act>
+__device__ __forceinline__ float up_h(int v, float su, float sw, float b) {
+  return activation(__fadd_rn(__fmul_rn(__int2float_rn(v), __fmul_rn(su, sw)), b),
+                    Act);
+}
+
 __global__ void __launch_bounds__(kThreads)
 ln1_quant_kernel(const __nv_bfloat16* __restrict__ r,
                  const float* __restrict__ s1, const float* __restrict__ c1,
@@ -87,23 +99,51 @@ ln1_quant_kernel(const __nv_bfloat16* __restrict__ r,
   auto load8 = [&](int c, float* f) {
     unpack8(*reinterpret_cast<const uint4*>(&row[c]), f);
   };
-  float m, rs;
-  row_stats(load8, H, eps, &m, &rs);
-  float amax = 0.0f;
-  for (int c = lane * 8; c < H; c += 256) {
-    float f[8];
-    load8(c, f);
+  signed char* qrow = uq + static_cast<size_t>(t) * H;
+  float m, rs, s;
+  if (H <= kRowVec * 256) {  // the row in registers, read once
+    float f[kRowVec][8];
+    load_row(load8, H, f);
+    held_row_stats(f, H, eps, &m, &rs);
+    float amax = 0.0f;
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      amax = fmaxf(amax, fabsf(ln_elem(f[e], m, rs, s1[c + e], c1[c + e])));
-  }
-  const float s = row_scale(warp_max(amax));
-  for (int c = lane * 8; c < H; c += 256) {
-    float f[8];
-    load8(c, f);
+    for (int i = 0; i < kRowVec; ++i) {
+      const int c = lane * 8 + 256 * i;
+      if (c < H) {
+        float sc[8], bi[8];
+        load8_f32(&s1[c], sc);
+        load8_f32(&c1[c], bi);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) f[e] = ln_elem(f[e], m, rs, s1[c + e], c1[c + e]);
-    *reinterpret_cast<uint2*>(&uq[static_cast<size_t>(t) * H + c]) = quant8(f, s);
+        for (int e = 0; e < 8; ++e) {
+          f[i][e] = ln_elem(f[i][e], m, rs, sc[e], bi[e]);
+          amax = fmaxf(amax, fabsf(f[i][e]));
+        }
+      }
+    }
+    s = row_scale(warp_max(amax));
+#pragma unroll
+    for (int i = 0; i < kRowVec; ++i) {
+      const int c = lane * 8 + 256 * i;
+      if (c < H) *reinterpret_cast<uint2*>(&qrow[c]) = quant8(f[i], s);
+    }
+  } else {
+    row_stats(load8, H, eps, &m, &rs);
+    float amax = 0.0f;
+    for (int c = lane * 8; c < H; c += 256) {
+      float f[8];
+      load8(c, f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        amax = fmaxf(amax, fabsf(ln_elem(f[e], m, rs, s1[c + e], c1[c + e])));
+    }
+    s = row_scale(warp_max(amax));
+    for (int c = lane * 8; c < H; c += 256) {
+      float f[8];
+      load8(c, f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[e] = ln_elem(f[e], m, rs, s1[c + e], c1[c + e]);
+      *reinterpret_cast<uint2*>(&qrow[c]) = quant8(f, s);
+    }
   }
   if (lane == 0) {
     stats[2 * t] = m;
@@ -113,38 +153,50 @@ ln1_quant_kernel(const __nv_bfloat16* __restrict__ r,
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-ffn_up_int8_kernel(const signed char* __restrict__ uq,
-                   const signed char* __restrict__ w1q,
-                   const float* __restrict__ su, const float* __restrict__ sw1,
-                   const float* __restrict__ b1, float* __restrict__ h,
-                   int* __restrict__ hmax, int T, int H, int F, int act) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  using Tile = gemm::Tile<kUpBM, kUpBN, signed char>;
-  const int m0 = blockIdx.y * kUpBM;
-  const int n0 = blockIdx.x * kUpBN;
-  Tile::Acc acc[Tile::kFM][Tile::kFN];
-  gemm::mainloop<kUpBM, kUpBN>(acc, reinterpret_cast<signed char*>(smem), uq,
-                               w1q, m0, n0, T, F, H);
-  gemm::epilogue<kUpBM, kUpBN, signed char>(
-      acc, smem, m0, n0, [&](int t, int f, int* v) {
-        const bool live = t < T;
-        const float st = live ? su[t] : 0.0f;
-        float o[8];
-        float amax = 0.0f;
+// The up GEMM's epilogue: h [T, F] float32, each row's max |h| over the
+// block's columns reduced across the quad that holds the row and folded
+// into hmax. Column parameters sw1, b1 staged by load_col; su read once per
+// row.
+template <int Act>
+struct UpEpi {
+  const float* su;
+  const float* sw1;
+  const float* b1;
+  int* hmax;
+  float* h;
+  int F;
+  __device__ void load_col(int f, float* p, int stride) const {
+    p[0] = sw1[f];
+    p[stride] = b1[f];
+  }
+  template <int BN>
+  __device__ __forceinline__ void tile(const int (&d)[BN / 2], int row,
+                                       int col, const float* p, int M) const {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float x = __fmul_rn(__int2float_rn(v[e]), __fmul_rn(st, sw1[f + e]));
-          o[e] = activation(__fadd_rn(x, b1[f + e]), act);
-          amax = fmaxf(amax, fabsf(o[e]));
+    for (int half = 0; half < 2; ++half) {
+      const int t = row + 8 * half;
+      const float st = __ldg(&su[t < M ? t : 0]);
+      float* hrow = h + static_cast<size_t>(t < M ? t : 0) * F + col;
+      float amax = 0.0f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float* q = p + 8 * j;
+        const float h0 = up_h<Act>(d[4 * j + 2 * half], st, q[0], q[BN]);
+        const float h1 =
+            up_h<Act>(d[4 * j + 2 * half + 1], st, q[1], q[BN + 1]);
+        amax = fmaxf(amax, fmaxf(fabsf(h0), fabsf(h1)));
+        if (t < M) {
+          *reinterpret_cast<float2*>(hrow + 8 * j) = make_float2(h0, h1);
         }
-        // lanes 2i and 2i+1 hold the two halves of one row's 16 columns
-        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
-        if (!live) return;
-        store8_f32(&h[static_cast<size_t>(t) * F + f], o);
-        if ((threadIdx.x & 1) == 0) atomicMax(&hmax[t], __float_as_int(amax));
-      });
-}
+      }
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+      if (t < M && (threadIdx.x & 3) == 0) {
+        atomicMax(&hmax[t], __float_as_int(amax));
+      }
+    }
+  }
+};
 
 __global__ void __launch_bounds__(kThreads)
 quant_h_kernel(const float* __restrict__ h, const int* __restrict__ hmax,
@@ -158,44 +210,62 @@ quant_h_kernel(const float* __restrict__ h, const int* __restrict__ hmax,
   for (int c = lane * 8; c < F; c += 256) {
     float f[8];
     load8_f32(&row[c], f);
-    *reinterpret_cast<uint2*>(&hq[static_cast<size_t>(t) * F + c]) = quant8(f, s);
+    *reinterpret_cast<uint2*>(&hq[static_cast<size_t>(t) * F + c]) =
+        quant8(f, s);
   }
   if (lane == 0) sh[t] = s;
 }
 
-__global__ void __launch_bounds__(kThreads)
-ffn_down_int8_kernel(const signed char* __restrict__ hq,
-                     const signed char* __restrict__ w2q,
-                     const float* __restrict__ sh, const float* __restrict__ sw2,
-                     const __nv_bfloat16* __restrict__ r,
-                     const float* __restrict__ stats,
-                     const float* __restrict__ s1, const float* __restrict__ c1,
-                     const float* __restrict__ b2, float* __restrict__ z, int T,
-                     int H, int F) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  using Tile = gemm::Tile<kDownBM, kDownBN, signed char>;
-  const int m0 = blockIdx.y * kDownBM;
-  const int n0 = blockIdx.x * kDownBN;
-  Tile::Acc acc[Tile::kFM][Tile::kFN];
-  gemm::mainloop<kDownBM, kDownBN>(acc, reinterpret_cast<signed char*>(smem),
-                                   hq, w2q, m0, n0, T, H, F);
-  gemm::epilogue<kDownBM, kDownBN, signed char>(
-      acc, smem, m0, n0, [&](int t, int c, int* v) {
-        if (t >= T) return;
-        const float m = stats[2 * t];
-        const float rs = stats[2 * t + 1];
-        const float st = sh[t];
-        float x[8];
-        unpack8(*reinterpret_cast<const uint4*>(&r[static_cast<size_t>(t) * H + c]), x);
-        float o[8];
+// The down GEMM's epilogue, pairwise: z32 = (u32 + y) + b2 with u32
+// recomputed from r, LN1's statistics and sh (the row parameter); column
+// parameters s1, c1, sw2, b2.
+struct DownEpi {
+  const __nv_bfloat16* r;
+  const float* stats;
+  const float* sh;
+  const float* s1;
+  const float* c1;
+  const float* sw2;
+  const float* b2;
+  float* z;
+  int H;
+  __device__ void load_col(int c, float* p, int stride) const {
+    p[0] = s1[c];
+    p[stride] = c1[c];
+    p[2 * stride] = sw2[c];
+    p[3 * stride] = b2[c];
+  }
+  __device__ float4 row_param(int t) const {
+    const float2 st = __ldg(reinterpret_cast<const float2*>(&stats[2 * t]));
+    return make_float4(st.x, st.y, __ldg(&sh[t]), 0.0f);
+  }
+  __device__ void operator()(int t, int c, int v0, int v1, const float* p,
+                             int stride, float4 rp) const {
+    const size_t at = static_cast<size_t>(t) * H + c;
+    const float2 x = ldg_bf16x2(&r[at]);
+    float o[2];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const float u32 = ln_elem(x[e], m, rs, s1[c + e], c1[c + e]);
-          const float y = __fmul_rn(__int2float_rn(v[e]), __fmul_rn(st, sw2[c + e]));
-          o[e] = __fadd_rn(__fadd_rn(u32, y), b2[c + e]);
-        }
-        store8_f32(&z[static_cast<size_t>(t) * H + c], o);
-      });
+    for (int e = 0; e < 2; ++e) {
+      const float u32 = ln_elem(e ? x.y : x.x, rp.x, rp.y, p[e], p[stride + e]);
+      const float y = __fmul_rn(__int2float_rn(e ? v1 : v0),
+                                __fmul_rn(rp.z, p[2 * stride + e]));
+      o[e] = __fadd_rn(__fadd_rn(u32, y), p[3 * stride + e]);
+    }
+    *reinterpret_cast<float2*>(&z[at]) = make_float2(o[0], o[1]);
+  }
+};
+
+// h, hmax and then hq, sh
+template <int Act>
+cudaError_t up_quant(const signed char* uq, const void* w1q, const float* su,
+                     const float* sw1, const float* b1, int* hmax, float* h,
+                     signed char* hq, float* sh, int T, int H, int F,
+                     cudaStream_t s) {
+  const cudaError_t e = wg::gemm_by_waves<wg::S8>(
+      uq, w1q, T, F, H, UpEpi<Act>{su, sw1, b1, hmax, h, F}, s);
+  if (e != cudaSuccess) return e;
+  quant_h_kernel<<<row_blocks(T), kThreads, 0, s>>>(h, hmax, hq, sh, T, F);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -210,14 +280,16 @@ extern "C" int cocodr_ffn_block_int8(
     const void* b2, const void* s2, const void* c2, void* uq, void* stats,
     void* su, void* hmax, void* h, void* hq, void* sh, void* z, void* out,
     int T, int H, int F, int act, float eps, void* stream) {
-  if (T <= 0 || H <= 0 || H % kDownBN || F <= 0 || F % kUpBN || act < kGelu ||
-      act > kRelu || (T + kDownBM - 1) / kDownBM > 65535) {
+  if (T <= 0 || H <= 0 || H % 128 || F <= 0 || F % 128 || act < kGelu ||
+      act > kRelu) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* rb = static_cast<const __nv_bfloat16*>(r);
   const auto* s1f = static_cast<const float*>(s1);
   const auto* c1f = static_cast<const float*>(c1);
+  const auto* sw1f = static_cast<const float*>(sw1);
+  const auto* b1f = static_cast<const float*>(b1);
   auto* uqi = static_cast<signed char*>(uq);
   auto* st = static_cast<float*>(stats);
   auto* suf = static_cast<float*>(su);
@@ -233,35 +305,24 @@ extern "C" int cocodr_ffn_block_int8(
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  constexpr size_t up_smem = gemm::Tile<kUpBM, kUpBN, signed char>::kSmemBytes;
-  e = cudaFuncSetAttribute(ffn_up_int8_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(up_smem));
-  if (e != cudaSuccess) return e;
-  const dim3 up_grid(F / kUpBN, (T + kUpBM - 1) / kUpBM);
-  ffn_up_int8_kernel<<<up_grid, kThreads, up_smem, s>>>(
-      uqi, static_cast<const signed char*>(w1q), suf,
-      static_cast<const float*>(sw1), static_cast<const float*>(b1), hf, hm, T,
-      H, F, act);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-
-  quant_h_kernel<<<rows, kThreads, 0, s>>>(hf, hm, hqi, shf, T, F);
-  e = cudaGetLastError();
+  if (act == kGelu) {
+    e = up_quant<kGelu>(uqi, w1q, suf, sw1f, b1f, hm, hf, hqi, shf, T, H, F,
+                        s);
+  } else if (act == kGeluTanh) {
+    e = up_quant<kGeluTanh>(uqi, w1q, suf, sw1f, b1f, hm, hf, hqi, shf, T, H,
+                            F, s);
+  } else {
+    e = up_quant<kRelu>(uqi, w1q, suf, sw1f, b1f, hm, hf, hqi, shf, T, H, F,
+                        s);
+  }
   if (e != cudaSuccess) return e;
 
-  constexpr size_t down_smem =
-      gemm::Tile<kDownBM, kDownBN, signed char>::kSmemBytes;
-  e = cudaFuncSetAttribute(ffn_down_int8_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(down_smem));
-  if (e != cudaSuccess) return e;
-  const dim3 down_grid(H / kDownBN, (T + kDownBM - 1) / kDownBM);
-  ffn_down_int8_kernel<<<down_grid, kThreads, down_smem, s>>>(
-      hqi, static_cast<const signed char*>(w2q), shf,
-      static_cast<const float*>(sw2), rb, st, s1f, c1f,
-      static_cast<const float*>(b2), zf, T, H, F);
-  e = cudaGetLastError();
+  e = wg::gemm_by_waves<wg::S8>(
+      hqi, w2q, T, H, F,
+      wg::pairwise(DownEpi{rb, st, shf, s1f, c1f,
+                           static_cast<const float*>(sw2),
+                           static_cast<const float*>(b2), zf, H}),
+      s);
   if (e != cudaSuccess) return e;
 
   ln2_kernel<<<rows, kThreads, 0, s>>>(zf, static_cast<const float*>(s2),

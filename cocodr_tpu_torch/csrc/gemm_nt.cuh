@@ -1,4 +1,6 @@
-// Tiled GEMM main loop shared by the port's kernels:
+// Tiled GEMM main loop of the block-max sweeps K6 (mips_int8.cu, int8) and
+// K9 (mips_top2.cu, bf16); the FFN kernels and the sweeps K2 and K10 run
+// on gemm_wgmma.cuh:
 //   C[m0:m0+BM, n0:n0+BN] = A[m0:m0+BM, :] . B[n0:n0+BN, :]^T
 // with A [M, K] and B [N, K] row-major (K contiguous, the nn.Linear weight
 // layout), in WMMA 16x16x16 fragments: bf16 operands with float32

@@ -1,8 +1,8 @@
 // Row-wise pieces of the FFN half-layer kernels (K1 and K5 in ffn_block.cu,
-// K7 in ffn_block_int8.cu): warp reductions, 8-wide bf16 vector packing,
-// the activation, the LayerNorm statistics of models/bert.LayerNorm, and the
-// final LN2 pass. Every row pass gives one warp to one row, which it reads
-// in 8-element vectors (H a multiple of 8).
+// K7 in ffn_block_int8.cu): warp reductions, 8-wide bf16 vector packing, a
+// 2-wide read-only load, the activation, the LayerNorm statistics of
+// models/bert.LayerNorm, and the final LN2 pass. Every row pass gives one
+// warp to one row, which it reads in 8-element vectors (H a multiple of 8).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -48,6 +48,13 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
 #pragma unroll
   for (int e = 0; e < 8; ++e) x[e] = __float2bfloat16(f[e]);
   return *reinterpret_cast<const uint4*>(x);
+}
+
+// two bf16 values as float2 through the read-only path (__ldg): for GEMM
+// epilogues that read an input beside their own stores
+__device__ __forceinline__ float2 ldg_bf16x2(const __nv_bfloat16* p) {
+  const unsigned int raw = __ldg(reinterpret_cast<const unsigned int*>(p));
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
 }
 
 __device__ __forceinline__ void load8_f32(const float* p, float* f) {

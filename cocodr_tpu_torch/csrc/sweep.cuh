@@ -1,5 +1,6 @@
-// What the block-max sweeps (K2, K6, K9, K10) share: the block shape, the
-// grid order, and the per-lane statistics of one 8-row fine block.
+// What the WMMA block-max sweeps (K6, K9) share: the block shape, the grid
+// order, and the per-lane statistics of one 8-row fine block. (K2 and K10
+// run on gemm_wgmma.cuh: mips_sweep.cu.)
 //
 // Every sweep block multiplies 256 corpus rows by up to 64 queries through
 // gemm::mainloop (the corpus tile is the GEMM's A, the queries its B).
