@@ -10,9 +10,9 @@ Phases, each printed with its elapsed seconds:
   3. kernel checks: each kernel against its plain PyTorch version on the
      card, with its time, the plain version's time, the time of one
      library call that computes the same function where there is one, and
-     the least time the card could take (K1, K2, K4, K5, K7, K8 and K10 by
-     loops of back-to-back launches, K3 and K8 in turns with torch.topk
-     and scaled_dot_product_attention): K1 fused FFN half-layer (serving
+     the least time the card could take (all but K3 by loops of
+     back-to-back launches, K3 and K8 in turns with torch.topk and
+     scaled_dot_product_attention): K1 fused FFN half-layer (serving
      and encode shapes; checked also at T = 64 and ragged T at bert-base
      and bert-large widths), K2 dual block-max sweep and K3 extract-max top-k
      at the serving shapes; K4 (K1 at bert-large widths), K7 (W8A8 FFN
@@ -24,10 +24,12 @@ Phases, each printed with its elapsed seconds:
      then the sweeps K2 (plain and packed), K6 (int8), K9 (top-2
      certificate) and K10 (block-32) at Q = 64 and Q = 1024 over the
      1,048,576-doc corpus, packed argmaxes held exactly wherever a block's
-     top two scores differ by more than the tolerance, beside torch.mm of
-     the sweep's product at Q = 1024; K2 and K10 also at Q = 1 and 100, on
-     a 2,048-row corpus, at D = 96 (a k tail), and bit for bit on integer
-     inputs with repeated rows;
+     top two scores differ by more than the tolerance, all timed by loops
+     of launches, beside torch.mm (K2, K9) and torch._int_mm (K6) of the
+     sweep's product at Q = 1024; all five also at Q = 1 and 100, on a
+     2,048-row corpus, at D = 96 (a k tail; K6 at D = 192, half an int8
+     stage), and bit for bit on integer inputs with repeated rows; the
+     sweep kernels without a stack frame in nvcc's report;
   4. search: search_topk over 1,024 row-normalised bf16 queries x the
      corpus at k = 100 with each method (pallas, exact2, fast, blockmax,
      refined, naive), plus mips_topk_int8 and mips_topk_blockmax_pallas:
@@ -813,12 +815,9 @@ def check_sweeps(gen, dev, corpus, corpus_i8, dim_scale):
         for name, (kern, plain, elem, out_bytes, rate) in runs.items():
             if name == "K2_dual_sweep" and Q == BATCH:
                 continue  # check_k2 times it at the serving shape
-            if name in WGMMA_SWEEPS:
-                # loops of back-to-back launches, the one-launch time beside
-                ms = device_ms(kern, 20 if Q == BATCH else 5)
-                single = f" ({time_ms(kern):.4f} ms one launch per event pair)"
-            else:
-                ms, single = time_ms(kern), ""
+            # loops of back-to-back launches, the one-launch time beside
+            ms = device_ms(kern, 20 if Q == BATCH else 5)
+            single = f" ({time_ms(kern):.4f} ms one launch per event pair)"
             plain_ms = time_ms(plain)
             b_ms, b_by = bound((N + Q) * D * elem + Q * out_bytes,
                                2 * Q * N * D, rate)
@@ -830,26 +829,36 @@ def check_sweeps(gen, dev, corpus, corpus_i8, dim_scale):
             out[name, Q] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                 bound_by=b_by, max_abs_err=err)
         if Q == SEARCH_Q:
-            # yardstick for the main loop: the same bf16 product into a
-            # [Q, N] bf16 matrix, no block maxima (not the sweep's function)
+            # yardsticks for the main loop: the same product into a [Q, N]
+            # matrix, no block maxima (not the sweeps' function), in turns
+            # with K2 and K9 (bf16, torch.mm) and K6 (int8, torch._int_mm)
             prod = torch.empty((Q, N), dtype=torch.bfloat16, device=dev)
-            k_ms, mm = time_turns(
-                runs["K2_dual_sweep"][0],
-                lambda: torch.mm(q, corpus.t(), out=prod), 3)
+            bf16_mm = lambda: torch.mm(q, corpus.t(), out=prod)  # noqa: E731
+            for name in ("K2_dual_sweep", "K9_top2_sweep"):
+                k_ms, mm = time_turns(runs[name][0], bf16_mm, 3)
+                phase(f"  torch.mm of the sweep's [{Q}, {D}] x [{D}, {N}] "
+                      f"bf16 product: {mm:.4f} ms (in turns with {name}: "
+                      f"{k_ms:.4f} ms)")
             del prod
-            phase(f"  torch.mm of the sweep's [{Q}, {D}] x [{D}, {N}] bf16 "
-                  f"product: {mm:.4f} ms (in turns with K2: {k_ms:.4f} ms)")
+            prod = torch.empty((Q, N), dtype=torch.int32, device=dev)
+            k_ms, mm = time_turns(
+                runs["K6_int8_sweep"][0],
+                lambda: torch._int_mm(q_i8, corpus_i8.t(), out=prod), 3)
+            del prod
+            phase(f"  torch._int_mm of the sweep's [{Q}, {D}] x [{D}, {N}] "
+                  f"int8 product into int32: {mm:.4f} ms (in turns with "
+                  f"K6_int8_sweep: {k_ms:.4f} ms)")
     return out
 
 
-# the sweeps on gemm_wgmma.cuh's main loop (K6 and K9 keep gemm_nt.cuh's)
-WGMMA_SWEEPS = ("K2_dual_sweep", "K2_dual_sweep_packed", "K10_block32_sweep")
 # (Q, N, D) of check_sweep_shapes beside check_sweeps' Q = 64 and 1024
 # over the corpus: one query, a ragged query tile, a small corpus, and a
-# D that leaves a k tail past the last 64-column stage
+# D that leaves a k tail past the last 64-column bf16 stage (K6 takes
+# D = 192 there instead: half of its last 128-column int8 stage)
 SWEEP_SHAPES = ((1, N_DOCS, DIM), (100, N_DOCS, DIM), (100, 2048, DIM),
                 (1, 2048, 96), (64, 2048, 96), (100, 2048, 96),
                 (1024, 2048, 96))
+INT8_TAIL_DEPTH = 192
 
 
 def normed(gen, dev, n, d):
@@ -857,23 +866,34 @@ def normed(gen, dev, n, d):
     return (x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16)
 
 
-def check_sweep_shapes(gen, dev, corpus):
-    """K2 (plain and packed) and K10 against their plain versions at
+def check_sweep_shapes(gen, dev, corpus, corpus_i8):
+    """K2 (plain and packed), K9 and K10 against their plain versions at
     SWEEP_SHAPES, with check_sweeps' limits (1e-4 x max |score|, packed
-    argmaxes exact outside near-ties); then at Q = 100, N = 2,048, D = 96
-    with small integers (scores exact in every summation order) and
-    repeated corpus rows (ties inside a thread's column pair and across a
-    quad's lanes), where the kernels must equal their plain versions bit
+    argmaxes exact outside near-ties), and K6 bit for bit at the same
+    shapes (D = 192 where the others take 96, random int8); then at
+    Q = 100, N = 2,048, D = 96 with small integers (scores exact in every
+    summation order) and repeated corpus rows (ties inside a thread's
+    column pair, across a quad's lanes, and between two fine blocks of a
+    64-row block), where the kernels must equal their plain versions bit
     for bit, first-occurrence argmaxes included."""
-    from cocodr_tpu_torch.ops import mips_blockmax, mips_hier
+    from cocodr_tpu_torch.ops import mips_blockmax, mips_exact2, mips_hier
+    from cocodr_tpu_torch.ops import mips_int8
 
     def sweeps(q, c):
         return {"K2": mips_hier.dual_sweep(q, c),
                 "K2 packed": mips_hier.dual_sweep(q, c, pack=True),
+                "K9": mips_exact2.top2_sweep(q, c),
                 "K10": (mips_blockmax.block_sweep(q, c),)}, {
                 "K2": mips_hier.dual_sweep_reference(q, c),
                 "K2 packed": mips_hier.dual_sweep_reference(q, c, pack=True),
+                "K9": mips_exact2.top2_sweep_reference(q, c),
                 "K10": (mips_blockmax.block_sweep_reference(q, c),)}
+
+    def check_k6(q_i8, c_i8, what):
+        got = mips_int8.int8_sweep(q_i8, c_i8)
+        want = mips_int8.int8_sweep_reference(q_i8, c_i8)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"K6 {what}: != its plain version")
 
     for Q, N, D in SWEEP_SHAPES:
         c = corpus if N == N_DOCS else normed(gen, dev, N, D)
@@ -893,23 +913,79 @@ def check_sweep_shapes(gen, dev, corpus):
                 ).abs().max().item()
         if not cerr <= tol:
             raise AssertionError(f"K2 packed coarse Q={Q} N={N} D={D}: {cerr}")
-        phase(f"  K2, K2 packed, K10 Q={Q} N={N} D={D}: max_abs_err="
-              f"{max(err, perr, cerr):.3e} tol={tol:.3e}, packed argmax "
-              f"equal outside {ties} near-tie fine blocks")
+        (b, pk), (rb, rpk) = got["K9"], want["K9"]
+        berr = (b - rb).abs().max().item()
+        if not berr <= tol:
+            raise AssertionError(f"K9 best Q={Q} N={N} D={D}: {berr}")
+        gaps = rb - mips_hier.clear_low_bits(rpk, 6)
+        kerr, k9_ties = check_packed("K9 second", pk, rpk, 6, gaps, tol)
+        phase(f"  K2, K2 packed, K9, K10 Q={Q} N={N} D={D}: max_abs_err="
+              f"{max(err, perr, cerr, berr, kerr):.3e} tol={tol:.3e}, packed "
+              f"argmax equal outside {ties} near-tie fine blocks (K2) and "
+              f"{k9_ties} near-tie 64-row blocks (K9)")
+        if N == N_DOCS:
+            c_i8, Di = corpus_i8, D
+        else:
+            Di = INT8_TAIL_DEPTH if D % 64 else D
+            c_i8 = torch.randint(-127, 128, (N, Di), generator=gen,
+                                 device=dev, dtype=torch.int8)
+        q_i8 = torch.randint(-127, 128, (Q, Di), generator=gen, device=dev,
+                             dtype=torch.int8)
+        check_k6(q_i8, c_i8, f"Q={Q} N={N} D={Di}")
+        phase(f"  K6 Q={Q} N={N} D={Di}: equal to its plain version bit for "
+              f"bit")
     Q, N, D = 100, 2048, 96
-    q = torch.randint(-3, 4, (Q, D), generator=gen, device=dev).to(
-        torch.bfloat16)
-    c = torch.randint(-3, 4, (N, D), generator=gen, device=dev).to(
-        torch.bfloat16)
-    c[1::8] = c[0::8]  # equal rows 0 and 1 of every fine block: one pair
-    c[6::8] = c[3::8]  # rows 3 and 6: two lanes of a quad
-    got, want = sweeps(q, c)
+    qi, ci = repeated_rows_ints(gen, dev, Q, N, D)
+    got, want = sweeps(qi.to(torch.bfloat16), ci.to(torch.bfloat16))
     for name in got:
         if not all(torch.equal(a, b) for a, b in zip(got[name], want[name])):
             raise AssertionError(f"{name} on exact integer scores differs "
                                  f"from its plain version")
-    phase(f"  K2, K2 packed, K10 Q={Q} N={N} D={D}, integer inputs with "
-          f"repeated rows: equal to the plain versions bit for bit")
+    qi, ci = repeated_rows_ints(gen, dev, Q, N, INT8_TAIL_DEPTH)
+    check_k6(qi.to(torch.int8), ci.to(torch.int8),
+             "integers with repeated rows")
+    phase(f"  K2, K2 packed, K9, K10 Q={Q} N={N} D={D} and K6 at "
+          f"D={INT8_TAIL_DEPTH}, integer inputs with repeated rows: equal to "
+          f"the plain versions bit for bit")
+
+
+def repeated_rows_ints(gen, dev, Q, N, D):
+    """Small integers (scores exact in every summation order) with rows
+    repeated inside each 8-row fine block and across two of a 64-row
+    block's fine blocks."""
+    qi = torch.randint(-3, 4, (Q, D), generator=gen, device=dev)
+    ci = torch.randint(-3, 4, (N, D), generator=gen, device=dev)
+    ci[1::8] = ci[0::8]  # rows 0 and 1 of every fine block: one pair
+    ci[6::8] = ci[3::8]  # rows 3 and 6: two lanes of a quad
+    ci[18::64] = ci[5::64]  # rows 5 and 18 of a 64-row block: two groups
+    return qi, ci
+
+
+# the sweeps' GEMM instances, by their epilogues' names: K2 (two modes),
+# K10, K6 (SweepEpi) and K9 (Top2Epi)
+SWEEP_EPILOGUES = {"SweepEpi": 4, "Top2Epi": 1}
+
+
+def check_stack_frames(log):
+    """Every sweep kernel in nvcc's -Xptxas -v report has no stack frame:
+    an epilogue whose register arrays nvcc cannot index by constants
+    moves them to local memory, and the report shows a frame."""
+    lines = log.splitlines()
+    found = dict.fromkeys(SWEEP_EPILOGUES, 0)
+    for line, nxt in zip(lines, lines[1:] + [""]):
+        name = next((e for e in SWEEP_EPILOGUES
+                     if "Function properties for" in line and e in line), None)
+        if name is None:
+            continue
+        found[name] += 1
+        if not nxt.strip().startswith("0 bytes stack frame"):
+            raise AssertionError(f"a sweep kernel has a stack frame: {line} "
+                                 f"{nxt.strip()}")
+    if found != SWEEP_EPILOGUES:
+        raise AssertionError(f"sweep kernels in the ptxas report: {found}, "
+                             f"expected {SWEEP_EPILOGUES}")
+    phase(f"  ptxas: no stack frame in the {sum(found.values())} sweep "
+          f"kernels")
 
 
 def make_corpus(gen, dev):
@@ -1800,6 +1876,7 @@ def main() -> None:
         if "registers" in line or "spill" in line or "Function properties" in line:
             phase("  ptxas: " + line.strip())
     phase(f"  built={lib.built} in {lib.seconds:.2f} s: {lib.path}")
+    check_stack_frames(lib.log)
 
     phase("kernel checks")
     k5 = check_k5(ffn, gen, dev)
@@ -1813,7 +1890,7 @@ def main() -> None:
     kernels.append(check_k8(attention, gen, dev))
     corpus_i8, dim_scale = mips_int8.quantize_corpus_int8(corpus)
     sweeps = check_sweeps(gen, dev, corpus, corpus_i8, dim_scale)
-    check_sweep_shapes(gen, dev, corpus)
+    check_sweep_shapes(gen, dev, corpus, corpus_i8)
 
     phase("search")
     search_counts = search(gen, dev, corpus, corpus_i8, dim_scale)

@@ -6,9 +6,9 @@
 // float32 accumulators (Bf16) or int8 with exact int32 accumulators (S8),
 // kept in registers; the caller's epilogue works straight on the
 // accumulator layout. Used by the FFN kernels K1, K4, K5 (ffn_block.cu,
-// bf16) and K7 (ffn_block_int8.cu, int8) and by the bf16 block-max sweeps K2
-// and K10 (mips_sweep.cu); gemm_nt.cuh keeps the WMMA main loop of K6 and
-// K9.
+// bf16) and K7 (ffn_block_int8.cu, int8) and by the block-max sweeps: K2
+// and K10 (mips_sweep.cu) and K9 (mips_top2.cu) in bf16, K6 (mips_int8.cu)
+// in int8.
 //
 // A block is three warpgroups. The last is the producer: one thread issues
 // TMA loads of k-stages of 128 bytes a row (64 bf16 or 128 int8 columns,

@@ -65,7 +65,8 @@ def top2_sweep(queries, corpus, cb: int = 64):
     """K9 wrapper: queries [Q, D], corpus [N, D] -> (best [Q, N/cb], pack
     [Q, N/cb]) float32, as top2_sweep_reference. A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel (bf16 operands,
-    cb = 64, N % 256 == 0, D % 32 == 0) or raises."""
+    cb = 64, N % 256 == 0, D % 32 == 0; a bf16 wgmma GEMM whose epilogue
+    keeps each block's best, second and argmax in registers) or raises."""
     if corpus.device.type == "cpu":
         return top2_sweep_reference(queries, corpus, cb)
     bf16 = (torch.bfloat16,)

@@ -27,7 +27,7 @@ from cocodr_tpu_torch.ops.mips_hier import (
     block_argmax,
 )
 
-INT8_DEPTH = 64  # D per int8 sweep stage: D must be a multiple
+INT8_DEPTH = 64  # D must be a multiple (a k-stage of 128 reads zeros past D)
 MAX_DEPTH = 16384  # D * 127^2 << 3 must stay inside int32
 
 
@@ -61,7 +61,8 @@ def int8_sweep(q_i8, corpus_i8, fine: int = 8, coarse: int = 8):
     """K6 wrapper: q_i8 [Q, D], corpus_i8 [N, D] int8 -> (packed fine
     [Q, N/fine], packed coarse [Q, N/(fine*coarse)]) int32. A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel (fine = 8,
-    coarse = 8, N % 256 == 0, D % 64 == 0, D <= 16384) or raises."""
+    coarse = 8, N % 256 == 0, D % 64 == 0, D <= 16384; an int8 wgmma GEMM
+    whose epilogue packs the maxima in registers) or raises."""
     if corpus_i8.device.type == "cpu":
         return int8_sweep_reference(q_i8, corpus_i8, fine, coarse)
     _build.require_cuda_operand("q_i8", q_i8, (torch.int8,), 2)

@@ -5,9 +5,13 @@
   h written and its row max |h| folded into a running max in any tile
   order (the kernel's atomicMax), then h quantized with the final row
   scale in a row pass;
-- K2 (both pack modes) and K10 (csrc/mips_sweep.cu): the epilogue on
-  wgmma's accumulator layout, a thread's column pair reduced in registers,
-  then two shuffle steps inside a quad with the argmaxes sent as bits.
+- K2 (both pack modes) and K10 (csrc/mips_sweep.cu) and, on integers, K6
+  (csrc/mips_int8.cu): the epilogue of csrc/sweep_epi.cuh on wgmma's
+  accumulator layout, a thread's column pair reduced in registers, then
+  two shuffle steps inside a quad with the argmaxes sent as bits;
+- K9 (csrc/mips_top2.cu): a strict '>' chain over a thread's 16 values of
+  each 64-row block, keeping (best, second, arg), then two shuffle steps
+  inside a quad that merge the blocks' statistics, args sent as 6 bits.
 
 Each is held against the port's plain version (bit for bit) and the JAX
 package's Pallas kernel in interpret mode, on the same numpy inputs."""
@@ -19,10 +23,15 @@ import torch
 
 from cocodr_tpu.ops import int8_matmul as jq
 from cocodr_tpu.ops.pallas_ffn import fused_ffn_block_int8 as jax_k7
-from cocodr_tpu.ops.pallas_mips import _dual_sweep_mixed, blockmax_sweep_pallas
+from cocodr_tpu.ops.pallas_mips import (
+    _dual_sweep_mixed,
+    _int8_sweep,
+    _top2_sweep,
+    blockmax_sweep_pallas,
+)
 from cocodr_tpu_torch.ops import ffn as tffn
 from cocodr_tpu_torch.ops import int8_matmul as tq
-from cocodr_tpu_torch.ops import mips_blockmax, mips_hier
+from cocodr_tpu_torch.ops import mips_blockmax, mips_exact2, mips_hier, mips_int8
 
 torch.set_num_threads(1)
 
@@ -167,21 +176,24 @@ def scatter_arg_step(v, a, step):
 
 
 def pack3(v, a):
+    """sweep_epi.cuh::pack3: float32 bits (bits & ~7) | a, int (v << 3) | a."""
+    if v.dtype == np.int32:
+        return (v << 3) | a.astype(np.int32)
     return ((v.view(np.int32) & ~7) | a.astype(np.int32)).view(np.float32)
 
 
 def sweep_epilogue(scores, mode):
-    """SweepEpi<mode>::tile over a [64, 256] score tile -> (fine [64, 32],
-    coarse [64, 4]) for "max" and "pack", or blocks [64, 8] for
-    "block32", assembled from what each lane stores."""
+    """SweepEpi<mode, T>::tile over a [64, 256] score tile (float32 or
+    int32) -> (fine [64, 32], coarse [64, 4]) for "max" and "pack", or
+    blocks [64, 8] for "block32", assembled from what each lane stores."""
     d = accumulator_layout(scores)
     w = np.arange(4)[:, None]
     b0, b1 = QUAD_C & 1, QUAD_C >> 1
     if mode == "block32":
-        outs = (np.zeros((ROWS, BN // 32), np.float32),)
+        outs = (np.zeros((ROWS, BN // 32), scores.dtype),)
     else:
-        outs = (np.zeros((ROWS, BN // 8), np.float32),
-                np.zeros((ROWS, BN // 64), np.float32))
+        outs = (np.zeros((ROWS, BN // 8), scores.dtype),
+                np.zeros((ROWS, BN // 64), scores.dtype))
     for h in range(2):
         rows = 16 * w + LANE[None, :] // 4 + 8 * h  # [4, 32]
         x0, x1 = d[..., 2 * h::4], d[..., 2 * h + 1::4]  # [4, 32, 32]
@@ -250,3 +262,166 @@ def test_sweep_epilogue_on_accumulator_layout(mode, seed):
     if mode == "pack":
         # ties were decided: some blocks' argmax is not the last row
         assert (got[0].view(np.int32) & 7).max() > 0
+
+
+# --- K6 and K9 ----------------------------------------------------------
+
+# float32 sums of exact bf16 products, taken in another order than XLA's
+# (as tests/test_torch_search.py)
+TOL = 2e-6
+
+
+def _repeat_rows(c):
+    """Repeated corpus rows in every 64-row block: rows 0 and 1 of each
+    fine block (one lane's pair), rows 3 and 6 (two lanes of a quad), and
+    rows 5 and 18 (lanes 2 and 1, which end up holding different 64-row
+    blocks in K9's scatter)."""
+    c[1::8] = c[0::8]
+    c[6::8] = c[3::8]
+    c[18::64] = c[5::64]
+    return c
+
+
+def scatter_top2_step(b, s, a, step):
+    """mips_top2.cu::scatter_top2_step: send half of the blocks' (best,
+    second, arg) to the partner, args as 6 bits an entry in one word, and
+    merge the kept half with what arrives."""
+    half = b.shape[-1] >> 1
+    upper = ((QUAD_C >> step) & 1).astype(bool)[None, :, None]
+
+    def send(x):
+        return np.where(upper, x[..., :half], x[..., half:])
+
+    def keep(x):
+        return np.where(upper, x[..., half:], x[..., :half])
+
+    shift = (6 * np.arange(half)).astype(np.uint32)
+    bits = (send(a).astype(np.uint32) << shift).sum(-1, dtype=np.uint32)
+    oa = ((shfl_xor(bits, 1 << step)[..., None] >> shift) & 63).astype(
+        np.int64)
+    ob, os_ = shfl_xor(send(b), 1 << step), shfl_xor(send(s), 1 << step)
+    kb, ks, ka = keep(b), keep(s), keep(a)
+    gt = ob > kb
+    second = np.where(gt, np.maximum(kb, os_), np.maximum(ks, ob))
+    take = gt | ((ob == kb) & (oa < ka))
+    return np.where(take, ob, kb), second, np.where(take, oa, ka)
+
+
+def top2_epilogue(scores):
+    """Top2Epi::tile over a [64, 256] float32 score tile -> (best [64, 4],
+    pack [64, 4]), assembled from what each lane stores."""
+    d = accumulator_layout(scores)
+    w = np.arange(4)[:, None]
+    c = QUAD_C[None, :, None]
+    best = np.zeros((ROWS, BN // 64), np.float32)
+    pack = np.zeros((ROWS, BN // 64), np.float32)
+    for h in range(2):
+        rows = 16 * w + LANE[None, :] // 4 + 8 * h  # [4, 32]
+        # x[..., blk, k]: column 8 (k >> 1) + 2c + (k & 1) of block blk
+        x = d.reshape(4, 32, 4, 8, 4)[..., 2 * h:2 * h + 2].reshape(
+            4, 32, 4, 16)
+        b, s = x[..., 0], np.full(x.shape[:-1], -np.inf, np.float32)
+        a = np.broadcast_to(2 * c, b.shape)
+        for k in range(1, 16):
+            v = x[..., k]
+            gt = v > b
+            s = np.where(gt, b, np.maximum(s, v))
+            a = np.where(gt, 8 * (k >> 1) + 2 * c + (k & 1), a)
+            b = np.where(gt, v, b)
+        for step in range(2):
+            b, s, a = scatter_top2_step(b, s, a, step)
+        blk = (2 * (QUAD_C & 1) + (QUAD_C >> 1))[None, :]
+        best[rows, blk] = b[..., 0]
+        pack[rows, blk] = ((s[..., 0].view(np.int32) & ~63)
+                           | a[..., 0].astype(np.int32)).view(np.float32)
+    return best, pack
+
+
+def _pallas_top2(q, c):
+    bj, pj = _top2_sweep(jnp.asarray(q), jnp.asarray(c), tile=BN, cb=64,
+                         q_tile=8, interpret=True)
+    return np.asarray(bj)[:, :ROWS].T, np.asarray(pj)[:, :ROWS].T
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("value_range", [2, 127])
+def test_int8_epilogue_on_accumulator_layout(value_range, seed):
+    """K6: K2-packed's epilogue on int32 scores (the integer pack
+    (max << 3) | arg) equals int8_sweep_reference and the Pallas int8
+    sweep in interpret mode bit for bit: integer sums are exact in every
+    order. int8 inputs in [-value_range, value_range], D = 192 (half of
+    the kernel's last 128-column stage), rows repeated as _repeat_rows."""
+    rng = np.random.RandomState(seed)
+    D = 192
+    q = rng.randint(-value_range, value_range + 1, (ROWS, D)).astype(np.int8)
+    c = _repeat_rows(rng.randint(-value_range, value_range + 1,
+                                 (BN, D)).astype(np.int8))
+    got = sweep_epilogue(q.astype(np.int32) @ c.astype(np.int32).T, "pack")
+    want = mips_int8.int8_sweep_reference(torch.from_numpy(q),
+                                          torch.from_numpy(c))
+    fj, cj = _int8_sweep(jnp.asarray(q), jnp.asarray(c), tile=BN, fine=8,
+                         coarse=8, q_tile=8, interpret=True)
+    for g, w, p in zip(got, want, (np.asarray(fj), np.asarray(cj).T)):
+        assert g.dtype == np.int32 and g.shape == w.shape == p.shape
+        np.testing.assert_array_equal(g, w.numpy())
+        np.testing.assert_array_equal(g, p)
+    # rows 0 and 1 of a fine block are equal: where they hold its max,
+    # the first occurrence (arg 0) won over the partner's column
+    tie = (q.astype(np.int32) @ c[0::8].astype(np.int32).T
+           == (got[0] >> 3))
+    assert tie.any() and ((got[0] & 7)[tie] == 0).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_top2_epilogue_integer_scores_bit_equal(seed):
+    """K9 on small integers (scores exact in every summation order) with
+    rows repeated as _repeat_rows: best and the packed second with its
+    first-occurrence argmax equal top2_sweep_reference and the Pallas
+    kernel in interpret mode bit for bit."""
+    rng = np.random.RandomState(seed)
+    q = rng.randint(-2, 3, (ROWS, 16)).astype(np.float32)
+    c = _repeat_rows(rng.randint(-2, 3, (BN, 16)).astype(np.float32))
+    got = top2_epilogue(q @ c.T)
+    want = mips_exact2.top2_sweep_reference(torch.from_numpy(q),
+                                            torch.from_numpy(c))
+    for g, w, p in zip(got, want, _pallas_top2(q, c)):
+        assert g.shape == w.shape == p.shape == (ROWS, BN // 64)
+        np.testing.assert_array_equal(g.view(np.int32),
+                                      w.numpy().view(np.int32))
+        np.testing.assert_array_equal(g.view(np.int32), p.view(np.int32))
+    # ties were decided: equal maxima (second == best) with an argmax past
+    # row 0, so the first occurrence had to win a merge
+    best, pack = got
+    second = (pack.view(np.int32) & ~63).view(np.float32)
+    assert ((second == best) & ((pack.view(np.int32) & 63) > 0)).any()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_top2_epilogue_float_scores(seed):
+    """K9 on normal float inputs: fed the plain version's scores, the
+    epilogue equals top2_sweep_reference bit for bit (the chain and the
+    merges select, they do not round). Against the Pallas kernel in
+    interpret mode (float32 sums in XLA's order): best and the second with
+    its 6 low bits cleared within TOL, the packed argmax equal wherever the
+    block's best and second differ by more than TOL."""
+    rng = np.random.RandomState(10 + seed)
+    q = rng.randn(ROWS, 32).astype(np.float32)
+    c = rng.randn(BN, 32).astype(np.float32)
+    tq_, tc = torch.from_numpy(q), torch.from_numpy(c)
+    got = top2_epilogue(mips_hier.scores(tq_, tc).numpy())
+    want = [x.numpy() for x in mips_exact2.top2_sweep_reference(tq_, tc)]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))
+    best, pack = got
+    pb, pp = _pallas_top2(q, c)
+    np.testing.assert_allclose(best, pb, atol=TOL, rtol=TOL)
+
+    def cleared(x):
+        return (x.view(np.int32) & ~63).view(np.float32)
+
+    np.testing.assert_allclose(cleared(pack), cleared(pp), atol=TOL,
+                               rtol=TOL)
+    decided = pb - cleared(pp) > TOL
+    assert decided.mean() > 0.9
+    np.testing.assert_array_equal((pack.view(np.int32) & 63)[decided],
+                                  (pp.view(np.int32) & 63)[decided])
