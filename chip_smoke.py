@@ -14,8 +14,14 @@ Phases, each printed with its elapsed seconds:
      back-to-back launches, K3 and K8 in turns with torch.topk and
      scaled_dot_product_attention): K1 fused FFN half-layer (serving
      and encode shapes; checked also at T = 64 and ragged T at bert-base
-     and bert-large widths), K2 dual block-max sweep and K3 extract-max top-k
-     at the serving shapes; K4 (K1 at bert-large widths), K7 (W8A8 FFN
+     and bert-large widths) and K2 dual block-max sweep at the serving
+     shapes; K3 radix-select top-k at every shape of its paths (the
+     search's at Q = 1024, k = 100, float32 and the int8 method's int32, a
+     super level at MS MARCO's size, k = 1000, and the serving path's at
+     k = 10) and on rows of ties, +-0, INT_MIN, finfo.min and -inf (with
+     and without pad slots), k = W, more candidates than one segment holds
+     and rows too wide for shared memory, each equal to its plain version
+     bit for bit; K4 (K1 at bert-large widths), K7 (W8A8 FFN
      half-layer, T = 64 to 32,768 at bert-base and bert-large widths, its
      launches split by a profiler trace beside torch._int_mm of its GEMMs'
      shapes) and K8 (fused attention, beside scaled_dot_product_attention)
@@ -33,8 +39,10 @@ Phases, each printed with its elapsed seconds:
   4. search: search_topk over 1,024 row-normalised bf16 queries x the
      corpus at k = 100 with each method (pallas, exact2, fast, blockmax,
      refined, naive), plus mips_topk_int8 and mips_topk_blockmax_pallas:
-     queries/s and card span of each; the exact methods equal an exact
-     plain search up to near-ties, fast and int8 meet recall@100 bounds;
+     queries/s and card span of each, and for pallas, fast, exact2 and
+     int8 K3's launches a search and its share of the card span (a
+     torch.profiler trace); the exact methods equal an exact plain search
+     up to near-ties, fast and int8 meet recall@100 bounds;
   5. serve: BERT-base (rdot_nll_condenser, random weights from the seed)
      behind RetrievalService over the same corpus, in the default (exact),
      fast_search, quantize_int8, int8_encode (a matmul_int8 tower, K7) and
@@ -651,48 +659,144 @@ def check_k2(mips, corpus, gen, dev):
                 bound_by=b_by, library_ms=None)
 
 
-def check_k3(mips, gen, dev):
-    """K3 at the serving path's three [Q, W] shapes (super, fine, rescore
-    at k = 10), an int32 tie case, a -inf case, and a row too wide for
-    shared memory. The kernel must equal its plain version exactly."""
-    Q, k = BATCH, TOP_K
-    cases = []
-    for W in (N_DOCS // 512, 64 * TOP_K, 8 * TOP_K):
-        cases.append((f"f32 [{Q},{W}]", torch.randn(Q, W, generator=gen,
-                                                    device=dev)))
-    cases.append(("i32 ties", torch.randint(0, 8, (Q, 2048), generator=gen,
-                                            device=dev, dtype=torch.int32)))
-    x = torch.randn(Q, 640, generator=gen, device=dev)
+# K3's shapes on its paths: (what, dtype, Q, W, k). The search at
+# Q = 1024, k = 100: the super level of pallas, fast and exact2, the fine
+# blocks of pallas and fast, pallas's rescore and exact2's runs, the int8
+# method's packed maxima (int32), exact2's rescore slots (k = R = 6) and
+# final merge; a super level at MS MARCO's 8,841,823 docs; k = 1000 (ANCE
+# mining may ask for more than 100); the serving path's three at k = 10.
+K3_SHAPES = (
+    ("super", torch.float32, SEARCH_Q, 2048, SEARCH_K),
+    ("fine", torch.float32, SEARCH_Q, 6400, SEARCH_K),
+    ("rescore, exact2 runs", torch.float32, SEARCH_Q, 800, SEARCH_K),
+    ("int8 super", torch.int32, SEARCH_Q, 2048, SEARCH_K),
+    ("int8 fine", torch.int32, SEARCH_Q, 6400, SEARCH_K),
+    ("exact2 slots", torch.float32, SEARCH_Q, 100, 6),
+    ("exact2 merge", torch.float32, SEARCH_Q, 484, SEARCH_K),
+    ("MARCO super", torch.float32, SEARCH_Q, 17272, SEARCH_K),
+    ("k=1000", torch.float32, SEARCH_Q, 6400, 1000),
+    ("serve super", torch.float32, BATCH, 2048, TOP_K),
+    ("serve fine", torch.float32, BATCH, 640, TOP_K),
+    ("serve rescore", torch.float32, BATCH, 80, TOP_K),
+)
+K3_SUMMARY = "fine"  # the shape that stands for K3 in the kernels line
+
+
+def k3_input(gen, dev, dtype, Q, W):
+    """Normal float32 rows, or int32 rows spread like the int8 method's
+    packed maxima (scores of up to ~2^27 with the argmax in the low bits)."""
+    x = torch.randn(Q, W, generator=gen, device=dev)
+    return x if dtype == torch.float32 else (x * 2 ** 24).to(torch.int32)
+
+
+def k3_cases(gen, dev):
+    """(name, x, k): every K3 shape, then rows that exercise ties, the
+    sentinel and the tail rule."""
+    cases = [(f"{what} [{Q},{W}]", k3_input(gen, dev, dt, Q, W), k)
+             for what, dt, Q, W, k in K3_SHAPES]
+    cases.append(("i32 ties [64,2048]", torch.randint(
+        0, 8, (BATCH, 2048), generator=gen, device=dev,
+        dtype=torch.int32), TOP_K))
+    cases.append(("i32 ties [1024,100]", torch.randint(
+        0, 4, (SEARCH_Q, 100), generator=gen, device=dev,
+        dtype=torch.int32), 60))
+    cases.append(("i32 ties [1024,2048]", torch.randint(
+        0, 8, (SEARCH_Q, 2048), generator=gen, device=dev,
+        dtype=torch.int32), SEARCH_K))
+    x = torch.randn(BATCH, 640, generator=gen, device=dev)
     x[:, 5:] = float("-inf")
     x[1, :] = float("-inf")
-    cases.append(("-inf rows", x))
+    cases.append(("-inf rows", x, TOP_K))
+    # every entry -inf and W % 128 = 0 (no pad slot): round 1 returns
+    # (-inf, 0), the later rounds (finfo.min, 0)
+    cases.append(("all -inf, no pad [64,640]", torch.full(
+        (BATCH, 640), float("-inf"), device=dev), SEARCH_K))
+    x = torch.full((SEARCH_Q, 2048), torch.finfo(torch.float32).min,
+                   device=dev)
+    x[::2, 7] = 1.0
+    cases.append(("finfo.min rows [1024,2048]", x, SEARCH_K))
+    # +0.0 and -0.0 tie: lowest index first across both
+    zeros = torch.randint(0, 2, (BATCH, 2048), generator=gen, device=dev)
+    x = torch.where(zeros.bool(), 0.0, -0.0)
+    x[:, ::9] = 1.0
+    cases.append(("+-0 ties [64,2048]", x, SEARCH_K))
+    x = torch.randint(-3, 3, (BATCH, 2048), generator=gen, device=dev,
+                      dtype=torch.int32)
+    x[x == -3] = torch.iinfo(torch.int32).min
+    x[:, 1::7] = torch.iinfo(torch.int32).max
+    x[2, :] = torch.iinfo(torch.int32).min
+    cases.append(("i32 INT_MIN [64,2048]", x, SEARCH_K))
+    cases.append(("k=W [64,640]", torch.randn(BATCH, 640, generator=gen,
+                                              device=dev), 640))
+    cases.append(("k=W [1024,100]", torch.randn(SEARCH_Q, 100, generator=gen,
+                                                device=dev), 100))
+    cases.append(("k=W [8,6000] (segments)", torch.randn(
+        8, 6000, generator=gen, device=dev), 6000))
     cases.append(("wide f32 [4,100000]",
-                  torch.randn(4, 100_000, generator=gen, device=dev)))
+                  torch.randn(4, 100_000, generator=gen, device=dev), TOP_K))
+    cases.append(("wide f32 [4,100000] k=3000", torch.randn(
+        4, 100_000, generator=gen, device=dev), 3000))
+    return cases
+
+
+def k3_agrees(mips, x, k):
+    """K3 against its plain version: ids equal, values equal (+0.0 and
+    -0.0 compare equal), and every value above the sentinel the bits of
+    the entry its id names. -> max |value difference| (0 when equal)."""
+    v, i = mips.topk(x, k)
+    rv, ri = mips.topk_reference(x, k)
+    torch.cuda.synchronize()
+    if not (torch.equal(v, rv) and torch.equal(i, ri)):
+        bad = (v != rv) | (i != ri)
+        r = int(bad.any(1).nonzero()[0, 0])
+        c = int(bad[r].nonzero()[0, 0])
+        raise AssertionError(
+            f"kernel != plain version, row {r} rank {c}: "
+            f"({v[r, c].item()}, {i[r, c].item()}) != "
+            f"({rv[r, c].item()}, {ri[r, c].item()})")
+    neg = (torch.finfo(x.dtype).min if x.dtype.is_floating_point
+           else torch.iinfo(x.dtype).min)
+    real = v > neg
+    own = x.gather(1, i.long().clamp_max(x.shape[1] - 1))
+    bits = torch.int32
+    if not torch.equal(v.view(bits)[real], own.view(bits)[real]):
+        raise AssertionError("a value is not its entry's own bits")
+    # equal values give 0, and -inf - -inf gives NaN, counted as 0
+    return (v.double() - rv.double()).nan_to_num(0.0).abs().max().item()
+
+
+def k3_bound(Q, W, k):
+    """One read of the row, k values and ids written; one compare an entry
+    of the padded row."""
+    Wp = -(-W // 128) * 128
+    return bound(Q * W * 4 + Q * k * 8, Q * Wp, FP32_OP_PER_S)
+
+
+def check_k3(mips, gen, dev):
+    """K3 on every shape of its paths and on rows of ties, sentinels and
+    -inf (all must equal the plain version exactly), then timed at each
+    shape in turns with torch.topk, beside the plain version and the
+    bound."""
     err = 0.0
-    for name, x in cases:
-        v, i = mips.topk(x, k)
-        rv, ri = mips.topk_reference(x, k)
-        torch.cuda.synchronize()
-        if not (torch.equal(v, rv) and torch.equal(i, ri)):
-            raise AssertionError(f"K3 {name}: kernel != plain version")
-        # equal values give 0, and -inf - -inf gives NaN, counted as 0
-        diff = (v.double() - rv.double()).nan_to_num(0.0).abs().max().item()
-        err = max(err, diff)
+    for name, x, k in k3_cases(gen, dev):
+        err = max(err, k3_agrees(mips, x, k))
         phase(f"  K3 {name} k={k}: values and ids equal to the plain "
               f"version (tol 0)")
+    card = nvidia_smi()
     out = None
-    for W in (N_DOCS // 512, 64 * TOP_K, 8 * TOP_K):
-        x = torch.randn(Q, W, generator=gen, device=dev)
+    for what, dt, Q, W, k in K3_SHAPES:
+        x = k3_input(gen, dev, dt, Q, W)
+        n = 200 if Q == BATCH else 50
         ms, lib = time_turns(lambda: mips.topk(x, k),
-                             lambda: torch.topk(x, k, dim=1), 200)
-        plain = time_ms(lambda: mips.topk_reference(x, k))
-        Wp = -(-W // 128) * 128
-        b_ms, b_by = bound(Q * W * 4 + Q * k * 8, k * Q * Wp, FP32_OP_PER_S)
-        phase(f"  K3 [{Q},{W}] k={k}: kernel {ms:.4f} ms, torch.topk "
-              f"{lib:.4f} ms (in turns, 200 launches an event pair: "
-              f"{ms / lib:.2f}x), plain {plain:.4f} ms, bound {b_ms:.6f} ms "
-              f"({b_by})")
-        if out is None:  # the widest shape stands for K3 in the summary
+                             lambda: torch.topk(x, k, dim=1), n)
+        plain = time_ms(lambda: mips.topk_reference(x, k), runs=3, warmup=1)
+        b_ms, b_by = k3_bound(Q, W, k)
+        phase(f"  K3 {what} [{Q},{W}] {str(dt)[6:]} k={k}: kernel "
+              f"{ms:.4f} ms, torch.topk {lib:.4f} ms (in turns, {n} "
+              f"launches an event pair: {ms / lib:.2f}x), plain "
+              f"{plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}, "
+              f"{100 * b_ms / ms:.1f}% of it) [{card}]")
+        if what == K3_SUMMARY:
             out = dict(name="K3_topk", route="cuda",
                        source="cocodr_tpu_torch/csrc/topk.cu",
                        replaces="cocodr_tpu/ops/pallas_mips.py:214",
@@ -963,29 +1067,33 @@ def repeated_rows_ints(gen, dev, Q, N, D):
 
 # the sweeps' GEMM instances, by their epilogues' names: K2 (two modes),
 # K10, K6 (SweepEpi) and K9 (Top2Epi)
-SWEEP_EPILOGUES = {"SweepEpi": 4, "Top2Epi": 1}
+# kernels that must have no stack frame, by a part of their names: the
+# five sweeps (by their epilogues) and K3's ten instantiations (float32 and
+# int32 x 32, 128, 256, 512 threads a staged row and 512 a row in global
+# memory)
+NO_STACK_FRAME = {"SweepEpi": 4, "Top2Epi": 1, "radix_topk_kernel": 10}
 
 
 def check_stack_frames(log):
-    """Every sweep kernel in nvcc's -Xptxas -v report has no stack frame:
-    an epilogue whose register arrays nvcc cannot index by constants
-    moves them to local memory, and the report shows a frame."""
+    """Every sweep and top-k kernel in nvcc's -Xptxas -v report has no
+    stack frame: register arrays that nvcc cannot index by constants move
+    to local memory, and the report shows a frame."""
     lines = log.splitlines()
-    found = dict.fromkeys(SWEEP_EPILOGUES, 0)
+    found = dict.fromkeys(NO_STACK_FRAME, 0)
     for line, nxt in zip(lines, lines[1:] + [""]):
-        name = next((e for e in SWEEP_EPILOGUES
+        name = next((e for e in NO_STACK_FRAME
                      if "Function properties for" in line and e in line), None)
         if name is None:
             continue
         found[name] += 1
         if not nxt.strip().startswith("0 bytes stack frame"):
-            raise AssertionError(f"a sweep kernel has a stack frame: {line} "
+            raise AssertionError(f"a kernel has a stack frame: {line} "
                                  f"{nxt.strip()}")
-    if found != SWEEP_EPILOGUES:
-        raise AssertionError(f"sweep kernels in the ptxas report: {found}, "
-                             f"expected {SWEEP_EPILOGUES}")
-    phase(f"  ptxas: no stack frame in the {sum(found.values())} sweep "
-          f"kernels")
+    if found != NO_STACK_FRAME:
+        raise AssertionError(f"kernels in the ptxas report: {found}, "
+                             f"expected {NO_STACK_FRAME}")
+    phase(f"  ptxas: no stack frame in the {sum(found.values())} sweep and "
+          f"top-k kernels")
 
 
 def make_corpus(gen, dev):
@@ -1134,6 +1242,7 @@ def search(gen, dev, corpus, corpus_i8, dim_scale):
           f"hierarchical search")
 
     card = nvidia_smi()  # the card's name and power limit
+    spans = {}
     for name, fn in runs.items():
         vals, ids = results[name]
         if name in ("fast", "int8"):
@@ -1146,7 +1255,7 @@ def search(gen, dev, corpus, corpus_i8, dim_scale):
         else:
             err = check_results(vals, ids, scores, ref_v, tol)
             what = f"exact, max score err {err:.3e}"
-        walls, spans = [], []
+        walls, span_ms = [], []
         for _ in range(3):
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
@@ -1157,12 +1266,37 @@ def search(gen, dev, corpus, corpus_i8, dim_scale):
             end.record()
             end.synchronize()
             walls.append(time.perf_counter() - t)
-            spans.append(start.elapsed_time(end))
+            span_ms.append(start.elapsed_time(end))
         wall = statistics.median(walls)
+        spans[name] = statistics.median(span_ms)
         phase(f"  {name}: {SEARCH_Q / wall:.1f} queries/s ({wall * 1e3:.3f} "
-              f"ms per {SEARCH_Q} queries, card span "
-              f"{statistics.median(spans):.3f} ms), {what} [{card}]")
+              f"ms per {SEARCH_Q} queries, card span {spans[name]:.3f} ms), "
+              f"{what} [{card}]")
+    # K3's share of the searches that run it, traced after all the timings:
+    # on the H100 a profiler trace between two timings slowed the second
+    for name in ("pallas", "fast", "exact2", "int8"):
+        k3_share(name, runs[name], spans[name])
     return counts
+
+
+def k3_share(name, fn, span):
+    """K3's launches in one search, and their device ms beside the search's
+    card span, from a torch.profiler trace of three searches."""
+    from cocodr_tpu_torch.ops import mips_hier
+
+    before = mips_hier.topk.launches
+    fn()
+    launches = mips_hier.topk.launches - before
+    split = kernel_split(fn, runs=3)
+    if not split:
+        phase(f"  {name}: K3 {launches} launches a search; its device time "
+              f"not measured (the trace holds no device time)")
+        return
+    k3 = sum(ms for kern, ms in split.items() if "topk_kernel" in kern)
+    busy = sum(split.values())
+    phase(f"  {name}: K3 {launches} launches a search, {k3:.4f} ms of "
+          f"device time ({100 * k3 / span:.1f}% of the {span:.3f} ms card "
+          f"span; all kernels {busy:.3f} ms)")
 
 
 # mode -> (ServeConfig flags, matmul_int8 tower, launches per call of the
@@ -1912,7 +2046,7 @@ def main() -> None:
     # its launches on that path: (path's counts, the wrapper's counter)
     paths = {"K1_ffn_block": (serve_counts["default"], "K1_ffn_block"),
              "K2_dual_sweep": (serve_counts["default"], "K2_dual_sweep"),
-             "K3_topk": (serve_counts["default"], "K3_topk"),
+             "K3_topk": (search_counts, "K3_topk"),
              "K2_dual_sweep_packed": (serve_counts["fast_search"],
                                       "K2_dual_sweep_packed"),
              "K4_ffn_block_chunked": (encode_counts["e_bert_large"],

@@ -1,5 +1,5 @@
 """Hierarchical top-k MIPS: K2 (dual block-max sweep, plain and packed)
-and K3 (extract-max top-k), and the exact and fast searches built on them.
+and K3 (exact top-k), and the exact and fast searches built on them.
 
 Counterpart of cocodr_tpu/ops/pallas_mips.py: `_dual_sweep_mixed` /
 `_sweep_kernel2` / `_pack_argmax` (-> `dual_sweep`, kernel
@@ -150,7 +150,7 @@ dual_sweep.launches = 0
 dual_sweep.pack_launches = 0
 
 
-# --- K3: extract-max top-k ----------------------------------------------
+# --- K3: exact top-k ----------------------------------------------------
 
 def topk_reference(x, k: int):
     """Plain version of K3, the TPU kernel's semantics: the row padded to a
@@ -179,8 +179,10 @@ def topk_reference(x, k: int):
 
 def topk(x, k: int):
     """K3 wrapper: exact top-k along the last axis of [Q, W] float32 or
-    int32, lowest index first on ties. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    int32, lowest index first on ties, the plain version's output bit for
+    bit (csrc/topk.cu selects by radix, not by k rounds). A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
     if x.device.type == "cpu":
         return topk_reference(x, k)
     _build.require_cuda_operand("x", x, (torch.float32, torch.int32), 2)
