@@ -70,9 +70,36 @@ Phases, each printed with its elapsed seconds:
      dropout and with attention_impl="fused" (K1 and K8, 36 per step
      each); then one step at batch 8, dropout off, on the card and on the
      CPU through the plain versions from the same weights, held together
-     by the loss and the clipped gradients' cosines.
+     by the loss and the clipped gradients' cosines;
+  8. eval: random BERT-base weights from the seed (rdot_nll_condenser, bf16
+     compute, float32 parameters) over two synthetic BEIR tasks of BEIR's
+     published test sizes, through prepare_beir_task (the hashing
+     tokenizer's `encode`) and evaluate_beir_task at top_k 1000 (K1 12 a
+     batch, K2, K3): FiQA-2018's shape (57,638 docs at doc_len 128, 648
+     queries) and SciFact's (5,183 docs at 256, 300 queries); the seconds
+     of tokenize, encode, search and score, docs/s and the launches; the
+     ids against an exact plain search of the same embeddings up to
+     near-ties, the metrics against that search's (the card's row taken
+     only where a relevant id moved by a near-tie), the first 256 FiQA docs
+     and queries re-encoded on the CPU through the plain versions (cosine
+     >= 0.999); then combined_mrr over the FiQA records with a
+     top1000.dev-style candidate file; the model's parameters bit-equal
+     and float32 after it all;
+  9. ance-train: AnceStageConfig.base()'s model and optimizer (BERT-base,
+     LAMB at 5e-6, batch 64, queries 64 and docs 128 tokens, G = 50, K = 3)
+     through train_on_ann_file over token caches and an ann file written
+     from the seed: 6 idro steps with dropout 0.1 (K5 36 a step), 3
+     dro-greedy steps, then 2 idro steps without dropout and with fused
+     attention (K1 and K8 36 a step); triplets/s, the card ms of an iDRO
+     step's forward, group pass (a product per group, all 50 present),
+     training backward and optimizer, the peak memory of the training run
+     and of those all-group steps, dro_state_summary; then one idro step
+     at batch 8, G 4, dropout off, on the card and on the CPU in float32
+     from the same weights and DroState, held together by the loss, the
+     clipped gradients' cosines, h_fun and the cosines between the groups'
+     gradients that the group pass forms.
 Every path (the search phase, each serve mode, each encode configuration,
-each training run) runs with every kernel's launch count set to 0 just
+each training run, each eval task, combined_mrr) runs with every kernel's launch count set to 0 just
 before it and read just after, and fails if a kernel of the path never
 launched or a count differs from the path's own. Then one JSON line of per-kernel numbers,
 the card's name and power limit, and as the last line
@@ -87,6 +114,7 @@ faulthandler.dump_traceback_later(1100, exit=True)
 
 import argparse  # noqa: E402
 import copy  # noqa: E402
+import dataclasses  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
 import json  # noqa: E402
@@ -237,18 +265,22 @@ def bound(nbytes: float, ops: float, op_rate: float):
 
 
 class HashTokenizer:
-    """Stand-in tokenizer with the HuggingFace call signature, for the
-    smoke only: [CLS]=101, words hashed into ids 1000..30521, [SEP]=102,
-    [PAD]=0."""
+    """Stand-in tokenizer with the HuggingFace call and `encode`
+    signatures, for the smoke only: [CLS]=101, words hashed into ids
+    1000..30521, [SEP]=102, [PAD]=0."""
+
+    def encode(self, text, add_special_tokens=True, max_length=512,
+               truncation=True):
+        words = text.lower().split()[:max_length - 2]
+        return ([101] + [1000 + zlib.crc32(w.encode()) % (30522 - 1000)
+                         for w in words] + [102])
 
     def __call__(self, texts, padding="max_length", truncation=True,
                  max_length=64, return_tensors="np"):
         ids = np.zeros((len(texts), max_length), np.int64)
         mask = np.zeros((len(texts), max_length), np.int64)
         for i, text in enumerate(texts):
-            words = [1000 + zlib.crc32(w.encode()) % (30522 - 1000)
-                     for w in text.lower().split()]
-            toks = [101] + words[:max_length - 2] + [102]
+            toks = self.encode(text, max_length=max_length)
             ids[i, :len(toks)] = toks
             mask[i, :len(toks)] = 1
         return {"input_ids": ids, "attention_mask": mask}
@@ -1587,7 +1619,7 @@ def encode_config(args, dev, cache, name):
           f"{span:.1f} ms); per full-width batch: card {batch_ms:.3f} ms, "
           f"host enqueue {statistics.median(enq):.3f} ms [{card}]")
     if not buckets:  # (b) runs (a)'s model
-        layer_breakdown(name, model, tokens, mask)
+        layer_breakdown(name, enc.model, tokens, mask)
 
     if name in CPU_DOCS:
         # the same model on the CPU takes the kernels' plain versions
@@ -1665,12 +1697,12 @@ class StepRecorder:
 
     def __call__(self, state, batch, gens):
         before = {n: getattr(f, a) for n, (f, a) in kernel_counters().items()}
-        loss, acc = self.step(state, batch, gens)
-        value = loss.item()  # waits for the card
+        out = self.step(state, batch, gens)  # (loss, acc) or a metrics dict
+        value = (out["loss"] if isinstance(out, dict) else out[0]).item()
         self.records.append((state.step, value, time.perf_counter()))
         self.launches.append({n: getattr(f, a) - before[n]
                               for n, (f, a) in kernel_counters().items()})
-        return loss, acc
+        return out
 
 
 class CountingTokenizer(HashTokenizer):
@@ -1981,6 +2013,680 @@ def train(args, dev, k5_ms):
     return counts
 
 
+# --- eval: BEIR-shaped tasks and MS MARCO-style MRR ------------------------
+
+# BEIR's published test sizes (docs, queries) of two tasks, with random
+# words: FiQA-2018 at doc_len 128, SciFact (a long-doc task) at 256
+BEIR_SHAPES = {
+    "fiqa": dict(docs=57_638, queries=648, words=(40, 200), title=False,
+                 rel=(1, 5)),
+    "scifact": dict(docs=5_183, queries=300, words=(100, 300), title=True,
+                    rel=(1, 2)),
+}
+EVAL_TOP_K = 1000
+EVAL_CPU_ROWS = 256  # FiQA docs and queries re-encoded on the CPU
+EVAL_CANDIDATES = 1000  # per query in the top1000.dev-style file
+EVAL_VOCAB = 30_000
+
+
+def write_beir_task(rng, root, name):
+    """A BEIR task directory (corpus.jsonl, queries.jsonl, qrels/test.tsv)
+    of BEIR_SHAPES[name] random words; each query holds 5-19 words of its
+    first relevant document."""
+    shape = BEIR_SHAPES[name]
+    data = os.path.join(root, name)
+    os.makedirs(os.path.join(data, "qrels"))
+    vocab = np.array([f"w{i}" for i in range(EVAL_VOCAB)])
+    lengths = rng.integers(shape["words"][0], shape["words"][1] + 1,
+                           shape["docs"])
+    words = rng.integers(0, EVAL_VOCAB, int(lengths.sum()))
+    starts = np.concatenate([[0], np.cumsum(lengths)])
+    with open(os.path.join(data, "corpus.jsonl"), "w") as f:
+        for i in range(shape["docs"]):
+            ws = vocab[words[starts[i]:starts[i + 1]]]
+            title = " ".join(ws[:8]) if shape["title"] else ""
+            f.write(json.dumps({"_id": f"{name}-d{i}", "title": title,
+                                "text": " ".join(ws)}) + "\n")
+    with open(os.path.join(data, "queries.jsonl"), "w") as fq, \
+            open(os.path.join(data, "qrels", "test.tsv"), "w") as fr:
+        fr.write("query-id\tcorpus-id\tscore\n")
+        for j in range(shape["queries"]):
+            rel = rng.choice(shape["docs"], rng.integers(
+                shape["rel"][0], shape["rel"][1] + 1), replace=False)
+            src = words[starts[rel[0]]:starts[rel[0] + 1]]
+            q = vocab[rng.choice(src, min(len(src), rng.integers(5, 20)),
+                                 replace=False)]
+            fq.write(json.dumps({"_id": f"{name}-q{j}",
+                                 "text": " ".join(q)}) + "\n")
+            for d in rel:
+                fr.write(f"{name}-q{j}\t{name}-d{d}\t1\n")
+    return data
+
+
+def recorded_eval(eb, model, paths, cfg, dev):
+    """evaluate_beir_task with its encode_cache and search_topk wrapped to
+    keep their outputs and host-clock seconds -> (metrics, record)."""
+    rec = {"encode_s": [], "emb": []}
+    encode_fn, search_fn = eb.encode_cache, eb.search_topk
+
+    def encode(encoder, cache, ecfg):
+        t = time.perf_counter()
+        out = encode_fn(encoder, cache, ecfg)
+        rec["encode_s"].append(time.perf_counter() - t)
+        rec["emb"].append(out)
+        return out
+
+    def search(queries, corpus, k, **kw):
+        t = time.perf_counter()
+        vals, ids = search_fn(queries, corpus, k, **kw)
+        rec["search_s"] = time.perf_counter() - t
+        rec["vals"], rec["ids"] = vals, ids
+        return vals, ids
+
+    eb.encode_cache, eb.search_topk = encode, search
+    try:
+        t = time.perf_counter()
+        metrics = eb.evaluate_beir_task(model, *paths, cfg, device=dev)
+        rec["total_s"] = time.perf_counter() - t
+    finally:
+        eb.encode_cache, eb.search_topk = encode_fn, search_fn
+    return metrics, rec
+
+
+def near_tie_moves(plain, card, ref_v, rel, rel_scores, tol):
+    """The rows in which a relevant document's rank (or its absence from
+    the top k) differs between the card's ids and the exact plain
+    search's; raises unless each such move is a near-tie: a relevant
+    document at the card's rank r scores within tol of the exact r-th
+    score, one that the card leaves out within tol of the exact k-th.
+    plain, card [n_q, k] ids; ref_v [n_q, k] the exact scores in order;
+    rel[r] row r's relevant ids, rel_scores[r] their exact scores."""
+    k = plain.shape[1]
+    moved = []
+    for r in range(len(plain)):
+        at_plain = {d: i for i, d in enumerate(plain[r].tolist())}
+        at_card = {d: i for i, d in enumerate(card[r].tolist())}
+        for d, s in zip(rel[r], rel_scores[r]):
+            rc = at_card.get(d, k)
+            if rc == at_plain.get(d, k):
+                continue
+            off = abs(s - ref_v[r, rc]) if rc < k else s - ref_v[r, k - 1]
+            if not off <= tol:
+                raise AssertionError(
+                    f"row {r}: relevant id {d} at rank {rc} of the card's "
+                    f"top {k} scores {s}, {off} off the exact search "
+                    f"(tol {tol})")
+            moved.append(r)
+    return sorted(set(moved))
+
+
+def eval_task(args, dev, model, root, name):
+    """prepare_beir_task + evaluate_beir_task of one BEIR-shaped task on the
+    card; its ids against an exact plain search, its metrics against that
+    search's -> (paths, (corpus cache, query cache, corpus embeddings,
+    query embeddings))."""
+    from cocodr_tpu_torch.data.records import TokenCache
+    from cocodr_tpu_torch.evals.metrics import evaluate_run, run_from_topk
+    from cocodr_tpu_torch.pipelines import eval_beir as eb
+
+    rng = np.random.default_rng([args.seed, len(name)])
+    data = write_beir_task(rng, root, name)
+    cfg = eb.BeirEvalConfig.for_task(name, top_k=EVAL_TOP_K)
+    t = time.perf_counter()
+    paths = eb.prepare_beir_task(data, os.path.join(root, name + "_work"),
+                                 HashTokenizer(), cfg)
+    tok_s = time.perf_counter() - t
+    corpus_path, query_path, d2o, q2o, qrels = paths
+    n_docs, n_q = len(d2o), len(q2o)
+
+    zero_counts()
+    metrics, rec = recorded_eval(eb, model, paths, cfg, dev)
+    counts = read_counts(f"eval {name}", ["K1_ffn_block", "K2_dual_sweep",
+                                         "K3_topk"])
+    L = model.cfg.bert.num_hidden_layers
+    batches = (math.ceil(n_docs / cfg.batch_size)
+               + math.ceil(n_q / cfg.batch_size))
+    check_counts(f"eval {name}", counts, {
+        "K1_ffn_block": L * batches, "K2_dual_sweep": 1,
+        "K3_topk": counts["K3_topk"]})
+    corpus_emb, query_emb = rec["emb"]
+    score_s = rec["total_s"] - sum(rec["encode_s"]) - rec["search_s"]
+    card = nvidia_smi()
+    phase(f"  eval {name} ({n_docs} docs at {cfg.doc_len}, {n_q} queries "
+          f"at {cfg.query_len}, top {cfg.top_k}): tokenize {tok_s:.3f} s, "
+          f"encode {sum(rec['encode_s']):.3f} s ({n_docs / rec['encode_s'][0]:.1f}"
+          f" docs/s), search {rec['search_s']:.3f} s, score {score_s:.3f} s "
+          f"(host clock); K1 {counts['K1_ffn_block']}, K2 "
+          f"{counts['K2_dual_sweep']}, K3 {counts['K3_topk']} launches "
+          f"[{card}]")
+
+    # the card's ids against an exact plain search of the same embeddings
+    k = rec["ids"].shape[1]
+    corpus = torch.from_numpy(corpus_emb).to(dev).to(torch.bfloat16)
+    scores, ref_v, ref_i = exact_search(torch.from_numpy(query_emb).to(dev),
+                                        corpus, k)
+    tol = 1e-4 * scores.abs().max().item()
+    err = check_results(rec["vals"], rec["ids"], scores, ref_v, tol)
+    off2doc = {v: d for d, v in d2o.items()}
+    qids = [q for q, _ in sorted(q2o.items(), key=lambda kv: kv[1])]
+    rel = [[d2o[d] for d in qrels[q]] for q in qids]
+    rel_scores = [scores[r, rel[r]].tolist() for r in range(n_q)]
+    del scores, corpus
+    # metrics: every judged document is relevant here, so a row's metrics
+    # are a function of its relevant documents' ranks. The card's row
+    # stands in for the plain one only where such a rank moved, and only
+    # by a near-tie; the plain run so patched must give the card's metrics
+    plain, card_ids = ref_i.cpu().numpy(), np.asarray(rec["ids"])
+    differ = sum(not np.array_equal(plain[r], card_ids[r])
+                 for r in range(n_q))
+    swapped = sum(set(plain[r].tolist()) != set(card_ids[r].tolist())
+                  for r in range(n_q))
+    moved = near_tie_moves(plain, card_ids, ref_v.cpu().numpy(), rel,
+                           rel_scores, tol)
+    patched = plain.copy()
+    patched[moved] = card_ids[moved]
+
+    def score(ids):
+        return evaluate_run(run_from_topk(qids, ids, id_map=off2doc), qrels,
+                            ndcg_k=cfg.ndcg_k, recall_ks=cfg.recall_ks)
+
+    want = score(patched)
+    if metrics != want:
+        raise AssertionError(f"eval {name}: metrics {metrics} != {want}")
+    pure = score(plain)
+    delta = max(abs(metrics[m] - pure[m]) for m in metrics)
+    phase(f"  eval {name}: ids equal the exact plain search up to near-ties "
+          f"(max score err {err:.3e}, tol {tol:.3e}; {differ} of {n_q} "
+          f"rows order near-ties otherwise, {swapped} of them swap an id at "
+          f"the k-th score); metrics equal the plain run's with the "
+          f"{len(moved)} rows where a relevant id moved by a near-tie taken "
+          f"from the card (without them: max |diff| {delta:.2e}); "
+          f"ndcg@10 {metrics['ndcg_cut_10']:.4f}, recall@1000 "
+          f"{metrics['recall_1000']:.4f}")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"eval {name}: non-finite metrics {metrics}")
+    return paths, (TokenCache(corpus_path), TokenCache(query_path),
+                   corpus_emb, query_emb)
+
+
+def eval_cpu_rows(model, caches):
+    """The first EVAL_CPU_ROWS docs and queries re-encoded on the CPU
+    through the plain versions, against the card's rows (cosine)."""
+    from cocodr_tpu_torch.pipelines.encode import (
+        EncodeConfig,
+        Encoder,
+        encode_cache,
+    )
+
+    corpus_cache, query_cache, corpus_emb, query_emb = caches
+    cpu_model = copy.deepcopy(model).cpu()
+    for what, cache, emb, is_query, buckets in (
+            ("docs", corpus_cache, corpus_emb, False, ()),
+            ("queries", query_cache, query_emb, True, (16, 32, 64))):
+        t = time.perf_counter()
+        ref = encode_cache(Encoder(cpu_model, is_query=is_query,
+                                   device="cpu"), cache,
+                           EncodeConfig(batch_size=64,
+                                        length_buckets=buckets),
+                           indices=np.arange(EVAL_CPU_ROWS),
+                           prefetch_depth=0)
+        cos = cosines(emb[:EVAL_CPU_ROWS], ref)
+        phase(f"  eval fiqa: first {EVAL_CPU_ROWS} {what} re-encoded on the "
+              f"CPU through the plain versions in "
+              f"{time.perf_counter() - t:.1f} s: min cosine {cos.min():.6f} "
+              f"(bound {CPU_COSINE})")
+        if not cos.min() >= CPU_COSINE:
+            raise AssertionError(f"eval {what}: card and CPU disagree")
+
+
+def eval_mrr(args, dev, model, root, paths):
+    """combined_mrr over the FiQA-shaped records, with a top1000.dev-style
+    candidate file (qid \\t pid \\t query \\t passage)."""
+    from cocodr_tpu_torch.data.records import TokenCache
+    from cocodr_tpu_torch.evals.mrr_eval import combined_mrr, load_top_dev
+
+    corpus_path, query_path, d2o, q2o, qrels = paths
+    rng = np.random.default_rng(args.seed + 5)
+    n_docs = len(d2o)
+    qrels_off = {q2o[q]: [d2o[d] for d in rel] for q, rel in qrels.items()}
+    top_dev = os.path.join(root, "top1000.dev")
+    with open(top_dev, "w") as f:
+        for q, rel in sorted(qrels_off.items()):
+            cands = np.concatenate([rel, rng.choice(
+                n_docs, EVAL_CANDIDATES - len(rel), replace=False)])
+            for d in rng.permutation(np.unique(cands)):
+                f.write(f"{100_000 + q}\t{5_000_000 + d}\tquery\tpassage\n")
+    cands = load_top_dev(top_dev, {100_000 + i: i for i in range(len(q2o))},
+                         {5_000_000 + i: i for i in range(n_docs)})
+    zero_counts()
+    t = time.perf_counter()
+    out = combined_mrr(model, TokenCache(query_path), TokenCache(corpus_path),
+                       qrels_off, candidates=cands, top_k=10, device=dev)
+    secs = time.perf_counter() - t
+    counts = read_counts("eval combined_mrr", ["K1_ffn_block",
+                                               "K2_dual_sweep", "K3_topk"])
+    L = model.cfg.bert.num_hidden_layers
+    check_counts("eval combined_mrr", counts, {
+        "K1_ffn_block": L * (math.ceil(n_docs / 512)
+                             + math.ceil(len(q2o) / 512)),
+        "K2_dual_sweep": 1, "K3_topk": counts["K3_topk"]})
+    phase(f"  eval combined_mrr (FiQA records, {len(cands)} queries x "
+          f"{EVAL_CANDIDATES} candidates): {out} in {secs:.3f} s (host "
+          f"clock)")
+    if (out["QueriesRanked"] != len(q2o)
+            or not all(0.0 <= out[m] <= 1.0
+                       for m in ("MRR @10", "rerank_MRR @10"))):
+        raise AssertionError(f"combined_mrr: bad result {out}")
+
+
+def evaluate(args, dev):
+    """The eval phase: random BERT-base weights from the seed, bf16
+    compute, float32 parameters that the eval must not touch. Each path's
+    launches are checked and printed here."""
+    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+
+    model = build_dual_encoder("rdot_nll_condenser",
+                               BertConfig.base(dtype=torch.bfloat16),
+                               device=dev, generator=torch.Generator()
+                               .manual_seed(args.seed + 4))
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    with tempfile.TemporaryDirectory() as root:
+        paths, caches = eval_task(args, dev, model, root, "fiqa")
+        eval_task(args, dev, model, root, "scifact")
+        eval_mrr(args, dev, model, root, paths)
+        torch.cuda.empty_cache()
+        eval_cpu_rows(model, caches)
+    for k, v in model.state_dict().items():
+        if v.dtype != torch.float32 or not torch.equal(v, before[k]):
+            raise AssertionError(f"eval changed parameter {k}")
+    if model.training or not all(p.requires_grad
+                                 for p in model.parameters()):
+        raise AssertionError("eval changed the model's mode or grad flags")
+    phase("  eval: the model's parameters are bit-equal and float32 after "
+          "the eval")
+
+
+# --- ance-train: DRO training on mined triplets ----------------------------
+
+ANCE_QUERIES = 512  # query records (64 tokens)
+ANCE_DOCS = 8192  # passage records (128 tokens)
+ANCE_LINES = 64  # ann lines: 30 negatives each, 1,920 triplets
+ANCE_NEGS = 30
+IDRO_STEPS, GREEDY_STEPS, ANCE_NODROP_STEPS = 6, 3, 2
+IDRO_CMP_GROUPS = 4  # the card-against-CPU iDRO step, batch CMP_BATCH
+# the card-against-CPU iDRO step's h_fun: max |log h_card - log h_cpu|.
+# The group pass moves log h by rho (0.05) x a mean of the groups'
+# gradient cosines; a rounding that passes the gradient bounds (cosine
+# 0.98) moves those cosines by up to ~2e-2, log h by up to ~1e-3.
+# tests/test_torch_ance.py::test_idro_compare_bounds_* calibrate it at 2
+# layers: a bf16 step against a float32 one reads 6.8e-5, an h_fun left at
+# its pre-update value 0.94; a training cotangent of the post-update
+# h_fun fails the gradient bounds (cosines 0.900 and 0.884).
+IDRO_H_LOG_TOL = 2e-3
+# the group pass itself: max |cos_card - cos_cpu| over the [G, G] cosines
+# of the groups' gradients (the normalised Gram that feeds the update).
+# The same calibration (K = 1 of 2 layers): a bf16 step reads 1.4e-3, a
+# group pass over every layer 1.5e-2, one whose rows are the gradients of
+# other groups 6.0e-2; the h_fun bound lets both of these through. At
+# BERT-base, K = 3 on the H100 (700 W): the card's step 4.58e-3, the two
+# wrong passes planted on the card 2.11e-2 and 1.66e-1 (WRONG_GROUP_PASSES,
+# held above the bound in every run). The bound sits near the geometric
+# mean of the largest sound reading and the smallest wrong one.
+IDRO_COSINE_TOL = 8e-3
+
+
+def write_ance_data(args, root):
+    """Query and passage token caches and an ann file (qid \\t pos \\t 30
+    negatives \\t weight \\t group, groups < 50) from the seed -> (query
+    cache path, passage cache path, ann file)."""
+    from cocodr_tpu_torch.data.records import RecordWriter
+
+    rng = np.random.default_rng(args.seed + 6)
+    paths = []
+    for name, n, width, lo in (("queries", ANCE_QUERIES, 64, 6),
+                               ("passages", ANCE_DOCS, 128, 16)):
+        path = os.path.join(root, name)
+        with RecordWriter(path, width) as w:
+            for length in rng.integers(lo, width + 1, n):
+                w.write([101] + rng.integers(1000, 30522, length - 2).tolist()
+                        + [102])
+        paths.append(path)
+    ann = os.path.join(root, "ann_training_data_0")
+    with open(ann, "w") as f:
+        for _ in range(ANCE_LINES):
+            negs = rng.choice(ANCE_DOCS, ANCE_NEGS, replace=False)
+            f.write(f"{rng.integers(ANCE_QUERIES)}\t{rng.integers(ANCE_DOCS)}"
+                    f"\t{','.join(map(str, negs))}\t"
+                    f"{rng.uniform(0.5, 1.5):.4f}\t{rng.integers(50)}\n")
+    return paths[0], paths[1], ann
+
+
+def ance_state(args, dev, stage, bert):
+    from cocodr_tpu_torch.losses.dro import idro_init
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+    from cocodr_tpu_torch.utils.train_state import TrainState
+
+    model = build_dual_encoder(stage.model_type, bert, device=dev,
+                               generator=torch.Generator().manual_seed(
+                                   args.seed + 7))
+    return TrainState(model, stage.optimizer.build(model.parameters()),
+                      extra=idro_init(stage.dro, device=dev))
+
+
+def ance_step_config(stage, kind):
+    from cocodr_tpu_torch.pipelines.train_step import TrainStepConfig
+
+    return TrainStepConfig(loss_kind=kind, dro=stage.dro,
+                           max_grad_norm=stage.optimizer.max_grad_norm,
+                           idro_last_k_layers=stage.idro_last_k_layers)
+
+
+def ance_run(args, state, stage, kind, data, steps, seed, dropout):
+    """train_on_ann_file for `steps` steps of `kind` -> its StepRecorder."""
+    from cocodr_tpu_torch.data.records import TokenCache
+    from cocodr_tpu_torch.data.streams import TripletBatcher
+    from cocodr_tpu_torch.pipelines.ance import train_on_ann_file
+    from cocodr_tpu_torch.pipelines.train_step import build_train_step
+
+    q_path, p_path, ann = data
+    rec = StepRecorder(build_train_step(ance_step_config(stage, kind)))
+    _, taken = train_on_ann_file(
+        state, rec, TripletBatcher(TokenCache(q_path), TokenCache(p_path)),
+        ann, stage.per_device_batch, max_steps=steps, seed=seed,
+        dropout_seed=args.seed if dropout else None)
+    if taken != steps:
+        raise AssertionError(f"ance {kind}: {taken} steps, not {steps}")
+    return rec
+
+
+def ance_batch(data, batch_size, dev, groups):
+    """The ann file's first batch_size triplets on dev, their groups set to
+    0..groups-1 in turn: an ann batch holds the few queries of its lines
+    (a line is one query, one group and its 30 negatives), so the group
+    pass of a training step runs few products; this batch runs one per
+    group."""
+    from cocodr_tpu_torch.data.records import TokenCache
+    from cocodr_tpu_torch.data.streams import (
+        TripletBatcher,
+        triplets_from_ann_lines,
+    )
+    from cocodr_tpu_torch.pipelines.ance import batch_arrays
+
+    q_path, p_path, ann = data
+    with open(ann) as f:
+        lines = f.readlines()
+    tb = next(TripletBatcher(TokenCache(q_path), TokenCache(p_path)).batches(
+        triplets_from_ann_lines(lines), batch_size))
+    arrays = dict(batch_arrays(tb), groups=np.arange(batch_size) % groups)
+    del arrays["weights"]  # the iDRO step ignores them
+    return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+
+def idro_phases(state, stage, batch, seed, dev, runs=2):
+    """An iDRO dropout step's forward (three towers and the losses), group
+    pass (a product per group present), training backward and optimizer
+    (clip + LAMB): card ms (CUDA events), medians of `runs` steps."""
+    from cocodr_tpu_torch.pipelines.train_step import (
+        apply_gradients,
+        dropout_generators,
+        idro_backward,
+        idro_group_pass,
+        triplet_losses,
+    )
+
+    cfg = ance_step_config(stage, "idro")
+    card = []
+    for _ in range(runs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        gens = dropout_generators(seed, state.step, dev)
+        state.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        ev[0].record()
+        losses, _ = triplet_losses(state.model, batch, gens)
+        ev[1].record()
+        _, dstate, (_, gc) = idro_group_pass(state.model, losses,
+                                             batch["groups"], state.extra,
+                                             cfg)
+        ev[2].record()
+        idro_backward(losses, batch["groups"], state.extra.h_fun, gc)
+        ev[3].record()
+        apply_gradients(state, cfg.max_grad_norm)
+        state.extra = dstate
+        ev[4].record()
+        ev[4].synchronize()
+        card.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+    return [statistics.median(c[i] for c in card) for i in range(4)]
+
+
+def idro_compare_step(model, batch, dstate, cfg):
+    """One iDRO step, dropout off, up to the clipped gradients -> (robust
+    loss, {name: gradient}, the updated h_fun, the group pass's Gram matrix
+    normalised: the cosines of the groups' gradients)."""
+    from cocodr_tpu_torch.pipelines import train_step as ts
+
+    seen, group_gram = {}, ts.group_gram
+
+    def recorded(*a):
+        seen["gram"] = group_gram(*a)
+        return seen["gram"]
+
+    ts.group_gram = recorded
+    try:
+        losses, _ = ts.triplet_losses(model, batch)
+        robust, new, (_, gc) = ts.idro_group_pass(
+            model, losses, batch["groups"], dstate, cfg)
+    finally:
+        ts.group_gram = group_gram
+    ts.idro_backward(losses, batch["groups"], dstate.h_fun, gc)
+    ts.clip_by_global_norm_(model.parameters(), 1.0)
+    m = seen["gram"].detach().double().cpu()
+    norms = m.diagonal().clamp_min(0.0).sqrt()
+    return (robust.item(), {k: p.grad.detach().double().cpu()
+                            for k, p in model.named_parameters()},
+            new.h_fun.detach().double().cpu(),
+            m / (norms[:, None] * norms[None, :]))
+
+
+def compare_dro_state(cfg, seed):
+    """A DroState from the seed (CPU) whose weights differ by up to 10x, so
+    that the pre- and post-update weights (h^0.1 flattens them) give
+    different training gradients."""
+    from cocodr_tpu_torch.losses.dro import DroState
+
+    rng = np.random.default_rng(seed)
+    h = rng.uniform(0.1, 1.0, cfg.n_groups)
+    return DroState(torch.tensor(h / h.sum(), dtype=torch.float32),
+                    torch.tensor(rng.uniform(0.2, 2.0, cfg.n_groups),
+                                 dtype=torch.float32),
+                    torch.ones(cfg.n_groups))
+
+
+WRONG_GROUP_PASSES = ("every layer", "other groups' rows")
+
+
+def wrong_group_pass(fault):
+    """Plant a wrong group pass in pipelines/train_step.py: over every
+    layer in place of the last K, or with each group's row taken from the
+    next group's samples -> a function that removes it."""
+    from cocodr_tpu_torch.pipelines import train_step as ts
+
+    if fault == "every layer":
+        name, real = "last_k_layers", ts.last_k_layers
+
+        def wrong(model, k):
+            return real(model, len(model.encoder.encoder.layer))
+    else:
+        name, real = "per_group_grads", ts.per_group_grads
+
+        def wrong(losses, params, groups, n, **kw):
+            return real(losses, params, (groups + 1) % n, n, **kw)
+    setattr(ts, name, wrong)
+    return lambda: setattr(ts, name, real)
+
+
+def h_fun_log_err(h_a, h_b):
+    return (h_a.double().log() - h_b.double().log()).abs().max().item()
+
+
+def idro_compare(args, dev, stage, bert, data):
+    """One iDRO step at CMP_BATCH, G = IDRO_CMP_GROUPS, dropout off, on the
+    card (K1, K8, bf16) and on the CPU (their plain versions, float32) from
+    the same weights and DroState: loss, clipped gradients and h_fun. The
+    bounds' calibration holds a bf16 step against a float32 one
+    (tests/test_torch_ance.py::test_idro_compare_bounds_*). A bf16 step on
+    the CPU is a second rounding: at BERT-base on the H100 the card stood
+    closer to the float32 step (worst tensor cosine 0.918, h_fun 1.0e-4)
+    than the CPU's bf16 step did (0.918 and 9.7e-4; card against it 0.880,
+    8.8e-4)."""
+    from cocodr_tpu_torch.losses.dro import DroState
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+
+    dro = dataclasses.replace(stage.dro, n_groups=IDRO_CMP_GROUPS)
+    cfg = dataclasses.replace(ance_step_config(stage, "idro"), dro=dro)
+    model = build_dual_encoder(stage.model_type, bert, device=dev,
+                               generator=torch.Generator().manual_seed(
+                                   args.seed + 8))
+    cpu_model = build_dual_encoder(
+        stage.model_type, dataclasses.replace(bert, dtype=torch.float32),
+        device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    batch = ance_batch(data, CMP_BATCH, "cpu", IDRO_CMP_GROUPS)
+    dstate = compare_dro_state(dro, args.seed)
+
+    def step(m):
+        d = next(m.parameters()).device
+        return idro_compare_step(
+            m, {k: v.to(d) for k, v in batch.items()},
+            DroState(*(x.to(d) for x in (dstate.h_fun, dstate.sum_losses,
+                                         dstate.count_cat))), cfg)
+
+    out = {}
+    zero_counts()
+    for name, m in (("card", model), ("cpu", cpu_model)):
+        t = time.perf_counter()
+        out[name] = step(m)
+        phase(f"  ance compare: {name} iDRO step "
+              f"{time.perf_counter() - t:.2f} s, loss {out[name][0]:.6f}")
+        if name == "card":
+            counts = read_counts("ance compare (card)",
+                                 ["K1_ffn_block", "K8_attention"])
+            check_counts("ance compare (card)", counts, {
+                "K1_ffn_block": 3 * bert.num_hidden_layers,
+                "K8_attention": 3 * bert.num_hidden_layers})
+    (la, ga, ha, ca), (lb, gb, hb, cb) = out["card"], out["cpu"]
+    rel, glob, worst, cos = step_agreement(la, ga, lb, gb)
+    herr = h_fun_log_err(ha, hb)
+    cerr = (ca - cb).abs().max().item()
+    # the same card step with each wrong group pass planted: the cosine
+    # bound must reject both at this scale
+    faults = {}
+    for fault in WRONG_GROUP_PASSES:
+        model.zero_grad(set_to_none=True)
+        remove = wrong_group_pass(fault)
+        try:
+            faults[fault] = (step(model)[3] - cb).abs().max().item()
+        finally:
+            remove()
+    off_diag = (cb - torch.eye(IDRO_CMP_GROUPS, dtype=cb.dtype)).abs().max()
+    phase(f"  ance compare card vs CPU float32 (iDRO, batch {CMP_BATCH}, G "
+          f"{IDRO_CMP_GROUPS}, dropout off): loss {la:.6f} vs {lb:.6f} (rel "
+          f"{rel:.2e}, bound {CMP_LOSS_RTOL}); clipped-gradient cosine "
+          f"{glob:.6f} (bound {CMP_GLOBAL_COSINE}); worst tensor {worst} "
+          f"{cos:.6f} (bound {CMP_TENSOR_COSINE}); h_fun max |log diff| "
+          f"{herr:.2e} (bound {IDRO_H_LOG_TOL}); group-gradient cosines max "
+          f"|diff| {cerr:.2e} (bound {IDRO_COSINE_TOL}; the CPU's largest "
+          f"{off_diag.item():.2e}; wrong group passes planted on the card: "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in faults.items())}); h_fun "
+          f"card {[round(x, 6) for x in ha.tolist()]}")
+    if not (steps_agree(rel, glob, cos) and herr <= IDRO_H_LOG_TOL
+            and cerr <= IDRO_COSINE_TOL):
+        raise AssertionError("card and CPU iDRO steps disagree")
+    if not all(v > IDRO_COSINE_TOL for v in faults.values()):
+        raise AssertionError(f"the cosine bound lets a wrong group pass "
+                             f"through: {faults}")
+
+
+def ance_train(args, dev):
+    """The ance-train phase; each run's launches are checked and printed
+    here."""
+    from cocodr_tpu_torch.core.configs import AnceStageConfig
+    from cocodr_tpu_torch.losses.dro import dro_state_summary
+
+    stage = AnceStageConfig.base()
+    bert = dataclasses.replace(stage.bert, dtype=torch.bfloat16)
+    layers = bert.num_hidden_layers
+    B = stage.per_device_batch
+    with tempfile.TemporaryDirectory() as root:
+        data = write_ance_data(args, root)
+        state = ance_state(args, dev, stage, bert)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        rec = ance_run(args, state, stage, "idro", data, IDRO_STEPS,
+                       args.seed, dropout=True)
+        counts = read_counts("ance idro (dropout)", ["K5_ffn"])
+        check_counts("ance idro (dropout)", counts,
+                     {"K5_ffn": 3 * layers * IDRO_STEPS})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = check_steps("ance idro", rec, 1, IDRO_STEPS,
+                             {"K5_ffn": 3 * layers})
+        ends = [t for _, _, t in rec.records]
+        tps = B * (len(ends) - 1) / (ends[-1] - ends[0])
+        zero_counts()
+        rec2 = ance_run(args, state, stage, "dro-greedy", data, GREEDY_STEPS,
+                        args.seed + 1, dropout=True)
+        counts2 = read_counts("ance dro-greedy (dropout)", ["K5_ffn"])
+        check_counts("ance dro-greedy (dropout)", counts2,
+                     {"K5_ffn": 3 * layers * GREEDY_STEPS})
+        losses += check_steps("ance dro-greedy", rec2, IDRO_STEPS + 1,
+                              IDRO_STEPS + GREEDY_STEPS,
+                              {"K5_ffn": 3 * layers})
+        ends = [t for _, _, t in rec2.records]
+        g_tps = B * (len(ends) - 1) / (ends[-1] - ends[0])
+        batch = ance_batch(data, B, dev, stage.dro.n_groups)
+        torch.cuda.reset_peak_memory_stats()
+        fwd, group, bwd, opt = idro_phases(state, stage, batch, args.seed,
+                                           dev)
+        all_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        summary = dro_state_summary(state.extra)
+        card = nvidia_smi()
+        phase(f"  ance idro (G {stage.dro.n_groups}, K "
+              f"{stage.idro_last_k_layers}, dropout 0.1, batch {B}, q 64 / "
+              f"d 128): {tps:.1f} triplets/s (host clock, steps 2-"
+              f"{IDRO_STEPS}); dro-greedy {g_tps:.1f} triplets/s; iDRO card "
+              f"ms per step with all {stage.dro.n_groups} groups in the "
+              f"batch: forward {fwd:.3f}, group pass {group:.3f}, "
+              f"training backward {bwd:.3f}, optimizer {opt:.3f}; peak "
+              f"memory {peak:.2f} GiB in the iDRO run, {all_peak:.2f} GiB in "
+              f"the steps with all groups; losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)} [{card}]")
+        phase("  ance dro_state_summary: " + json.dumps(
+            {k: v for k, v in summary.items() if not isinstance(v, list)}))
+        if not all(math.isfinite(x) for x in summary["dro_h_fun"]):
+            raise AssertionError("ance: non-finite h_fun")
+        del state
+        torch.cuda.empty_cache()
+
+        # no dropout, fused attention: K1 and K8 on every layer
+        fused = dataclasses.replace(bert, attention_impl="fused")
+        state = ance_state(args, dev, stage, fused)
+        zero_counts()
+        rec3 = ance_run(args, state, stage, "idro", data, ANCE_NODROP_STEPS,
+                        args.seed + 2, dropout=False)
+        counts3 = read_counts("ance idro (no dropout, fused attention)",
+                              ["K1_ffn_block", "K8_attention"])
+        per = {"K1_ffn_block": 3 * layers, "K8_attention": 3 * layers}
+        check_counts("ance idro (no dropout, fused attention)", counts3,
+                     {k: v * ANCE_NODROP_STEPS for k, v in per.items()})
+        nd = check_steps("ance idro (no dropout)", rec3, 1,
+                         ANCE_NODROP_STEPS, per)
+        phase(f"  ance idro (no dropout, fused attention): losses "
+              f"{', '.join(f'{x:.4f}' for x in nd)}")
+        del state
+        torch.cuda.empty_cache()
+        idro_compare(args, dev, stage, fused, data)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2041,6 +2747,14 @@ def main() -> None:
 
     phase("train")
     train_counts = train(args, dev, k5["ms"])
+    torch.cuda.empty_cache()
+
+    phase("eval")
+    evaluate(args, dev)
+    torch.cuda.empty_cache()
+
+    phase("ance-train")
+    ance_train(args, dev)
 
     # each kernel's numbers at the shape of the path that launches it, and
     # its launches on that path: (path's counts, the wrapper's counter)

@@ -20,6 +20,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from cocodr_tpu_torch.losses.dro import DroState
 from cocodr_tpu_torch.models.bert import BertConfig
 from cocodr_tpu_torch.models.dual_encoder import DualEncoderConfig
 
@@ -107,7 +108,8 @@ def load_jax_train_state(state, jax_state, cfg: DualEncoderConfig):
     (ScaleByLambState(mu, nu), ScaleByScheduleState(count)). mu and nu have
     the params' tree, so the params' mapping splits their [L, ...] leaves
     per layer too; they become the Lamb optimizer's exp_avg and exp_avg_sq,
-    and count its schedule count."""
+    and count its schedule count. jax_state.extra, a DroState of the DRO
+    kinds, becomes the port's losses.dro.DroState (None stays None)."""
     model, opt = state.model, state.optimizer
     dev = next(model.parameters()).device
     model.load_state_dict(params_from_jax(jax_state.params, cfg))
@@ -120,4 +122,9 @@ def load_jax_train_state(state, jax_state, cfg: DualEncoderConfig):
     for group in opt.param_groups:
         group["count"] = int(np.asarray(sched_state.count))
     state.step = int(np.asarray(jax_state.step))
+    extra = getattr(jax_state, "extra", None)
+    state.extra = None if extra is None else DroState(**{
+        name: torch.from_numpy(np.array(getattr(extra, name),
+                                        dtype=np.float32)).to(dev)
+        for name in ("h_fun", "sum_losses", "count_cat")})
     return state

@@ -16,6 +16,7 @@ Queue 1 item 3), and a mesh with sharding (item 11).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable, Optional
 
@@ -39,12 +40,17 @@ class EncodeConfig:
 class Encoder:
     """The embedding function of one tower on one device.
 
-    The model is moved to `device` and put in eval mode, and its matmul
-    weights are held in the compute dtype (`cast_matmul_weights`, which
-    keeps a matmul_int8 model's FFN weights float32). noise_level > 0 adds
-    the reference's Gaussian embedding perturbation, drawn fresh for every
-    batch from one generator seeded `noise_seed` (the JAX package folds
-    the batch number into one key)."""
+    Encodes from a copy of the model made once here: on `device`, in eval
+    mode, without gradients, its matmul weights held in the compute dtype
+    (`cast_matmul_weights`, which keeps a matmul_int8 model's FFN weights
+    float32). An eval of a model under training leaves its float32
+    parameters, their requires_grad and its train/eval mode untouched
+    (`Module.to(dtype)` on the model itself would cast the Parameters an
+    optimizer holds); weights the caller changes later are not seen, so
+    build a new Encoder. noise_level > 0 adds the reference's Gaussian
+    embedding perturbation, drawn fresh for every batch from one
+    generator seeded `noise_seed` (the JAX package folds the batch number
+    into one key)."""
 
     def __init__(self, model, mesh=None, is_query: bool = False,
                  noise_level: float = 0.0, noise_seed: int = 0,
@@ -55,7 +61,11 @@ class Encoder:
                 "item 11 (parallel/*)"
             )
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        self.model = copy.deepcopy(model)
+        for p in self.model.parameters():
+            p.grad = None
+        self.model.requires_grad_(False)
+        self.model.to(self.device).eval()
         cast_matmul_weights(self.model, model.cfg.bert.dtype)
         self._method = (self.model.query_emb if is_query
                         else self.model.body_emb)

@@ -1,8 +1,30 @@
 """The training step of the dual-encoder stages: the counterpart of
-cocodr_tpu/pipelines/train_step.py for loss_kind="nll" (the BM25 warmup):
-three tower forwards (query, positive, negative), the triplet 2-way NLL
-with optional per-sample weights, the backward, clipping by global norm
-with optax's rule, and one optimizer update.
+cocodr_tpu/pipelines/train_step.py for the loss kinds
+
+- 'nll': the triplet 2-way NLL with optional per-sample weights (the BM25
+  warmup);
+- 'dro-greedy': the DRO-greedy robust loss over query groups, the
+  per-sample weights applied inside it;
+- 'idro': iDRO, whose per-group gradients over the last K encoder layers
+  feed the multiplicative weight update (reference
+  ANCE/model/dro_loss.py:174-254); the weights are ignored, as in the JAX
+  step.
+
+A step runs three tower forwards (query, positive, negative), the loss,
+the backward, clipping by global norm with optax's rule, and one optimizer
+update. The DRO kinds read and replace `state.extra`, a losses.dro.DroState.
+
+The iDRO group pass takes the reference's route rather than the JAX
+package's per-sample Gram (`vmap` cannot batch through the kernels'
+torch.autograd.Functions): G vector-Jacobian products of the per-sample
+losses on the step's own graph, one per group present in the batch, each
+restricted to the last K layers' parameters (`losses/dro.py::
+per_group_grads`); then one backward with the robust loss's cotangent
+h_pre[g_i] / count[g_i] (the PRE-update weights) for the training
+gradient. With dropout off this equals the JAX Gram path up to float
+rounding. With dropout on, the products reuse the forward's masks, as the
+reference does, where the JAX package re-runs the top K layers with fresh
+masks; either way the group gradients feed an EMA'd weight update.
 
 Dropout: a step takes three torch.Generators, one per tower, as the JAX
 step folds the tower index 0/1/2 into its key, so the positive and
@@ -10,8 +32,10 @@ negative towers draw independent masks; `dropout_generators` seeds them
 from (seed, step, tower). Without generators the model runs in eval mode
 (the JAX step's deterministic=True) and draws nothing.
 
-The other loss kinds raise NotImplementedError: DRO-greedy and iDRO come
-with ROADMAP.md Queue 1 item 9, multi-chunk documents with item 3.
+Every loss kind reaches every parameter of the dual encoder, so the
+port's Lamb, which skips a None gradient where optax would decay the
+moments, updates every parameter as optax does. Multi-chunk documents
+('nll_multichunk') raise NotImplementedError: ROADMAP.md Queue 1 item 3.
 """
 from __future__ import annotations
 
@@ -21,20 +45,35 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from cocodr_tpu_torch.losses.dro import (
+    DroConfig,
+    dro_greedy_loss,
+    gram,
+    idro_loss,
+    per_group_grads,
+)
 from cocodr_tpu_torch.losses.nll import triplet_nll
 from cocodr_tpu_torch.utils.train_state import TrainState
 
-_LATER = {
-    "dro-greedy": "ROADMAP.md Queue 1 item 9 (ANCE + iDRO)",
-    "idro": "ROADMAP.md Queue 1 item 9 (ANCE + iDRO)",
-    "nll_multichunk": "ROADMAP.md Queue 1 item 3 (multi-chunk models)",
-}
+DRO_KINDS = ("dro-greedy", "idro")
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainStepConfig:
-    loss_kind: str = "nll"
+    loss_kind: str = "nll"  # 'nll' | 'dro-greedy' | 'idro'
+    dro: Optional[DroConfig] = None
     max_grad_norm: float = 1.0  # 0 disables clipping
+    # base: last 3; large: last 2 (reference dro_loss.py:179-183); clamped
+    # to the model's depth
+    idro_last_k_layers: int = 3
+    # the JAX package's lane group pass: the per-group rows are stored in
+    # idro_lane_grad_dtype and idro_loss reads the rows; off: float32 rows
+    # and their Gram matrix, the JAX default's numerics
+    idro_lane_group_pass: bool = False
+    # accepted so that a JAX config's fields carry over; it has no effect
+    # here, where each group's row is written as soon as its product returns
+    idro_lane_chunk: int = 8
+    idro_lane_grad_dtype: str = "bfloat16"
 
 
 def dropout_generators(seed: int, step: int, device) -> tuple:
@@ -59,6 +98,13 @@ def embed_triplet(model, batch, generators: Optional[Sequence] = None):
     a = model.body_emb(batch["pos_ids"], batch["pos_mask"], generator=g[1])
     b = model.body_emb(batch["neg_ids"], batch["neg_mask"], generator=g[2])
     return q, a, b
+
+
+def triplet_losses(model, batch, generators=None):
+    """-> (per-sample NLL [B], mean accuracy), unweighted."""
+    q, a, b = embed_triplet(model, batch, generators)
+    losses, acc, _ = triplet_nll(q, a, b)
+    return losses, acc.mean()
 
 
 def nll_loss(model, batch, generators=None):
@@ -97,25 +143,104 @@ def apply_gradients(state: TrainState, max_grad_norm: float) -> None:
     state.step += 1
 
 
+def last_k_layers(model, k: int) -> list:
+    """The parameters of the encoder's last min(k, depth) layers: a model
+    no deeper than k gives every layer, as the reference's last-k
+    selection degenerates to the whole stack (the JAX package clamps K to
+    the depth the same way)."""
+    if k <= 0:
+        raise ValueError("idro needs idro_last_k_layers > 0")
+    return [p for layer in model.encoder.encoder.layer[-k:]
+            for p in layer.parameters()]
+
+
+def group_gram(model, losses, groups, cfg: TrainStepConfig):
+    """The [G, G] float32 Gram matrix of the group rows: one product per
+    group present against the last K layers' parameters, in float32."""
+    params = last_k_layers(model, cfg.idro_last_k_layers)
+    return gram(per_group_grads(losses, params, groups, cfg.dro.n_groups))
+
+
+def idro_group_pass(model, losses, groups, dstate, cfg: TrainStepConfig):
+    """The iDRO weight update from the per-sample losses' graph ->
+    (robust loss, new DroState, (group_losses, group_counts)):
+    losses/dro.py::idro_loss on the float32 rows' Gram matrix, or on the
+    rows themselves in idro_lane_grad_dtype for the lane config."""
+    if cfg.idro_lane_group_pass:
+        rows = per_group_grads(
+            losses, last_k_layers(model, cfg.idro_last_k_layers), groups,
+            cfg.dro.n_groups,
+            store_dtype=getattr(torch, cfg.idro_lane_grad_dtype))
+        return idro_loss(losses.detach(), groups, dstate, cfg.dro,
+                         group_grads=rows)
+    return idro_loss(losses.detach(), groups, dstate, cfg.dro,
+                     group_gram=group_gram(model, losses, groups, cfg))
+
+
+def idro_backward(losses, groups, h_pre, group_counts) -> None:
+    """The training gradient of the iDRO robust loss sum_g gl_g h_pre[g]:
+    one backward of the per-sample losses with the cotangent
+    h_pre[g_i] / count[g_i], the pre-update weights."""
+    g = torch.as_tensor(groups, device=losses.device).long()
+    ct = h_pre[g] / group_counts.clamp_min(1.0)[g]
+    losses.backward(ct.to(losses.dtype))
+
+
 def build_train_step(cfg: TrainStepConfig = TrainStepConfig()) -> Callable:
-    """-> train_step(state, batch, generators=None) -> (loss, acc), 0-dim
-    tensors on the model's device; the state is updated in place.
+    """-> train_step(state, batch, generators=None); the state is updated in
+    place. 'nll' returns (loss, acc), 0-dim tensors on the model's device;
+    the DRO kinds return the JAX step's metrics dict: loss, acc,
+    group_losses [G] and group_counts [G].
 
     batch: q_ids/q_mask/pos_ids/pos_mask/neg_ids/neg_mask [B, S] tensors on
-    the model's device, optional weights [B]."""
-    if cfg.loss_kind in _LATER:
+    the model's device (queries and documents may differ in S), optional
+    weights [B], and for the DRO kinds groups [B] (ints < n_groups)."""
+    if cfg.loss_kind == "nll_multichunk":
         raise NotImplementedError(
-            f"loss_kind {cfg.loss_kind!r} is not ported yet: "
-            f"{_LATER[cfg.loss_kind]}"
+            "loss_kind 'nll_multichunk' is not ported yet: ROADMAP.md "
+            "Queue 1 item 3 (multi-chunk models)"
         )
-    if cfg.loss_kind != "nll":
+    if cfg.loss_kind == "nll":
+        def train_step(state: TrainState, batch, generators=None):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss, acc = nll_loss(state.model, batch, generators)
+            loss.backward()
+            apply_gradients(state, cfg.max_grad_norm)
+            return loss.detach(), acc
+
+        return train_step
+    if cfg.loss_kind not in DRO_KINDS:
         raise ValueError(cfg.loss_kind)
+    if cfg.dro is None:
+        raise ValueError(f"loss_kind {cfg.loss_kind!r} needs "
+                         "TrainStepConfig.dro (a losses.dro.DroConfig)")
+
+    def metrics(loss, acc, gl, gc):
+        return {"loss": loss.detach(), "acc": acc, "group_losses": gl,
+                "group_counts": gc}
+
+    if cfg.loss_kind == "dro-greedy":
+        def train_step(state: TrainState, batch, generators=None):
+            state.optimizer.zero_grad(set_to_none=True)
+            losses, acc = triplet_losses(state.model, batch, generators)
+            robust, dstate, (gl, gc) = dro_greedy_loss(
+                losses, batch["groups"], state.extra, cfg.dro,
+                weights=batch.get("weights"))
+            robust.backward()
+            apply_gradients(state, cfg.max_grad_norm)
+            state.extra = dstate
+            return metrics(robust, acc, gl, gc)
+
+        return train_step
 
     def train_step(state: TrainState, batch, generators=None):
         state.optimizer.zero_grad(set_to_none=True)
-        loss, acc = nll_loss(state.model, batch, generators)
-        loss.backward()
+        losses, acc = triplet_losses(state.model, batch, generators)
+        robust, dstate, (gl, gc) = idro_group_pass(
+            state.model, losses, batch["groups"], state.extra, cfg)
+        idro_backward(losses, batch["groups"], state.extra.h_fun, gc)
         apply_gradients(state, cfg.max_grad_norm)
-        return loss.detach(), acc
+        state.extra = dstate
+        return metrics(robust, acc, gl, gc)
 
     return train_step

@@ -37,11 +37,19 @@ MODULES = [
     "cocodr_tpu_torch.pipelines.serve",
     "cocodr_tpu_torch.pipelines.train_step",
     "cocodr_tpu_torch.pipelines.warmup",
+    "cocodr_tpu_torch.pipelines.eval_beir",
+    "cocodr_tpu_torch.pipelines.ance",
+    "cocodr_tpu_torch.evals",
+    "cocodr_tpu_torch.evals.metrics",
+    "cocodr_tpu_torch.evals.msmarco",
+    "cocodr_tpu_torch.evals.mrr_eval",
     "cocodr_tpu_torch.data",
     "cocodr_tpu_torch.data.prefetch",
+    "cocodr_tpu_torch.data.preprocess",
     "cocodr_tpu_torch.data.records",
     "cocodr_tpu_torch.data.streams",
     "cocodr_tpu_torch.losses",
+    "cocodr_tpu_torch.losses.dro",
     "cocodr_tpu_torch.losses.nll",
     "cocodr_tpu_torch.optim",
     "cocodr_tpu_torch.optim.lamb",
@@ -104,6 +112,36 @@ def test_no_cpu_fallback_without_cuda(monkeypatch):
         RetrievalService(model, lambda *a, **k: None,
                          np.zeros((4, 768), np.float32))
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_eval_and_dro_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The eval and DRO entry points of the ninth slice: without a card,
+    called without device='cpu', they raise before any work."""
+    from cocodr_tpu_torch.data.records import RecordWriter, TokenCache
+    from cocodr_tpu_torch.evals.mrr_eval import combined_mrr, full_ranking_mrr
+    from cocodr_tpu_torch.losses.dro import DroConfig, dro_greedy_init
+    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.models.dual_encoder import DualEncoder, MODEL_REGISTRY
+    from cocodr_tpu_torch.pipelines.eval_beir import (
+        BeirEvalConfig,
+        evaluate_beir_task,
+    )
+
+    path = str(tmp_path / "r")
+    with RecordWriter(path, 8) as w:
+        w.write([2, 5, 3])
+    cache = TokenCache(path)
+    model = DualEncoder(MODEL_REGISTRY["rdot_nll"](BertConfig.tiny()))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_beir_task(model, path, path, {"d": 0}, {"q": 0},
+                           {"q": {"d": 1}}, BeirEvalConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        full_ranking_mrr(model, cache, cache, {0: [0]})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        combined_mrr(model, cache, cache, {0: [0]})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dro_greedy_init(DroConfig())
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result(tmp_path):

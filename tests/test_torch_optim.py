@@ -232,26 +232,42 @@ def test_triplet_nll_with_weights_matches_jax():
 
 
 def test_optimizer_config_builds_lamb_and_names_what_waits():
-    """lamb with the linear and cosine schedules; adamw, the episode
-    schedules and gradient accumulation raise with their ROADMAP item."""
+    """lamb with the linear, cosine and ANCE episode schedules (each equal
+    to the JAX OptimizerConfig's schedule, lr_floor and episode_steps
+    passed through); adamw and gradient accumulation raise with their
+    ROADMAP item, episode-rewarmup without episode_steps with the JAX
+    config's complaint."""
     p = [torch.nn.Parameter(torch.zeros(2))]
-    for sched, jfn in (("linear", jax_sched.warmup_linear),
-                       ("cosine", jax_sched.warmup_cosine)):
+    for kw in (dict(schedule="linear"), dict(schedule="cosine"),
+               dict(schedule="episode-decay", lr_floor=0.3),
+               dict(schedule="episode-decay", episode_steps=4),
+               dict(schedule="episode-rewarmup", episode_steps=5)):
         cfg = configs.OptimizerConfig(lr=2e-4, warmup_steps=3,
-                                      total_steps=9, schedule=sched)
+                                      total_steps=14, **kw)
         opt = cfg.build(p)
         assert isinstance(opt, Lamb)
-        want = jfn(2e-4, 3, 9)
-        for step in range(10):
-            np.testing.assert_allclose(opt.schedule(step), float(want(step)),
+        jax_configs.OptimizerConfig(lr=2e-4, warmup_steps=3,
+                                    total_steps=14, **kw).build()
+        # the schedule the JAX build makes of the same fields
+        fn = {"linear": jax_sched.warmup_linear,
+              "cosine": jax_sched.warmup_cosine}.get(kw["schedule"])
+        if fn is not None:
+            ref = fn(2e-4, 3, 14)
+        elif kw["schedule"] == "episode-decay":
+            ref = jax_sched.episode_decay(
+                2e-4, 3, 14, floor=kw.get("lr_floor", 0.2),
+                episode_steps=kw.get("episode_steps", 0))
+        else:
+            ref = jax_sched.episode_rewarmup(2e-4, 3, 5, 14, floor=0.2)
+        for step in range(15):
+            np.testing.assert_allclose(opt.schedule(step), float(ref(step)),
                                        rtol=2e-7, atol=2e-4 * 2.0 ** -23)
     for kw, item in ((dict(name="adamw"), "item 13"),
-                     (dict(grad_accum_steps=2), "item 13"),
-                     (dict(schedule="episode-decay"), "item 9"),
-                     (dict(schedule="episode-rewarmup", episode_steps=5),
-                      "item 9")):
+                     (dict(grad_accum_steps=2), "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             configs.OptimizerConfig(**kw).build(p)
+    with pytest.raises(ValueError, match="episode_steps"):
+        configs.OptimizerConfig(schedule="episode-rewarmup").build(p)
 
 
 @pytest.mark.parametrize("preset", ["base", "large"])

@@ -123,8 +123,19 @@ def test_trajectory_matches_jax_train_step(model_type):
                                        ("idro", "item 9"),
                                        ("nll_multichunk", "item 3")])
 def test_other_loss_kinds_name_their_roadmap_item(kind, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """nll_multichunk raises, naming its ROADMAP item; the DRO kinds came
+    with item 9 and now build, given a DroConfig (their steps are held
+    against the JAX package in tests/test_torch_ance.py)."""
+    if item == "item 3":
+        with pytest.raises(NotImplementedError, match=item):
+            build_train_step(TrainStepConfig(loss_kind=kind))
+        return
+    from cocodr_tpu_torch.losses.dro import DroConfig
+
+    with pytest.raises(ValueError, match="TrainStepConfig.dro"):
         build_train_step(TrainStepConfig(loss_kind=kind))
+    assert callable(build_train_step(TrainStepConfig(
+        loss_kind=kind, dro=DroConfig(n_groups=4))))
 
 
 def test_bf16_step_runs_and_keeps_float32_params():
