@@ -97,9 +97,33 @@ Phases, each printed with its elapsed seconds:
      at batch 8, G 4, dropout off, on the card and on the CPU in float32
      from the same weights and DroState, held together by the loss, the
      clipped gradients' cosines, h_fun and the cosines between the groups'
-     gradients that the group pass forms.
+     gradients that the group pass forms;
+ 10. ance-mine: hard-negative mining with AnceStageConfig.base()'s model
+     (bf16 compute, random weights from the seed, eval batch 512, top 200
+     candidates, 30 negatives in 5 splits, k-means into 50 groups, 500
+     steps x 5 restarts): (a) two ance_rounds over 32,768 passages
+     (16-128 tokens) and 8,192 train and 1,024 dev queries (4-23 tokens,
+     one positive each in offset-space qrels), each mining then taking 3
+     iDRO steps (G 50, K 3, dropout 0.1); round 1 must mine with the
+     weights after round 0's steps; (b) the async pair over those records:
+     mine_loop from checkpoint-0, train_loop for 2 nll steps (dropout), a
+     second mine_loop that must mine from checkpoint-2, whose weights the
+     loader must return equal to the state's; (c) mine() over MS MARCO's
+     8,841,823 passages (row-normalised random rows from the seed, a host
+     float32 array), 6,980 dev and 131,072 train queries: the corpus must
+     reach the card once as one bf16 tensor padded to 8,843,264 rows
+     (memory_allocated grows by it within 64 MiB), both searches must get
+     that tensor with n_real 8,841,823, and the peak over mine() less the
+     corpus must stay within 4 GiB of one lone search_topk of a query
+     chunk. In every leg: each ann file parses, with 6 distinct negatives a
+     line that are real rows and not the positive, groups in [0, 50); the
+     train search's ids equal an exact plain search up to near-ties; the
+     card's k-means walks step by step against the CPU's plain float32
+     step (kmeans_walk); mine()'s time_* breakdown, docs/s of the corpus
+     encode, q/s of the train search at 8.8M docs and the peak memory.
 Every path (the search phase, each serve mode, each encode configuration,
-each training run, each eval task, combined_mrr) runs with every kernel's launch count set to 0 just
+each training run, each eval task, combined_mrr, each mining round) runs
+with every kernel's launch count set to 0 just
 before it and read just after, and fails if a kernel of the path never
 launched or a count differs from the path's own. Then one JSON line of per-kernel numbers,
 the card's name and power limit, and as the last line
@@ -117,6 +141,7 @@ import copy  # noqa: E402
 import dataclasses  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
+import shutil  # noqa: E402
 import json  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
@@ -2687,6 +2712,531 @@ def ance_train(args, dev):
         idro_compare(args, dev, stage, fused, data)
 
 
+# --- ance-mine: ANCE hard-negative mining -------------------------------
+
+# The card's k-means against the plain float32 version on the CPU, step by
+# step from the card's own centroids (`kmeans_walk`): over ~8k crowded
+# query embeddings of a random tower, two float32 runs from one init part
+# within 20 steps (another summation order flips a point near a boundary,
+# and the flip grows: 91-100% of labels and inertia 1e-7-6e-4 apart after
+# 100 steps, as far apart as a TF32 run or a wrong reseed rule), so each
+# step is held instead: the share of labels that differ, the inertia's
+# relative difference, and the updated centroids of every cluster whose
+# members agree. tests/test_torch_kmeans.py::test_kmeans_walk_bounds_*
+# calibrate them on LayerNorm-scaled data shaped like those embeddings
+# (2,048 points, 50 clusters, 25 steps, five copies in the init so that
+# reseeds run): products and sums of another float32 rounding read label
+# share, inertia and centroids up to 4.9e-4 (one point), 6.8e-7 and
+# 7.2e-7; TF32-rounded products 5.9e-3-9.8e-3 and 2.5e-4-2.9e-4; a
+# reseed from the nearest point, centroids 1.04-1.28. The card's walks
+# on the H100 (700 W) read up to 4.9e-4 (4 of 8,192 points), 1.0e-6 and
+# 1.8e-7, and with TF32 planted on the card ((b) leg, which fails unless
+# it reads above a bound) 1.0e-2 and 4.6e-4; the label bound sits near
+# the geometric mean of 4.9e-4 and 5.9e-3.
+KMEANS_FLIP_SHARE = 1.5e-3
+KMEANS_INERTIA_RTOL = 1e-5
+KMEANS_CENTROID_TOL = 1e-3
+
+
+def kmeans_walk(x, init, n_steps, card_assign, card_step):
+    """Step the k-means of x [N, D] from init on x's device with
+    card_assign / card_step (ops.kmeans's _assign and _lloyd_step) and, at
+    every step, the plain float32 step on the CPU from the same centroids
+    -> (final centroids, max label share that differs, max relative
+    inertia difference, max |centroid difference| over the clusters whose
+    members agree on both sides)."""
+    from cocodr_tpu_torch.ops import kmeans as km
+
+    xc = x.cpu()
+    c = init
+    flips = inertia = cerr = 0.0
+    for _ in range(n_steps):
+        ids, _ = card_assign(x, c)
+        nxt, card_inertia = card_step(x, c)
+        c_cpu = c.cpu()
+        ids_cpu, _ = km._assign(xc, c_cpu)
+        nxt_cpu, cpu_inertia = km._lloyd_step(xc, c_cpu)
+        ids = ids.cpu()
+        diff = ids != ids_cpu
+        flips = max(flips, diff.float().mean().item())
+        inertia = max(inertia, abs(card_inertia.item() - cpu_inertia.item())
+                      / cpu_inertia.item())
+        moved = torch.zeros(c.shape[0], dtype=torch.bool)
+        moved[ids[diff]] = True
+        moved[ids_cpu[diff]] = True
+        err = (nxt.cpu() - nxt_cpu).abs().amax(1)[~moved]
+        if len(err):
+            cerr = max(cerr, err.max().item())
+        c = nxt
+    return c, flips, inertia, cerr
+
+
+# (a) and (b): passages and queries of the ance-train phase's widths
+MINE_DOCS = 32_768  # passages of 16-128 tokens
+MINE_TRAIN_Q = 8_192  # train queries of 4-23 tokens
+MINE_DEV_Q = 1_024
+MINE_STEPS = 3  # training steps a round in (a)
+ASYNC_STEPS = 2  # train_loop's steps in (b)
+# (c): MS MARCO passage's corpus and dev queries; its 502,939 train
+# queries cut to 131,072 for the time limit
+MARCO_DOCS = 8_841_823
+MARCO_DEV_Q = 6_980
+MARCO_TRAIN_Q = 131_072
+MARCO_CHECK_Q = 1_024  # (c)'s train queries held against the exact search
+WALK_STEPS = {"a": 500, "b": 50, "c": 20}  # kmeans_walk's steps a leg
+PLACE_SLACK = 64 * 2 ** 20  # the placement's growth against its tensor
+PEAK_SLACK = 4 * 2 ** 30  # mine()'s peak against one lone search_topk
+
+
+def write_mine_data(args, root, name, n_docs, n_pos_docs, n_train, n_dev):
+    """Token records from the seed under root/name: n_docs passages of
+    16-128 tokens (width 128; none when 0) and n_train train and n_dev dev
+    queries of 4-23 tokens (width 64), each with one positive among
+    n_pos_docs in offset-space qrels (write_qrels); a query's tokens are
+    drawn from its positive's when its passage is written. -> (passage
+    cache or None, train query cache, dev query cache, train positives,
+    dev qrels)."""
+    from cocodr_tpu_torch.data.records import (
+        RecordWriter,
+        TokenCache,
+        load_qrels,
+        write_qrels,
+    )
+
+    rng = np.random.default_rng([args.seed, len(name)])
+    d = os.path.join(root, name)
+    os.makedirs(d)
+    docs = rng.integers(1000, 30522, (n_docs, 126))
+    lens = rng.integers(16, 129, n_docs)
+    pc = None
+    if n_docs:
+        with RecordWriter(os.path.join(d, "passages"), 128) as w:
+            for row, n in zip(docs, lens):
+                w.write([101] + row[:n - 2].tolist() + [102])
+        pc = TokenCache(os.path.join(d, "passages"))
+    out = []
+    for split, n in (("train", n_train), ("dev", n_dev)):
+        pos = rng.integers(0, n_pos_docs, n)
+        qlens = rng.integers(4, 24, n)
+        path = os.path.join(d, f"{split}-query")
+        with RecordWriter(path, 64) as w:
+            for p, n_tok in zip(pos, qlens):
+                src = docs[p, :lens[p] - 2] if n_docs else rng.integers(
+                    1000, 30522, n_tok)
+                w.write([101] + rng.choice(src, n_tok - 2).tolist() + [102])
+        write_qrels(path + ".qrels.tsv", [(q, int(p), 1)
+                                          for q, p in enumerate(pos)])
+        out.append((TokenCache(path), load_qrels(path + ".qrels.tsv")))
+    (tq, train_qrels), (dq, dev_qrels) = out
+    positives = {q: next(iter(rels)) for q, rels in train_qrels.items()}
+    return pc, tq, dq, positives, dev_qrels
+
+
+class MineRecorder:
+    """Wraps pipelines/ance.py's place_corpus, search_topk, kmeans and mine
+    while in a `with` block: each records what it was given and what it
+    returned, and calls through (the placement also the growth of
+    torch.cuda.memory_allocated(), a search the query chunk its kernel
+    search takes)."""
+
+    NAMES = ("place_corpus", "search_topk", "kmeans", "mine")
+
+    def __init__(self):
+        from cocodr_tpu_torch.pipelines import ance
+
+        self.ance = ance
+        self.real = {n: getattr(ance, n) for n in self.NAMES}
+        self.reset()
+
+    def reset(self):
+        self.placed, self.searches, self.clusters, self.mined = [], [], [], []
+
+    def place_corpus(self, *a, **kw):
+        before = torch.cuda.memory_allocated()
+        out = self.real["place_corpus"](*a, **kw)
+        self.placed.append((out, torch.cuda.memory_allocated() - before))
+        return out
+
+    def search_topk(self, queries, corpus, k, **kw):
+        from cocodr_tpu_torch.ops.mips import clamp_q_chunk
+
+        q_chunk = kw["q_chunk"]
+        if corpus.device.type == "cuda":  # the kernel search clamps there
+            q_chunk = clamp_q_chunk(q_chunk, corpus.shape[0],
+                                    corpus.shape[1], device=corpus.device)
+        vals, ids = self.real["search_topk"](queries, corpus, k, **kw)
+        self.searches.append(dict(queries=queries, corpus=corpus, k=k,
+                                  n_real=kw["n_real"], q_chunk=q_chunk,
+                                  vals=vals, ids=ids))
+        return vals, ids
+
+    def kmeans(self, x, *a, **kw):
+        out = self.real["kmeans"](x, *a, **kw)
+        self.clusters.append((x, out))
+        return out
+
+    def mine(self, *a, **kw):
+        out = self.real["mine"](*a, **kw)
+        self.mined.append(out)
+        return out
+
+    def __enter__(self):
+        for n in self.NAMES:
+            setattr(self.ance, n, getattr(self, n))
+        return self
+
+    def __exit__(self, *exc):
+        for n in self.NAMES:
+            setattr(self.ance, n, self.real[n])
+        self.reset()
+
+
+def pallas_k3_launches(n_q, q_chunk, n_rows, d, n_real, k):
+    """K3's launches in one 'pallas' search_topk of n_q queries over a
+    corpus [n_rows, d] (n_real real), by ops/mips_hier.py's rules: per
+    query chunk, two selections when the super level runs (more coarse
+    blocks than 8 x k_sel), and one per rescore chunk."""
+    n = n_real or n_rows
+    k = min(k, n)
+    n_coarse = (n_rows + (-n_rows) % 2048) // 64
+    extra = 1 if n % 64 else 0
+    k_sel = min(k + extra, n_coarse)
+    sel = 2 if n_coarse > 8 * k_sel else 0
+    kf = min(k + extra, -(-n // 8))
+    total = 0
+    for s in range(0, n_q, q_chunk):
+        q = min(q_chunk, n_q - s)
+        chunk = max(128, min(q, (750 * 1024 * 1024) // (kf * 8 * d)))
+        total += sel + -(-q // chunk)
+    return total
+
+
+def mine_expected(rec, cfg, layers, encoded):
+    """One mine()'s launches from its recorded searches: K1 one per layer
+    and encoded batch (encoded: the record counts it encoded), K2 one per
+    query chunk, K3 by pallas_k3_launches."""
+    k1 = layers * sum(-(-n // cfg.batch_size) for n in encoded)
+    k2 = k3 = 0
+    for s in rec.searches:
+        n_q = len(s["queries"])
+        k2 += -(-n_q // s["q_chunk"])
+        k3 += pallas_k3_launches(n_q, s["q_chunk"], *s["corpus"].shape,
+                                 s["n_real"], s["k"])
+    return {"K1_ffn_block": k1, "K2_dual_sweep": k2, "K3_topk": k3}
+
+
+def check_ann_file(path, n_docs, positives, n_groups, per_line):
+    """Every line parses; its negatives are distinct real corpus rows, not
+    its positive, per_line of them; its group is in [0, n_groups) ->
+    lines."""
+    from cocodr_tpu_torch.data.streams import parse_ann_line
+
+    lines = 0
+    with open(path) as f:
+        for line in f:
+            qid, pos, negs, w, g = parse_ann_line(line)
+            if (pos != positives[qid] or len(negs) != per_line
+                    or len(set(negs)) != len(negs) or pos in negs
+                    or not all(0 <= p < n_docs for p in negs)
+                    or not 0 <= g < n_groups or w != 1.0):
+                raise AssertionError(f"{path}: bad line {line!r}")
+            lines += 1
+    if not lines:
+        raise AssertionError(f"{path}: empty")
+    return lines
+
+
+def check_train_search(name, search, n_docs, dev, rows=None, chunk=256):
+    """The train search's ids (its first `rows` queries) against an exact
+    plain search of the same embeddings over the placed rows, up to
+    near-ties within 1e-4 x max |score| (phase 8's rule) -> (max score
+    error, the tolerance, rows whose order differs)."""
+    corpus = search["corpus"][:n_docs]
+    q = torch.from_numpy(np.asarray(search["queries"][:rows])).to(dev)
+    vals, ids = search["vals"][:len(q)], search["ids"][:len(q)]
+    err = tol = 0.0
+    differ = 0
+    for s in range(0, len(q), chunk):
+        scores, ref_v, ref_i = exact_search(q[s:s + chunk], corpus,
+                                            search["k"])
+        t = 1e-4 * scores.abs().max().item()
+        err = max(err, check_results(vals[s:s + chunk], ids[s:s + chunk],
+                                     scores, ref_v, t))
+        tol = max(tol, t)
+        differ += int((ref_i.cpu().numpy() != ids[s:s + chunk]).any(1).sum())
+        del scores
+    phase(f"  ance-mine {name}: train search ids of {len(q)} queries equal "
+          f"the exact plain search up to near-ties (max score err "
+          f"{err:.3e}, tol {tol:.3e}; {differ} rows order near-ties "
+          f"otherwise)")
+
+
+def check_kmeans(name, rec, cfg, steps, dev, plant_tf32=False):
+    """kmeans_walk over the recorded train embeddings from restart 0's
+    initial centroids, the card against the plain float32 CPU step; the
+    walk is the card's _kmeans_single (bit-equal centroids). plant_tf32:
+    walk again with TF32 on for the card's products, which the label or
+    inertia bound must reject."""
+    from cocodr_tpu_torch.ops import kmeans as km
+
+    x = torch.as_tensor(rec.clusters[-1][0]).to(dev, torch.float32)
+    init = x[torch.from_numpy(km.init_indices(
+        len(x), cfg.cluster_centroids, cfg.seed)).to(dev)]
+    t = time.perf_counter()
+    c, flips, inertia, cerr = kmeans_walk(x, init, steps, km._assign,
+                                          km._lloyd_step)
+    walk_s = time.perf_counter() - t
+    ref = km._kmeans_single(x, init, cfg.cluster_centroids, steps)[0]
+    phase(f"  ance-mine {name}: k-means of {len(x)} queries, {steps} steps "
+          f"card against the CPU from the card's centroids ({walk_s:.1f} "
+          f"s): label share that differs {flips:.3e} (bound "
+          f"{KMEANS_FLIP_SHARE}), inertia {inertia:.3e} (bound "
+          f"{KMEANS_INERTIA_RTOL}), centroids {cerr:.3e} (bound "
+          f"{KMEANS_CENTROID_TOL}); the walk equals _kmeans_single: "
+          f"{torch.equal(c, ref)}")
+    if not (flips <= KMEANS_FLIP_SHARE and inertia <= KMEANS_INERTIA_RTOL
+            and cerr <= KMEANS_CENTROID_TOL and torch.equal(c, ref)):
+        raise AssertionError(f"ance-mine {name}: card k-means disagrees")
+    if plant_tf32 and x.device.type == "cuda":  # TF32 exists on the card
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            _, flips, inertia, _ = kmeans_walk(x, init, steps, km._assign,
+                                               km._lloyd_step)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        phase(f"  ance-mine {name}: the same walk with TF32 on for the "
+              f"card's products: label share {flips:.3e}, inertia "
+              f"{inertia:.3e}")
+        if flips <= KMEANS_FLIP_SHARE and inertia <= KMEANS_INERTIA_RTOL:
+            raise AssertionError(f"ance-mine {name}: the bounds let a TF32 "
+                                 f"walk through")
+
+
+def timing_line(m):
+    return ", ".join(f"{k[5:]} {v:.3f}" for k, v in m.items()
+                     if k.startswith("time_"))
+
+
+def counted(name, run, expect_fn, needed):
+    """run() with the counts zeroed before and read after, each equal to
+    expect_fn() (kernels in `needed` launched) -> run()'s value."""
+    zero_counts()
+    out = run()
+    counts = read_counts(f"ance-mine {name}", needed)
+    check_counts(f"ance-mine {name}", counts, expect_fn())
+    return out
+
+
+def ance_mine(args, dev):
+    """The ance-mine phase: (a) two ance_rounds, (b) the async pair, (c)
+    mine() at MS MARCO's corpus size. Each path's launches are checked and
+    printed here."""
+    from cocodr_tpu_torch.core.configs import AnceStageConfig
+    from cocodr_tpu_torch.data.streams import TripletBatcher
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+    from cocodr_tpu_torch.pipelines import ance
+    from cocodr_tpu_torch.pipelines.train_step import build_train_step
+    from cocodr_tpu_torch.utils.train_state import TrainState, save_checkpoint
+
+    stage = AnceStageConfig.base()
+    bert = dataclasses.replace(stage.bert, dtype=torch.bfloat16)
+    layers = bert.num_hidden_layers
+    per_line = stage.negative_sample // 5
+    cfg = ance.MineConfig(
+        topk_training=stage.topk_training,
+        negative_sample=stage.negative_sample, n_splits=5,
+        cluster_query=True, cluster_centroids=stage.dro.n_groups,
+        kmeans_iters=500, kmeans_redo=5, batch_size=stage.eval_batch,
+        seed=args.seed)
+    card = nvidia_smi()
+    needed = ["K1_ffn_block", "K2_dual_sweep", "K3_topk"]
+    with tempfile.TemporaryDirectory() as root, MineRecorder() as rec:
+        pc, tq, dq, positives, dev_qrels = write_mine_data(
+            args, root, "small", MINE_DOCS, MINE_DOCS, MINE_TRAIN_Q,
+            MINE_DEV_Q)
+        encoded = (MINE_DOCS, MINE_DEV_Q, MINE_TRAIN_Q)
+
+        # (a) the time-multiplexed loop: mine, then 3 iDRO steps, twice
+        state = ance_state(args, dev, stage, bert)
+        step = build_train_step(ance_step_config(stage, "idro"))
+        batcher = TripletBatcher(tq, pc)
+        work = os.path.join(root, "a")
+        for rnd in range(2):
+            rec.reset()
+
+            def expect():
+                e = mine_expected(rec, cfg, layers, encoded)
+                e["K5_ffn"] = 3 * layers * MINE_STEPS
+                return e
+
+            state, m, steps = counted(
+                f"(a) round {rnd}",
+                lambda: ance.ance_round(
+                    state, step, batcher, pc, tq, positives, dq, dev_qrels,
+                    work, rnd, cfg, stage.per_device_batch, MINE_STEPS,
+                    dropout_seed=args.seed, device=dev),
+                expect, needed + ["K5_ffn"])
+            if steps != MINE_STEPS:
+                raise AssertionError(f"(a) round {rnd}: {steps} steps")
+            lines = check_ann_file(ance.ann_data_path(work, rnd), MINE_DOCS,
+                                   positives, cfg.cluster_centroids,
+                                   per_line)
+            phase(f"  ance-mine (a) round {rnd}: time (s) {timing_line(m)}; "
+                  f"corpus encode {MINE_DOCS / m['time_corpus_encode']:.1f} "
+                  f"docs/s; {lines} ann lines; ndcg@10 "
+                  f"{m['ndcg_cut_10']:.4f} [{card}]")
+            check_train_search(f"(a) round {rnd}", rec.searches[1],
+                               MINE_DOCS, dev)
+            if rnd == 0:
+                check_kmeans("(a)", rec, cfg, WALK_STEPS["a"], dev)
+        meta = json.load(open(ance.ann_ndcg_path(work, 1)))
+        if meta["checkpoint"] != f"step-{MINE_STEPS}":
+            raise AssertionError(f"(a): round 1 mined {meta['checkpoint']}")
+        phase(f"  ance-mine (a): round 1 mined {meta['checkpoint']}, the "
+              f"weights after round 0's steps")
+        del state, step
+        torch.cuda.empty_cache()
+
+        # (b) the async pair over the same records, nll with dropout
+        model = build_dual_encoder(stage.model_type, bert, device=dev,
+                                   generator=torch.Generator().manual_seed(
+                                       args.seed + 10))
+        state = TrainState(model, stage.optimizer.build(model.parameters()))
+        ckpt, ann_b = os.path.join(root, "ckpt"), os.path.join(root, "b")
+        save_checkpoint(ckpt, state)
+        loader = ance.checkpoint_params_loader(ckpt, state)
+        kw = dict(passage_cache=pc, train_query_cache=tq,
+                  train_positives=positives, dev_query_cache=dq,
+                  dev_qrels=dev_qrels, cfg=cfg, device=dev)
+        for rnd in range(2):
+            rec.reset()
+            counted(f"(b) mine_loop {rnd}",
+                    lambda: ance.mine_loop(state.model, loader, ann_b,
+                                           poll_secs=0.01, max_rounds=1,
+                                           **kw),
+                    lambda: mine_expected(rec, cfg, layers, encoded), needed)
+            m = rec.mined[0]
+            check_ann_file(ance.ann_data_path(ann_b, rnd), MINE_DOCS,
+                           positives, cfg.cluster_centroids, per_line)
+            phase(f"  ance-mine (b) mine_loop {rnd}: time (s) "
+                  f"{timing_line(m)}; corpus encode "
+                  f"{MINE_DOCS / m['time_corpus_encode']:.1f} docs/s")
+            check_train_search(f"(b) round {rnd}", rec.searches[1],
+                               MINE_DOCS, dev)
+            if rnd == 0:
+                check_kmeans("(b)", rec, cfg, WALK_STEPS["b"], dev,
+                             plant_tf32=True)
+                t = time.perf_counter()
+                counted(
+                    "(b) train_loop",
+                    lambda: ance.train_loop(
+                        state, build_train_step(), batcher, ann_b, ckpt,
+                        stage.per_device_batch, poll_secs=0.01,
+                        max_ann_files=1, steps_per_file=ASYNC_STEPS,
+                        dropout_seed=args.seed),
+                    lambda: {"K5_ffn": 3 * layers * ASYNC_STEPS}, ["K5_ffn"])
+                name, weights = loader()
+                same = all(torch.equal(weights[k].to(dev), v)
+                           for k, v in state.model.state_dict().items())
+                phase(f"  ance-mine (b) train_loop: {ASYNC_STEPS} nll steps "
+                      f"and a checkpoint in {time.perf_counter() - t:.2f} s; "
+                      f"the loader returns {name}, equal to the state's "
+                      f"weights: {same}")
+                if name != f"checkpoint-{ASYNC_STEPS}" or not same:
+                    raise AssertionError("(b): the loader's weights")
+        n, _, meta = ance.get_latest_ann_data(ann_b)
+        if (n, meta["checkpoint"]) != (1, f"checkpoint-{ASYNC_STEPS}"):
+            raise AssertionError(f"(b): ann file {n} from {meta}")
+        phase(f"  ance-mine (b): the second round mined {meta['checkpoint']}")
+        del state, model, loader
+        shutil.rmtree(ckpt)
+        torch.cuda.empty_cache()
+
+        # (c) mine() at MS MARCO's corpus size
+        with open("/proc/meminfo") as f:
+            avail = next(line for line in f if line.startswith("MemAvailable"))
+        phase(f"  ance-mine (c): host {' '.join(avail.split()[1:])} "
+              f"available")
+        _, tq, dq, positives, dev_qrels = write_mine_data(
+            args, root, "marco", 0, MARCO_DOCS, MARCO_TRAIN_Q, MARCO_DEV_Q)
+        t = time.perf_counter()
+        corpus = marco_corpus(args, dev)
+        phase(f"  ance-mine (c): {MARCO_DOCS} x {DIM} float32 host corpus "
+              f"from the seed in {time.perf_counter() - t:.1f} s")
+        model = build_dual_encoder(stage.model_type, bert, device=dev,
+                                   generator=torch.Generator().manual_seed(
+                                       args.seed + 11))
+        rec.reset()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        m = counted(
+            "(c)",
+            lambda: ance.mine(model, None, None, tq, positives, dq, dev_qrels,
+                              os.path.join(root, "c"), 0, cfg,
+                              checkpoint_name="marco", corpus_emb=corpus,
+                              device=dev),
+            lambda: mine_expected(rec, cfg, layers,
+                                  (MARCO_DEV_Q, MARCO_TRAIN_Q)), needed)
+        peak = torch.cuda.max_memory_allocated() - base
+        del corpus
+        (placed, n_real), growth = rec.placed[0]
+        want = (MARCO_DOCS + (-MARCO_DOCS) % 2048) * DIM * 2
+        dev_s, train_s = rec.searches
+        shared = (dev_s["corpus"] is placed and train_s["corpus"] is placed
+                  and dev_s["n_real"] == train_s["n_real"] == MARCO_DOCS)
+        # one lone search of the train search's first chunk, over the
+        # placed tensor
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rec.real["search_topk"](
+            train_s["queries"][:train_s["q_chunk"]], placed, train_s["k"],
+            q_chunk=cfg.q_chunk, tile=cfg.mips_tile, method=cfg.search_method,
+            n_real=n_real, device=dev)
+        lone = torch.cuda.max_memory_allocated() - base
+        lines = check_ann_file(ance.ann_data_path(os.path.join(root, "c"),
+                                                  0),
+                               MARCO_DOCS, positives, cfg.cluster_centroids,
+                               per_line)
+        gib = 2 ** 30
+        phase(f"  ance-mine (c) ({MARCO_DOCS} docs, {MARCO_DEV_Q} dev and "
+              f"{MARCO_TRAIN_Q} train queries): time (s) {timing_line(m)}; "
+              f"train search {MARCO_TRAIN_Q / m['time_train_search']:.1f} "
+              f"q/s; k-means {m['time_cluster']:.3f} s; placement "
+              f"{tuple(placed.shape)} {placed.dtype}, memory_allocated grew "
+              f"{growth} bytes (tensor {want}); peak over mine() "
+              f"{peak / gib:.2f} GiB, {(peak - want) / gib:.2f} less the "
+              f"corpus, one lone search_topk of {train_s['q_chunk']} "
+              f"queries {lone / gib:.2f} GiB; both searches on one tensor "
+              f"with n_real {n_real}: {shared}; {lines} ann lines [{card}]")
+        if not abs(growth - want) <= PLACE_SLACK:
+            raise AssertionError(f"(c): placement grew {growth}, not {want}")
+        if not peak - want <= lone + PEAK_SLACK:
+            raise AssertionError(f"(c): mine() peak {peak} against a lone "
+                                 f"search's {lone}")
+        if not shared:
+            raise AssertionError("(c): the searches did not share the "
+                                 "placed corpus")
+        check_train_search("(c)", train_s, MARCO_DOCS, dev,
+                           rows=MARCO_CHECK_Q)
+        check_kmeans("(c)", rec, cfg, WALK_STEPS["c"], dev)
+        del placed, dev_s, train_s
+    torch.cuda.empty_cache()
+
+
+def marco_corpus(args, dev):
+    """MARCO_DOCS row-normalised DIM-d float32 rows from the seed, drawn on
+    the card in chunks into host memory (what encode_cache hands mine())."""
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 12)
+    out = np.empty((MARCO_DOCS, DIM), np.float32)
+    host = torch.from_numpy(out)
+    step = 262_144
+    for s in range(0, MARCO_DOCS, step):
+        x = torch.randn(min(step, MARCO_DOCS - s), DIM, generator=gen,
+                        device=dev)
+        host[s:s + len(x)].copy_(x / x.norm(dim=1, keepdim=True))
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2755,6 +3305,10 @@ def main() -> None:
 
     phase("ance-train")
     ance_train(args, dev)
+    torch.cuda.empty_cache()
+
+    phase("ance-mine")
+    ance_mine(args, dev)
 
     # each kernel's numbers at the shape of the path that launches it, and
     # its launches on that path: (path's counts, the wrapper's counter)

@@ -1,9 +1,18 @@
-"""Offline tokenization of BEIR tasks to binary record files: the port's
-own copy of the BEIR half of cocodr_tpu/data/preprocess.py (reference
-evaluate/data/beir_data.py:38-334). The MS MARCO half comes with
-ROADMAP.md Queue 1 item 11.
+"""Offline tokenization to binary record files: the port's own copy of
+cocodr_tpu/data/preprocess.py.
+
+- MS MARCO passages, queries and qrels (reference
+  ANCE/data/msmarco_data.py:21-295): `tokenize_msmarco_passages`,
+  `tokenize_queries`, `rewrite_qrels`;
+- BEIR corpus.jsonl / queries.jsonl / qrels tsv with string-id maps
+  (reference evaluate/data/beir_data.py:38-334).
 
 Behavioural parity points, as in the JAX package:
+- doc data_type=0 joins url/title/body with '<sep>'; every passage keeps
+  its first MAX_DOC_CHARACTER (10000) characters (msmarco_data.py:250-259);
+- condenser-family models lowercase MS MARCO text before tokenizing
+  (msmarco_data.py:265-266,283-285: the `lowercase` flag);
+- qrels are rewritten into offset space (msmarco_data.py:106-128);
 - BEIR concatenates title + ' ' + text, lowercases, and maps string doc
   ids through p/qchar2pid pickles (beir_data.py:85-117,278-296);
 - robust04 text is cleaned of other characters before lowercasing, docs
@@ -17,12 +26,19 @@ JAX package's format byte for byte (data/records.py).
 from __future__ import annotations
 
 import csv
+import gzip
 import json
 import os
 import re
 from typing import Dict, Optional
 
-from cocodr_tpu_torch.data.records import RecordWriter, save_id_map
+from cocodr_tpu_torch.data.records import (
+    RecordWriter,
+    save_id_map,
+    write_qrels,
+)
+
+MAX_DOC_CHARACTER = 10000
 
 
 def _encode(tokenizer, text: str, max_len: int):
@@ -129,6 +145,98 @@ def _write_record_pairs(pairs, tokenizer, out_path: str, max_len: int,
         return _write_records_streaming(pairs, tokenizer, out_path, max_len)
     return _write_records_parallel(pairs, tokenizer, out_path, max_len,
                                    n_workers)
+
+
+# ---------------------------------------------------------------------------
+# MS MARCO
+
+
+def _maybe_lower(text: str, lowercase: bool) -> str:
+    return text.lower() if lowercase else text
+
+
+def tokenize_msmarco_passages(
+    collection_tsv: str,
+    out_path: str,
+    tokenizer,
+    max_len: int,
+    lowercase: bool = False,
+    data_type: int = 1,
+    n_workers: int = 1,
+) -> Dict[int, int]:
+    """collection.tsv (pid \t text), or msmarco-docs.tsv with data_type=0
+    (D-prefixed docid \t url \t title \t body), -> records + pid2offset
+    (also pickled beside the records)."""
+    def pairs():
+        with open(collection_tsv, encoding="utf8") as f:
+            for line in f:
+                arr = line.rstrip("\n").split("\t")
+                if data_type == 0:
+                    pid = int(arr[0][1:])  # strip leading 'D'
+                    text = (arr[1].rstrip() + "<sep>" + arr[2].rstrip()
+                            + "<sep>" + arr[3].rstrip())
+                else:
+                    pid = int(arr[0])
+                    text = _maybe_lower(arr[1].rstrip(), lowercase)
+                yield pid, text[:MAX_DOC_CHARACTER]
+
+    pids = _write_record_pairs(pairs(), tokenizer, out_path, max_len,
+                               n_workers)
+    pid2offset = {pid: i for i, pid in enumerate(pids)}
+    save_id_map(pid2offset, out_path + ".pid2offset.pickle")
+    return pid2offset
+
+
+def tokenize_queries(
+    queries_tsv: str,
+    out_path: str,
+    tokenizer,
+    max_len: int,
+    lowercase: bool = False,
+    n_workers: int = 1,
+) -> Dict[int, int]:
+    """queries.*.tsv (qid \t text) -> records + qid2offset (also pickled
+    beside the records)."""
+    def pairs():
+        with open(queries_tsv, encoding="utf8") as f:
+            for line in f:
+                arr = line.rstrip("\n").split("\t")
+                yield int(arr[0]), _maybe_lower(arr[1].rstrip(), lowercase)
+
+    qids = _write_record_pairs(pairs(), tokenizer, out_path, max_len,
+                               n_workers)
+    qid2offset = {qid: i for i, qid in enumerate(qids)}
+    save_id_map(qid2offset, out_path + ".qid2offset.pickle")
+    return qid2offset
+
+
+def rewrite_qrels(
+    qrels_path: str,
+    out_path: str,
+    qid2offset: Dict[int, int],
+    pid2offset: Dict[int, int],
+    delimiter: str = "\t",
+    docid_prefix: bool = False,
+):
+    """TREC qrels (qid, _, docid, rel; gzipped when the name ends in 'gz')
+    -> offset-space tsv (data.records.write_qrels); -> its rows. Lines of
+    another width are skipped; docid_prefix strips a leading 'D'."""
+    opener = (
+        gzip.open(qrels_path, "rt", encoding="utf8")
+        if qrels_path.endswith("gz")
+        else open(qrels_path, encoding="utf8")
+    )
+    rows = []
+    with opener as f:
+        for parts in csv.reader(f, delimiter=delimiter):
+            if len(parts) != 4:
+                continue
+            topicid, _, docid, rel = parts
+            docid = int(docid[1:]) if docid_prefix else int(docid)
+            rows.append((qid2offset[int(topicid)], pid2offset[docid],
+                         int(rel)))
+    write_qrels(out_path, rows)
+    return rows
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Fixed-width binary token-record files and memmap random access: the
 port's own copy of cocodr_tpu/data/records.py (`RecordWriter`,
-`TokenCache`, `save_id_map`, `load_id_map`).
+`TokenCache`, `save_id_map`, `load_id_map`, `write_qrels`, `load_qrels`).
 
 The file format is the JAX package's, byte for byte (and the reference's):
 
@@ -8,6 +8,7 @@ The file format is the JAX package's, byte for byte (and the reference's):
               (native little-endian)
     _meta   = JSON {"type": "int32", "total_number": N, "embedding_size": L}
     id maps = {external_id -> offset} pickle (pid2offset / qid2offset)
+    qrels   = qid_offset \t pid_offset \t rel lines (offset space)
 
 The whole file is a numpy memmap and batch gathers are vectorized fancy
 indexing. The JAX package's threaded native reader (native/recordio.cpp)
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import json
 import pickle
-from typing import Sequence, Tuple
+from typing import Iterable, Sequence, Tuple
 
 import numpy as np
 
@@ -115,3 +116,22 @@ def save_id_map(mapping: dict, path: str):
 def load_id_map(path: str) -> dict:
     with open(path, "rb") as f:
         return pickle.load(f)
+
+
+def write_qrels(path: str, rows: Iterable[Tuple[int, int, int]]):
+    """Offset-space qrels: qid_offset \t pid_offset \t rel
+    (reference msmarco_data.py:109-128)."""
+    with open(path, "w") as f:
+        for q, p, rel in rows:
+            f.write(f"{q}\t{p}\t{rel}\n")
+
+
+def load_qrels(path: str, graded: bool = True) -> dict:
+    """qid -> {pid: rel} (rel 1 for every pair unless graded)."""
+    out: dict = {}
+    with open(path) as f:
+        for line in f:
+            parts = line.rstrip("\n").split("\t")
+            q, p, rel = int(parts[0]), int(parts[1]), int(parts[2])
+            out.setdefault(q, {})[p] = rel if graded else 1
+    return out

@@ -19,8 +19,12 @@ def search_topk(queries, corpus, k: int, mesh=None, q_chunk: int = 4096,
     """Top-k search of queries [Q, D] over corpus [N, D] (numpy arrays or
     tensors) -> host (scores [Q, k], ids [Q, k]) numpy arrays, through
     ops.mips.mips_topk_chunked_queries on `device` (the card unless the
-    caller passes device="cpu"). A corpus already on that device is used
-    in place; hold it there across calls to avoid a copy per call.
+    caller passes device="cpu"). A corpus tensor already on that device
+    is used in place, with no copy (`.to(dev)` returns it); a numpy array
+    or a tensor elsewhere is copied there, in its own dtype, on every
+    call. A caller that searches one corpus several times places it once
+    (pipelines/ance.py::place_corpus: bf16, padded for the methods that
+    take n_real, as the kernel searches would per call otherwise).
 
     mesh: None, or a torch DeviceMesh of one device; more devices raise.
     method='ivf' raises unless exact_fp32 (which searches exactly, as in

@@ -6,6 +6,7 @@ on the CPU. Queries are shorter than documents, as in the reference (64
 against 128 tokens). Tolerances: 1e-5 in losses, params and h_fun (sums
 in another order), except where a test says otherwise."""
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -355,15 +356,35 @@ def test_train_on_ann_file_dropout_generators(tmp_path):
     assert out == [(3, ["acc", "loss"]), (4, ["acc", "loss"])]
 
 
-def test_mining_half_names_item_9b():
-    for name in ("generate_negatives", "write_ann_data", "mine",
-                 "ance_round", "checkpoint_params_loader", "train_loop",
-                 "mine_loop"):
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            getattr(tance, name)()
+def test_what_mining_leaves_names_its_item(tmp_path):
+    """What the mining half still leaves raises NotImplementedError naming
+    its ROADMAP.md Queue 1 item: search_method='ivf' (item 7; with
+    exact_fp32 the search is exact and runs), a multi-chunk model (item
+    3), a mesh and device_put (item 11), train_loop's saver (item 13)."""
+    qp, pp, ann = write_ann_data(tmp_path)
+    qc, pc = trec.TokenCache(qp), trec.TokenCache(pp)
+    model = DualEncoder(MODEL_REGISTRY["rdot_nll"](BertConfig.tiny()))
+    args = (pc, qc, {0: 1}, qc, {0: {1: 1}}, str(tmp_path / "m"), 0)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        tance.mine(model, None, *args, tance.MineConfig(search_method="ivf"),
+                   device="cpu")
+    tance.mine(model, None, *args, tance.MineConfig(
+        search_method="ivf", exact_fp32=True, batch_size=8), device="cpu")
+    assert os.path.exists(tance.ann_data_path(str(tmp_path / "m"), 0))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        tance.mine(model, None, *args, mesh=object(), device="cpu")
+    state = tstate.TrainState(model, Lamb(model.parameters(), 1e-3))
+    for kw, item in ((dict(saver=object()), "item 13"),
+                     (dict(device_put=lambda b: b), "item 11")):
+        with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
+            tance.train_loop(state, None, None, str(tmp_path),
+                             str(tmp_path / "ck"), 1, **kw)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         tance.train_on_ann_file(None, None, None, "x", 1,
                                 device_put=lambda b: b)
+    model.cfg = type("Cfg", (), {"chunk_len": 8})()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        tance.mine(model, None, *args, device="cpu")
 
 
 def test_checkpoint_round_trip_with_dro_state(tmp_path):

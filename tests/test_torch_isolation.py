@@ -23,6 +23,7 @@ MODULES = [
     "cocodr_tpu_torch.ops.attention",
     "cocodr_tpu_torch.ops.ffn",
     "cocodr_tpu_torch.ops.int8_matmul",
+    "cocodr_tpu_torch.ops.kmeans",
     "cocodr_tpu_torch.ops.mips",
     "cocodr_tpu_torch.ops.mips_blockmax",
     "cocodr_tpu_torch.ops.mips_exact2",
@@ -57,6 +58,7 @@ MODULES = [
     "cocodr_tpu_torch.core",
     "cocodr_tpu_torch.core.configs",
     "cocodr_tpu_torch.utils",
+    "cocodr_tpu_torch.utils.logging",
     "cocodr_tpu_torch.utils.misc",
     "cocodr_tpu_torch.utils.train_state",
     "chip_smoke",
@@ -142,6 +144,40 @@ def test_eval_and_dro_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         combined_mrr(model, cache, cache, {0: [0]})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         dro_greedy_init(DroConfig())
+
+
+def test_mining_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The mining entry points of the tenth slice (mine, ance_round, the
+    k-means, the corpus placement): without a card, called without
+    device='cpu', they raise before any work."""
+    from cocodr_tpu_torch.data.records import RecordWriter, TokenCache
+    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.models.dual_encoder import DualEncoder, MODEL_REGISTRY
+    from cocodr_tpu_torch.ops.kmeans import assign_clusters, kmeans
+    from cocodr_tpu_torch.optim import Lamb
+    from cocodr_tpu_torch.pipelines import ance
+    from cocodr_tpu_torch.utils.train_state import TrainState
+
+    path = str(tmp_path / "r")
+    with RecordWriter(path, 8) as w:
+        w.write([2, 5, 3])
+    cache = TokenCache(path)
+    model = DualEncoder(MODEL_REGISTRY["rdot_nll"](BertConfig.tiny()))
+    state = TrainState(model, Lamb(model.parameters(), 1e-3))
+    args = (cache, cache, {0: 0}, cache, {0: {0: 1}}, str(tmp_path / "out"),
+            0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ance.mine(model, None, *args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ance.ance_round(state, None, None, *args, ance.MineConfig(), 1, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        kmeans(np.zeros((4, 2), np.float32), 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ance.place_corpus(np.zeros((4, 2), np.float32))
+    assert not (tmp_path / "out").exists()
+    ids = assign_clusters(np.zeros((4, 2), np.float32), torch.zeros(2, 2))
+    assert ids.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result(tmp_path):
