@@ -120,9 +120,35 @@ Phases, each printed with its elapsed seconds:
      train search's ids equal an exact plain search up to near-ties; the
      card's k-means walks step by step against the CPU's plain float32
      step (kmeans_walk); mine()'s time_* breakdown, docs/s of the corpus
-     encode, q/s of the train search at 8.8M docs and the peak memory.
+     encode, q/s of the train search at 8.8M docs and the peak memory;
+ 11. coco: COCO pretraining at CocoStageConfig.base() (BERT-base, bf16
+     compute, float32 parameters, random weights from the seed; c_head of 2
+     layers from layer 6, late_mlm, MLM budget 0.17, LAMB at 1e-4 with a
+     linear warmup of warmup_ratio 0.1) on a span corpus written by
+     preprocess_corpus_to_spans (target length 30, break probability 0.1)
+     from random-word documents, whole-word masks by a WordPiece-style
+     stand-in tokenizer, batches of 200 docs = 400 spans x 128 tokens:
+     (a) the direct step with dropout 0.1 through run_coco_pretrain (K5 14
+     a step), 10 steps saving at 5 and 10, then a fresh state that loads
+     checkpoint-5 and resumes through span_batches(start_batch=5) to step
+     10 saving through AsyncSaver: the same batches bit for bit, the
+     losses and parameters within bounds (the card's backward is not
+     bitwise deterministic), the async checkpoint loading back equal;
+     spans/s, the
+     card and host ms of a step's forward, backward and optimizer, the MLM
+     decoder's ms, the collator's host ms a batch, peak memory and the
+     step's bound; (b) the grad cache (4 chunks of 100, dropout 0.1, 3
+     steps, K5 104 a step), each chunk's pass-2 CLS equal to its pass-1 CLS
+     bit for bit; (c) the cache step against the direct step from the same
+     weights, dropout off (K1 104 and 14), by the loss and the gradients'
+     cosines, a cache step with the next chunk's cotangents planted must
+     fail them; (d) fused attention without dropout (K1 and K8 14 a step);
+     (e) one direct step at 16 spans on the card and on the CPU through
+     the plain versions in float32, by compare_step's bounds, a step with
+     the c_head fed from hidden_states[5] planted must fail them.
 Every path (the search phase, each serve mode, each encode configuration,
-each training run, each eval task, combined_mrr, each mining round) runs
+each training run, each eval task, combined_mrr, each mining round, each
+COCO leg) runs
 with every kernel's launch count set to 0 just
 before it and read just after, and fails if a kernel of the path never
 launched or a count differs from the path's own. Then one JSON line of per-kernel numbers,
@@ -138,6 +164,7 @@ faulthandler.dump_traceback_later(1100, exit=True)
 
 import argparse  # noqa: E402
 import copy  # noqa: E402
+import itertools  # noqa: E402
 import dataclasses  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
@@ -188,6 +215,10 @@ TRAIN_LEN = 128  # max_seq_len of every tower
 TRAIN_T = TRAIN_BATCH * TRAIN_LEN  # T of K5 (one tower's FFN)
 TRAIN_STEPS, TRAIN_SAVE, TRAIN_RESUME = 20, 10, 25
 NODROP_STEPS = 5
+# COCO (CocoStageConfig.base()): 200 docs = 400 spans of 128 tokens a step,
+# the grad cache's chunks of 100 spans
+COCO_SPANS, COCO_LEN, COCO_CHUNK = 400, 128, 100
+COCO_T = COCO_SPANS * COCO_LEN  # T of K1 and K5 in a direct COCO step
 CMP_BATCH = 8  # the card-against-CPU step, at full depth
 # card against the CPU's plain versions, one step, dropout off. bf16
 # rounding at other places moves the clipped gradients: at BERT-base,
@@ -435,13 +466,14 @@ FFN_CHECK_T = (64, 1000, 4096, 4104, ENC_TOKENS)
 
 
 def check_k1(ffn, gen, dev):
-    """K1 at bert-base widths, bf16, at FFN_CHECK_T; timed at T = 64 * 64
+    """K1 at bert-base widths, bf16, at FFN_CHECK_T and COCO's T (a cache
+    chunk's 100 * 128 and a step's 400 * 128); timed at T = 64 * 64
     tokens (serving) and the encode path's T = 256 * 128."""
     H, F = 768, 3072
     errs = [check_ffn("K1", ffn.fused_ffn_block, ffn.ffn_block_reference,
                       ffn_inputs(gen, dev, T, H, F), f"T={T} H={H} F={F}",
                       K1_MAX_SHARE)
-            for T in FFN_CHECK_T]
+            for T in FFN_CHECK_T + (COCO_CHUNK * COCO_LEN, COCO_T)]
     out = None
     for T in (4096, ENC_TOKENS):
         args = ffn_inputs(gen, dev, T, H, F)
@@ -486,15 +518,16 @@ def check_k4(ffn, gen, dev):
 def check_k5(ffn, gen, dev):
     """K5 (the FFN of the dropout path) at bert-base widths at
     FFN_CHECK_T, the training path's T = 64 * 128 (one tower of a warmup
-    step) and the JAX warmup preset's T = 256 * 128; timed at the last
-    two. Besides the max-abs bound, the share of outputs that differ at
+    step), the JAX warmup preset's T = 256 * 128 and COCO's (100 * 128 and
+    400 * 128); timed at the warmup path's two. Besides the max-abs bound, the share of outputs that differ at
     all stays under K5_MAX_SHARE: on the CPU (tests/test_torch_ffn.py,
     test_k5_share_limit_*; T = 128) sums in another order move 0.5% of
     them, a moved rounding point (h in float32, a bf16 pre-activation, y
     rounded before b2) 27-59%. -> the summary entry of T = TRAIN_T."""
     H, F = 768, 3072
     errs, out = [], None
-    for T in sorted(set(FFN_CHECK_T + (TRAIN_T, 4 * TRAIN_T))):
+    for T in sorted(set(FFN_CHECK_T + (TRAIN_T, 4 * TRAIN_T,
+                                       COCO_CHUNK * COCO_LEN, COCO_T))):
         x, _, _, w1, b1, w2, b2, _, _ = ffn_inputs(gen, dev, T, H, F)
         args = (x, w1, b1, w2, b2)
         errs.append(check_ffn("K5", ffn.fused_ffn, ffn.ffn_reference, args,
@@ -615,7 +648,8 @@ def check_map_cache(ffn, gen, dev):
 
 def check_k8(att, gen, dev):
     """K8 at the encode shape B = 256, S = 128, N = 12, D = 64, with a
-    padding bias (lengths 16..128), timed in turns with
+    padding bias (lengths 16..128), and at a COCO step's B = 400, timed
+    (the encode shape) in turns with
     scaled_dot_product_attention on the same inputs (time_turns; SDPA is
     timed only: it defers no rounding the way K8 does). Also odd shapes:
     bucket widths, S not a multiple of 16, the kernel's two-pass schedule
@@ -630,7 +664,8 @@ def check_k8(att, gen, dev):
     import torch.nn.functional as F
 
     err = 0.0
-    for B, S, N in ((ENC_BATCH, ENC_LEN, 12), (ENC_BATCH, 32, 12),
+    for B, S, N in ((ENC_BATCH, ENC_LEN, 12), (COCO_SPANS, COCO_LEN, 12),
+                    (ENC_BATCH, 32, 12),
                     (ENC_BATCH, 64, 16), (8, 200, 16), (4, 384, 12),
                     (4, 392, 12), (4, 512, 16), (3, 40, 3)):
         q, k, v = (torch.randn(B, S, N, 64, generator=gen, device=dev)
@@ -657,7 +692,7 @@ def check_k8(att, gen, dev):
             raise AssertionError(f"K8 disagrees with its plain version: max "
                                  f"abs err {e}, share differing {share}")
         err = max(err, e)
-        if S != ENC_LEN:
+        if (B, S) != (ENC_BATCH, ENC_LEN):
             continue
         single = time_ms(lambda: att.fused_attention_seq_major(
             q, k, v, bias, 0.125))
@@ -1705,11 +1740,12 @@ def train_step_flops(bert, tokens):
     TRAIN_LEN-token sequences), counted from the code: per token and
     layer the forward's Q, K, V and output projections (8 H^2), the
     scores and the PV product (4 S H) and the FFN (4 H F); the backward
-    twice the forward's; the backward's recompute of the FFN (K1's and
-    K5's autograd.Functions run the XLA pair again, 4 H F)."""
+    twice the forward's. The backward's recompute of the FFN (K1's and
+    K5's autograd.Functions run the pair again, 4 H F) is this code's
+    choice, not the function's, and is left out."""
     H, F, L = bert.hidden_size, bert.intermediate_size, bert.num_hidden_layers
     fwd = 8 * H * H + 4 * TRAIN_LEN * H + 4 * H * F
-    return tokens * L * (3 * fwd + 4 * H * F)
+    return tokens * L * 3 * fwd
 
 
 class StepRecorder:
@@ -1776,26 +1812,24 @@ def check_steps(name, rec, first_step, last_step, per_step):
     return losses
 
 
-def step_phases(state, batch, seed, dev, runs=3):
-    """A dropout step's forward (three towers and the loss), backward and
-    optimizer (clip + LAMB): card ms (CUDA events) and the host's ms to
-    issue each (host clock, no synchronisation inside the step; where the
-    two are close, the card waits on the host), medians of `runs`."""
-    from cocodr_tpu_torch.pipelines.train_step import (
-        apply_gradients,
-        dropout_generators,
-        nll_loss,
-    )
+def step_phases(state, prepare, runs=3):
+    """A step's forward (prepare(state) -> a function that returns the
+    loss; prepare makes the dropout generators before the timed region),
+    backward and optimizer (clip + LAMB): card ms (CUDA events) and the
+    host's ms to issue each (host clock, no synchronisation inside the
+    step; where the two are close, the card waits on the host), medians
+    of `runs`."""
+    from cocodr_tpu_torch.pipelines.train_step import apply_gradients
 
     card, host = [], []
     for _ in range(runs):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        gens = dropout_generators(seed, state.step, dev)
+        forward = prepare(state)
         state.optimizer.zero_grad(set_to_none=True)
         torch.cuda.synchronize()
         t = [time.perf_counter()]
         ev[0].record()
-        loss, _ = nll_loss(state.model, batch, gens)
+        loss = forward()
         ev[1].record()
         t.append(time.perf_counter())
         loss.backward()
@@ -1811,32 +1845,32 @@ def step_phases(state, batch, seed, dev, runs=3):
             [statistics.median(h[i] for h in host) for i in range(3)])
 
 
-def step_busy(state, batch, seed, dev):
-    """One dropout step under torch.profiler -> the card's kernel time
-    summed from the trace, ms (0 when the trace holds no device time).
-    The profiler's own host cost stretches the traced step's wall time
-    2-3x, so the busy time is held against an unprofiled step's card
-    span instead."""
+def step_busy(state, prepare, top=0):
+    """One step (prepare(state)() -> the loss, backward, clip + LAMB) under
+    torch.profiler -> (the card's kernel time summed from the trace, ms,
+    0 when the trace holds no device time; the `top` kernels by device
+    time, [(name, ms)]). The profiler's own host cost stretches the traced
+    step's wall time 2-3x, so the busy time is held against an unprofiled
+    step's card span instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from cocodr_tpu_torch.pipelines.train_step import (
-        apply_gradients,
-        dropout_generators,
-        nll_loss,
-    )
+    from cocodr_tpu_torch.pipelines.train_step import apply_gradients
 
-    gens = dropout_generators(seed, state.step, dev)
+    forward = prepare(state)
     state.optimizer.zero_grad(set_to_none=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        loss, _ = nll_loss(state.model, batch, gens)
+        loss = forward()
         loss.backward()
         apply_gradients(state, 1.0)
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
+    kernels = sorted(((e.self_device_time_total / 1e3, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA), reverse=True)
+    return (sum(ms for ms, _ in kernels),
+            [(name, ms) for ms, name in kernels[:top]])
 
 
 def compare_step(args, dev, path, bert):
@@ -1916,6 +1950,10 @@ def steps_agree(rel, glob, cos):
 def train(args, dev, k5_ms):
     """The train phase -> the dropout run's launch counts."""
     from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.pipelines.train_step import (
+        dropout_generators,
+        nll_loss,
+    )
     from cocodr_tpu_torch.pipelines.warmup import (
         TripleTextBatcher,
         stream_triples,
@@ -1988,8 +2026,12 @@ def train(args, dev, k5_ms):
         batch = {k: torch.from_numpy(v).to(dev) for k, v in
                  TripleTextBatcher(HashTokenizer(), TRAIN_LEN)
                  .collate(triples).items()}
-        (fwd, bwd, opt), host = step_phases(state, batch, args.seed, dev)
-        busy = step_busy(state, batch, args.seed, dev)
+        def warmup_loss(st):
+            gens = dropout_generators(args.seed, st.step, dev)
+            return lambda: nll_loss(st.model, batch, gens)[0]
+
+        (fwd, bwd, opt), host = step_phases(state, warmup_loss)
+        busy, _ = step_busy(state, warmup_loss)
         span = fwd + bwd + opt
         phase(f"  one profiled step: card kernels busy {busy:.3f} ms against "
               f"an unprofiled step's {span:.3f} ms card span: busy share "
@@ -3237,6 +3279,579 @@ def marco_corpus(args, dev):
     return out
 
 
+# --- coco: COCO pretraining at CocoStageConfig.base() ----------------------
+
+COCO_BATCHES = 20  # batches of docs in the span corpus
+COCO_STEPS, COCO_SAVE = 10, 5  # leg (a): steps, checkpoint interval
+COCO_CACHE_STEPS = 3  # leg (b)
+COCO_FUSED_STEPS = 2  # leg (d)
+COCO_CMP_DOCS = 8  # leg (e): 16 spans
+COCO_TOP_KERNELS = 12  # kernels listed from leg (a)'s profiled step
+# leg (a): the resumed run must equal the uninterrupted one bit for bit.
+# With the token-type rows taken by nn.Embedding, the resumed parameters on
+# the H100 differed in that tensor alone (1 of 234; 0-1.9e-9 in four runs):
+# the card's embedding backward sums the 51,200 lookups of one row in an
+# order that changes from run to run. models/bert.py takes those rows by a
+# one-hot product, whose backward is a GEMM.
+# leg (e): the card against the float32 CPU step. compare_step's loss and
+# global bounds; the worst tensor held closer than its 0.8, since COCO's
+# gradient is the MLM's and not a difference of near-equal terms: on the
+# H100 the sound step read 0.9933 and the c_head fed from the layer below
+# (planted) 0.7883, in c_head.0's key projection
+COCO_CMP_TENSOR_COSINE = 0.95
+# leg (c): the grad cache against the direct step on the card, both bf16
+# from one set of weights, dropout off: the chunks run their GEMMs at
+# another M and gather another budget, so the two round apart. On the H100
+# the loss read equal, the gradients' cosine 0.999975 and the worst
+# tensor's 0.999811; with each chunk given the next chunk's cotangents
+# (planted) 0.040 and -0.36: at random weights the contrastive term holds
+# most of the gradient
+COCO_CACHE_LOSS_RTOL = 1e-3
+COCO_CACHE_GLOBAL_COSINE = 0.999
+COCO_CACHE_TENSOR_COSINE = 0.99
+
+
+class PieceTokenizer:
+    """WordPiece-style stand-in tokenizer for the smoke (the card has no
+    transformers): 30,522 ids, BERT's special ids ([PAD] 0, [UNK] 100,
+    [CLS] 101, [SEP] 102, [MASK] 103), each word hashed into one
+    word-initial piece (ids 1000..19999) and 0-2 `##` continuation pieces
+    (ids 20000..30521), so that the whole-word mask groups a word's
+    pieces."""
+
+    vocab_size = 30522
+    pad_token_id, cls_token_id, sep_token_id, mask_token_id = 0, 101, 102, 103
+    SPECIAL = {0: "[PAD]", 100: "[UNK]", 101: "[CLS]", 102: "[SEP]",
+               103: "[MASK]"}
+    all_special_tokens = list(SPECIAL.values())
+
+    def encode(self, text, add_special_tokens=True):
+        ids = []
+        for w in text.lower().split():
+            h = zlib.crc32(w.encode())
+            ids.append(1000 + h % 19000)
+            ids.extend(20000 + zlib.crc32(f"{w}#{k}".encode()) % 10522
+                       for k in range(h % 3))
+        return [101] + ids + [102] if add_special_tokens else ids
+
+    def convert_ids_to_tokens(self, ids):
+        return [self.SPECIAL.get(i) or (f"##p{i}" if i >= 20000 else f"p{i}")
+                for i in ids]
+
+    def num_special_tokens_to_add(self, pair=False):
+        return 3 if pair else 2
+
+
+def write_coco_corpus(args, root, n_docs):
+    """A BEIR-style corpus.jsonl of n_docs random-word documents from the
+    seed (a title of 2-5 words, 3-9 sentences of 5-17 words), then its span
+    corpus by preprocess_corpus_to_spans at the JAX CLI's defaults (target
+    length 30, break probability 0.1) -> (spans path, tokenizer)."""
+    from cocodr_tpu_torch.data.coco_spans import preprocess_corpus_to_spans
+
+    rng = np.random.default_rng(args.seed + 10)
+
+    def words(lo, hi):
+        return " ".join(f"w{x}" for x in rng.integers(0, 50000,
+                                                       rng.integers(lo, hi)))
+
+    corpus = os.path.join(root, "corpus.jsonl")
+    with open(corpus, "w", encoding="utf8") as f:
+        for i in range(n_docs):
+            text = " ".join(words(5, 18) + "." for _ in range(
+                rng.integers(3, 10)))
+            f.write(json.dumps({"_id": str(i), "title": words(2, 6),
+                                "text": text}) + "\n")
+    tok = PieceTokenizer()
+    spans = os.path.join(root, "spans.jsonl")
+    t = time.perf_counter()
+    n = preprocess_corpus_to_spans(corpus, spans, tok, target_len=30,
+                                   break_prob=0.1, seed=args.seed)
+    phase(f"  coco corpus: {n} docs -> {spans} in "
+          f"{time.perf_counter() - t:.2f} s (host)")
+    if n != n_docs:
+        raise AssertionError(f"coco corpus: {n} of {n_docs} docs kept")
+    return spans, tok
+
+
+class BatchRecorder(StepRecorder):
+    """StepRecorder that also keeps a host copy of each batch."""
+
+    def __init__(self, step):
+        super().__init__(step)
+        self.batches = []
+
+    def __call__(self, state, batch, seed):
+        self.batches.append({k: v.cpu().numpy() for k, v in batch.items()})
+        return super().__call__(state, batch, seed)
+
+
+class NoUpdate(torch.optim.Optimizer):
+    """Leaves the parameters and their .grad as a step made them (the
+    compares read the step's gradients)."""
+
+    def __init__(self, params):
+        super().__init__(params, {})
+
+    def step(self, closure=None):
+        pass
+
+
+def coco_model(args, dev, stage, bert, offset):
+    """The stage's coCondenser on dev, its weights from seed + offset."""
+    from cocodr_tpu_torch.models.condenser import build_condenser
+
+    return build_condenser(
+        bert, dev, torch.Generator().manual_seed(args.seed + offset),
+        n_head_layers=stage.n_head_layers, skip_from=stage.skip_from,
+        late_mlm=stage.late_mlm, mlm_budget_frac=stage.mlm_budget_frac)
+
+
+def coco_state(args, dev, stage, bert, total_steps):
+    """CocoStageConfig.base()'s model and LAMB (1e-4, linear, warmup
+    warmup_ratio x total_steps) from the seed."""
+    from cocodr_tpu_torch.utils.train_state import TrainState
+
+    model = coco_model(args, dev, stage, bert, 11)
+    opt = dataclasses.replace(stage.optimizer, total_steps=total_steps,
+                              warmup_steps=stage.warmup_steps_for(total_steps))
+    return TrainState(model, opt.build(model.parameters()))
+
+
+def coco_config(stage, chunk=0):
+    from cocodr_tpu_torch.pipelines.coco import CocoConfig
+
+    return CocoConfig(cache_chunk_size=chunk,
+                      max_grad_norm=stage.optimizer.max_grad_norm)
+
+
+def coco_stream(args, stage, spans, tok, docs, start=0):
+    from cocodr_tpu_torch.data.coco_collator import CoCondenserCollator
+    from cocodr_tpu_torch.data.coco_spans import span_batches
+
+    coll = CoCondenserCollator(tok, stage.mlm_probability,
+                               stage.max_seq_length, seed=args.seed)
+    return span_batches([spans], coll, docs, seed=args.seed, num_epochs=1,
+                        start_batch=start)
+
+
+def coco_run(args, state, stage, spans, tok, chunk, steps, dropout,
+             start=0, ckpt=None, saver=None):
+    """run_coco_pretrain from span_batches(start_batch=start) until state's
+    step is `steps` -> its BatchRecorder."""
+    from cocodr_tpu_torch.pipelines.coco import (
+        build_coco_train_step,
+        run_coco_pretrain,
+    )
+
+    docs = stage.per_device_batch_docs
+    rec = BatchRecorder(build_coco_train_step(coco_config(stage, chunk)))
+    run_coco_pretrain(state, rec, coco_stream(args, stage, spans, tok, docs,
+                                              start),
+                      args.seed if dropout else None, steps, ckpt_dir=ckpt,
+                      save_steps=COCO_SAVE if ckpt else 0, saver=saver,
+                      keep_checkpoints=2)
+    return rec
+
+
+def spans_per_s(rec, spans, skip=()):
+    """Spans/s on the host clock over the step intervals after the first
+    two steps (or the first, for a run of 3), leaving out intervals that
+    end at a step in `skip` (one that holds a save)."""
+    ends = [t for _, _, t in rec.records]
+    first = 2 if len(ends) > 3 else 1
+    gaps = [ends[i] - ends[i - 1] for i in range(first, len(ends))
+            if rec.records[i][0] not in skip]
+    return spans * len(gaps) / sum(gaps), len(gaps)
+
+
+def coco_step_flops(bert, n_head, spans, seq, rows, padded_rows):
+    """Operations of one direct COCO step, counted from the function -> (the
+    step's own, K5's recompute, the budget's padding). The step's own: per
+    token and layer (the backbone's and the c_head's) the forward's
+    projections (8 H^2), scores and PV (4 S H) and FFN (4 H F), the
+    backward twice the forward; the MLM head's transform (2 H^2) and tied
+    decoder (2 H V) over the `rows` that carry a label (the head's and the
+    late loss's), forward and backward; the [B, B] contrastive product.
+    Apart, as this code does them: K5's recompute of the FFN in the
+    backward (4 H F a token and layer) and the head over the
+    `padded_rows - rows` rows of the budget that carry none."""
+    H, F, V = bert.hidden_size, bert.intermediate_size, bert.vocab_size
+    fwd = 8 * H * H + 4 * seq * H + 4 * H * F
+    tokens = spans * seq * (bert.num_hidden_layers + n_head)
+    head = 3 * (2 * H * H + 2 * H * V)
+    return (tokens * 3 * fwd + rows * head + 6 * spans * spans * H,
+            tokens * 4 * H * F, (padded_rows - rows) * head)
+
+
+def coco_grads(model, batch, cfg, seed=None):
+    """One step of build_coco_train_step(cfg) with the parameters left as
+    they were -> (metrics as floats, {name: gradient as float64 on the
+    host}); cfg.max_grad_norm > 0 gives the clipped gradients."""
+    from cocodr_tpu_torch.pipelines.coco import build_coco_train_step
+    from cocodr_tpu_torch.utils.train_state import TrainState
+
+    state = TrainState(model, NoUpdate(model.parameters()))
+    m = build_coco_train_step(cfg)(state, batch, seed)
+    grads = {k: p.grad.detach().double().cpu()
+             for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return {k: v.item() for k, v in m.items()}, grads
+
+
+def wrong_cache_cotangents():
+    """Plant a wrong grad cache: pass 2 takes each chunk's contrastive
+    cotangents from the next chunk (the cotangents rolled by one chunk) ->
+    a function that removes the plant."""
+    from cocodr_tpu_torch.pipelines import coco as coco_mod
+
+    real = coco_mod.contrastive_cotangents
+
+    def rolled(cls):
+        co_loss, grads = real(cls)
+        return co_loss, torch.roll(grads, COCO_CHUNK, dims=0)
+
+    coco_mod.contrastive_cotangents = rolled
+    return lambda: setattr(coco_mod, "contrastive_cotangents", real)
+
+
+def coco_agreement(name, a, b, bounds):
+    """Two steps' (metrics, gradients) held by the loss and the gradients'
+    cosines -> (readings, whether they pass `bounds` (loss rtol, global
+    cosine, worst-tensor cosine))."""
+    rel, glob, worst, cos = step_agreement(a[0]["loss"], a[1], b[0]["loss"],
+                                           b[1])
+    ok = rel <= bounds[0] and glob >= bounds[1] and cos >= bounds[2]
+    return (f"{name}: loss {a[0]['loss']:.6f} vs {b[0]['loss']:.6f} (rel "
+            f"{rel:.2e}, bound {bounds[0]}); gradient cosine {glob:.6f} "
+            f"(bound {bounds[1]}); worst tensor {worst} {cos:.6f} (bound "
+            f"{bounds[2]})"), ok
+
+
+def coco_cache_compare(args, dev, stage, bert, batch):
+    """Leg (c): the cache step (K1 104) against the direct step (K1 14)
+    from the same weights on one batch, dropout off, raw gradients; then
+    the cache step with the wrong chunk's cotangents planted must fail."""
+    from cocodr_tpu_torch.pipelines.coco import CocoConfig
+
+    layers, heads = bert.num_hidden_layers, stage.n_head_layers
+    model = coco_model(args, dev, stage, bert, 12)
+    spans = batch["input_ids"].shape[0]
+    bounds = (COCO_CACHE_LOSS_RTOL, COCO_CACHE_GLOBAL_COSINE,
+              COCO_CACHE_TENSOR_COSINE)
+    out = {}
+    for name, chunk, k1 in (("direct", 0, layers + heads),
+                            ("cache", COCO_CHUNK,
+                             (spans // COCO_CHUNK) * (2 * layers + heads))):
+        cfg = CocoConfig(cache_chunk_size=chunk, max_grad_norm=0)
+        zero_counts()
+        out[name] = coco_grads(model, batch, cfg)
+        counts = read_counts(f"coco (c) {name}", ["K1_ffn_block"])
+        check_counts(f"coco (c) {name}", counts, {"K1_ffn_block": k1})
+    what, ok = coco_agreement("coco (c) cache vs direct (dropout off)",
+                              out["cache"], out["direct"], bounds)
+    remove = wrong_cache_cotangents()
+    try:
+        planted = coco_grads(model, batch, CocoConfig(
+            cache_chunk_size=COCO_CHUNK, max_grad_norm=0))
+    finally:
+        remove()
+    what_p, ok_p = coco_agreement("the next chunk's cotangents planted",
+                                  planted, out["direct"], bounds)
+    phase(f"  {what}; {what_p}")
+    if not ok:
+        raise AssertionError("coco: the grad cache and the direct step "
+                             "disagree")
+    if ok_p:
+        raise AssertionError("coco: a cache step with the wrong chunk's "
+                             "cotangents passes the bounds")
+
+
+def coco_cpu_compare(args, dev, stage, bert, batch):
+    """Leg (e): one direct step at 2 x COCO_CMP_DOCS spans, dropout off, on
+    the card (K1, K8: fused attention, bf16) and on the CPU through the
+    plain versions in float32 from the same weights: the loss and the
+    clipped gradients (compare_step's bounds, the worst tensor's at
+    COCO_CMP_TENSOR_COSINE); then the card's step with the c_head fed from
+    hidden_states[skip_from - 1] must fail them."""
+    fused = dataclasses.replace(bert, attention_impl="fused")
+    n = bert.num_hidden_layers + stage.n_head_layers
+    model = coco_model(args, dev, stage, fused, 13)
+    cpu_model = coco_model(args, "cpu", stage, dataclasses.replace(
+        bert, dtype=torch.float32), 13)
+    cpu_model.load_state_dict(model.state_dict())
+    cfg = coco_config(stage)
+    bounds = (CMP_LOSS_RTOL, CMP_GLOBAL_COSINE, COCO_CMP_TENSOR_COSINE)
+    out = {}
+    zero_counts()
+    for name, m in (("card", model), ("cpu", cpu_model)):
+        d = next(m.parameters()).device
+        t = time.perf_counter()
+        out[name] = coco_grads(m, {k: v.to(d) for k, v in batch.items()},
+                               cfg)
+        phase(f"  coco compare: {name} step {time.perf_counter() - t:.2f} s,"
+              f" loss {out[name][0]['loss']:.6f}")
+        if name == "card":
+            counts = read_counts("coco (e) card", ["K1_ffn_block",
+                                                   "K8_attention"])
+            check_counts("coco (e) card", counts, {"K1_ffn_block": n,
+                                                   "K8_attention": n})
+    what, ok = coco_agreement(
+        f"coco (e) card vs CPU float32 ({2 * COCO_CMP_DOCS} spans, dropout "
+        f"off)", out["card"], out["cpu"], bounds)
+    model.skip_from = stage.skip_from - 1
+    planted = coco_grads(model, batch, cfg)
+    what_p, ok_p = coco_agreement(
+        f"c_head fed from hidden_states[{model.skip_from}] planted", planted,
+        out["cpu"], bounds)
+    phase(f"  {what}; {what_p}")
+    if not ok:
+        raise AssertionError("coco: card and CPU steps disagree")
+    if ok_p:
+        raise AssertionError("coco: a step with the c_head fed from the "
+                             "wrong layer passes the bounds")
+
+
+def check_resume(losses, resumed_losses, final, model, n_batches):
+    """The resumed run's losses and final parameters must equal the
+    uninterrupted run's bit for bit."""
+    differ = [k for k, v in model.state_dict().items()
+              if not torch.equal(v, final[k])]
+    worst = max(((v.float() - final[k].float()).abs().max().item(), k)
+                for k, v in model.state_dict().items() if k in differ) \
+        if differ else (0.0, "none")
+    phase(f"  coco (a) resume from checkpoint-{COCO_SAVE}: the {n_batches} "
+          f"batches equal the uninterrupted run's bit for bit; losses "
+          f"{'equal' if resumed_losses == losses else 'differ'}; "
+          f"{len(differ)} of {len(final)} parameter tensors differ (max "
+          f"|diff| {worst[0]:.3e} in {worst[1]})")
+    if differ or resumed_losses != losses:
+        raise AssertionError("coco: the resumed run left the uninterrupted "
+                             "one")
+
+
+def coco(args, dev):
+    """The coco phase: COCO pretraining at CocoStageConfig.base(); each
+    leg's launches are checked and printed here."""
+    from cocodr_tpu_torch.core.configs import CocoStageConfig
+    from cocodr_tpu_torch.data.coco_spans import count_span_batches
+    from cocodr_tpu_torch.pipelines.coco import coco_generator
+    from cocodr_tpu_torch.utils.train_state import (
+        AsyncSaver,
+        list_checkpoints,
+        load_checkpoint,
+    )
+
+    stage = CocoStageConfig.base()
+    bert = dataclasses.replace(stage.bert, dtype=torch.bfloat16)
+    layers, heads = bert.num_hidden_layers, stage.n_head_layers
+    docs = stage.per_device_batch_docs
+    spans_a_step = 2 * docs
+    seq = stage.max_seq_length
+    card = nvidia_smi()
+    with tempfile.TemporaryDirectory() as root:
+        spans, tok = write_coco_corpus(args, root, docs * COCO_BATCHES)
+        total = count_span_batches([spans], docs)
+        # the collator's host time a batch (first batches of the stream)
+        t = time.perf_counter()
+        first = list(itertools.islice(coco_stream(args, stage, spans, tok,
+                                                  docs), 3))
+        coll_ms = (time.perf_counter() - t) * 1e3 / len(first)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in first[0].items()}
+        if batch["input_ids"].shape != (COCO_SPANS, COCO_LEN):
+            raise AssertionError(f"coco batch {batch['input_ids'].shape}")
+        masked = int((batch["labels"] != -100).sum())
+
+        # (a) the direct step with dropout: 10 steps saving at 5 and 10
+        ckpt = os.path.join(root, "ckpt")
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        state = coco_state(args, dev, stage, bert, total)
+        rec = coco_run(args, state, stage, spans, tok, 0, COCO_STEPS, True,
+                       ckpt=ckpt)
+        counts = read_counts("coco (a) direct", ["K5_ffn"])
+        check_counts("coco (a) direct", counts,
+                     {"K5_ffn": (layers + heads) * COCO_STEPS})
+        peak_a = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = check_steps("coco (a)", rec, 1, COCO_STEPS,
+                                  {"K5_ffn": layers + heads})
+        sps, n_gaps = spans_per_s(rec, spans_a_step, skip=(COCO_SAVE + 1,))
+        sps_save, _ = spans_per_s(rec, spans_a_step)
+        saved = [os.path.basename(p) for p in list_checkpoints(ckpt)]
+        if saved != [f"checkpoint-{COCO_SAVE}", f"checkpoint-{COCO_STEPS}"]:
+            raise AssertionError(f"coco checkpoints {saved}")
+        final = {k: v.clone() for k, v in state.model.state_dict().items()}
+        del state
+        torch.cuda.empty_cache()
+
+        # resume: a fresh state loads checkpoint-5 and goes on to step 10
+        # through span_batches(start_batch=5), saving through AsyncSaver
+        state = coco_state(args, dev, stage, bert, total)
+        load_checkpoint(os.path.join(ckpt, f"checkpoint-{COCO_SAVE}"), state)
+        ckpt2 = os.path.join(root, "ckpt_resume")
+        saver = AsyncSaver()
+        zero_counts()
+        rec2 = coco_run(args, state, stage, spans, tok, 0, COCO_STEPS, True,
+                        start=state.step, ckpt=ckpt2, saver=saver)
+        saver.close()
+        counts2 = read_counts("coco (a) resume", ["K5_ffn"])
+        check_counts("coco (a) resume", counts2, {
+            "K5_ffn": (layers + heads) * (COCO_STEPS - COCO_SAVE)})
+        losses2 = check_steps("coco (a) resume", rec2, COCO_SAVE + 1,
+                                   COCO_STEPS, {"K5_ffn": layers + heads})
+        for i, (a, b) in enumerate(zip(rec.batches[COCO_SAVE:],
+                                       rec2.batches)):
+            for k in a:
+                if not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"coco resume: batch {COCO_SAVE + i}"
+                                         f" {k} differs")
+        check_resume(losses[COCO_SAVE:], losses2, final, state.model,
+                     len(rec2.batches))
+        check = coco_state(args, dev, stage, bert, total)
+        load_checkpoint(list_checkpoints(ckpt2)[-1], check)
+        if check.step != COCO_STEPS:
+            raise AssertionError(f"coco async checkpoint step {check.step}")
+        for (k, v), w in zip(check.model.state_dict().items(),
+                             state.model.state_dict().values()):
+            if not torch.equal(v, w):
+                raise AssertionError(f"coco async checkpoint lost {k}")
+        for p, q in zip(check.model.parameters(), state.model.parameters()):
+            for key in ("exp_avg", "exp_avg_sq"):
+                if not torch.equal(check.optimizer.state[p][key],
+                                   state.optimizer.state[q][key]):
+                    raise AssertionError(f"coco async checkpoint lost {key}")
+        del check, final
+        phase(f"  coco (a) losses: {', '.join(f'{x:.4f}' for x in losses)};"
+              f" the async checkpoint-{COCO_STEPS} loads back equal to the "
+              f"state")
+        def coco_loss(st):
+            gen = coco_generator(args.seed, st.step, dev)
+            return lambda: st.model.loss_with_contrastive(
+                batch["input_ids"], batch["attention_mask"], batch["labels"],
+                generator=gen)[0]
+
+        state.model.train()
+        (fwd, bwd, opt), host = step_phases(state, coco_loss)
+        busy, top = step_busy(state, coco_loss, top=COCO_TOP_KERNELS)
+        # the MLM decoder alone: transform + tied decoder over the
+        # [2 x budget, H] rows of one step
+        model = state.model
+        budget = model._mlm_budget(batch["labels"])[0].numel()
+        rows = torch.randn(2 * budget, bert.hidden_size, device=dev,
+                           dtype=torch.bfloat16)
+        with torch.no_grad():
+            dec_ms = device_ms(lambda: model.mlm_logits(rows), 5)
+        flops, recompute, padding = coco_step_flops(
+            bert, heads, spans_a_step, seq, 2 * masked, 2 * budget)
+        b_ms = flops / BF16_FLOP_PER_S * 1e3
+        phase(f"  coco (a) direct step, dropout 0.1, {spans_a_step} spans x "
+              f"{seq} ({masked} masked of T = {spans_a_step * seq}, budget "
+              f"{budget} rows): {sps:.1f} spans/s (host clock, {n_gaps} "
+              f"steps after 2 untimed, without the step that holds the "
+              f"checkpoint-{COCO_SAVE} save; {sps_save:.1f} with it); card "
+              f"ms per step: forward "
+              f"{fwd:.3f}, backward {bwd:.3f}, optimizer {opt:.3f} (total "
+              f"{fwd + bwd + opt:.3f}); host ms to issue them {host[0]:.3f},"
+              f" {host[1]:.3f}, {host[2]:.3f}; MLM decoder forward "
+              f"{dec_ms:.3f} ms ([{2 * budget}, {bert.hidden_size}] x "
+              f"[{bert.hidden_size}, {bert.vocab_size}]); collator "
+              f"{coll_ms:.1f} ms a batch (host); peak memory {peak_a:.2f} "
+              f"GiB; step bound {b_ms:.3f} ms ({flops / 1e12:.2f} TFLOP at "
+              f"989 TFLOP/s, operations; beyond the function, K5's FFN "
+              f"recompute {recompute / 1e12:.2f} TFLOP and the budget's "
+              f"{2 * (budget - masked)} unlabelled rows "
+              f"{padding / 1e12:.2f} TFLOP) [{card}]")
+        span = fwd + bwd + opt
+        phase(f"  coco (a) one profiled step: card kernels busy {busy:.3f} ms"
+              f" against an unprofiled step's {span:.3f} ms card span: busy "
+              f"share " + (f"{busy / span:.3f}; kernels by device ms: "
+                           + "; ".join(f"{name[:70]} {ms:.3f}"
+                                       for name, ms in top)
+                           if busy > 0 else
+                           "not measured (the trace holds no device time)"))
+        del state, model, rows
+        torch.cuda.empty_cache()
+
+        # (b) the grad cache with dropout: 4 chunks a step
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        state = coco_state(args, dev, stage, bert, total)
+        model = state.model
+        seen = {"pass 1": [], "pass 2": []}
+        cls_emb, forward = model.cls_emb, model.forward
+
+        def rec_cls(*a, **k):
+            out = cls_emb(*a, **k)
+            seen["pass 1"].append(out.clone())
+            return out
+
+        def rec_forward(*a, **k):
+            loss, aux = forward(*a, **k)
+            seen["pass 2"].append(aux["cls"].detach().clone())
+            return loss, aux
+
+        model.cls_emb, model.forward = rec_cls, rec_forward
+        n_chunks = spans_a_step // COCO_CHUNK
+        per_step = n_chunks * (2 * layers + heads)
+        rec3 = coco_run(args, state, stage, spans, tok, COCO_CHUNK,
+                        COCO_CACHE_STEPS, True)
+        counts3 = read_counts("coco (b) grad cache", ["K5_ffn"])
+        check_counts("coco (b) grad cache", counts3,
+                     {"K5_ffn": per_step * COCO_CACHE_STEPS})
+        peak_b = torch.cuda.max_memory_allocated() / 2 ** 30
+        cache_losses = check_steps("coco (b)", rec3, 1, COCO_CACHE_STEPS,
+                                        {"K5_ffn": per_step})
+        del model.cls_emb, model.forward  # the recorders' references
+        if not (len(seen["pass 1"]) == len(seen["pass 2"])
+                == n_chunks * COCO_CACHE_STEPS):
+            raise AssertionError(f"coco (b): {len(seen['pass 1'])} pass-1 "
+                                 f"and {len(seen['pass 2'])} pass-2 chunks")
+        for i, (a, b) in enumerate(zip(seen["pass 1"], seen["pass 2"])):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"coco (b): chunk {i}'s pass-2 CLS is not its pass-1 CLS"
+                    f" (max |diff| {(a.float() - b.float()).abs().max():.3e})")
+        sps_b, n_b = spans_per_s(rec3, spans_a_step)
+        phase(f"  coco (b) grad cache, {n_chunks} chunks of {COCO_CHUNK}, "
+              f"dropout 0.1: every chunk's pass-2 CLS equals its pass-1 CLS "
+              f"bit for bit ({len(seen['pass 1'])} chunks); {sps_b:.1f} "
+              f"spans/s over {n_b} steps (direct: {sps:.1f}); peak memory "
+              f"{peak_b:.2f} GiB (direct: {peak_a:.2f}); losses "
+              f"{', '.join(f'{x:.4f}' for x in cache_losses)}")
+        del state, model, seen
+        torch.cuda.empty_cache()
+
+        # (c) the grad cache against the direct step, dropout off
+        coco_cache_compare(args, dev, stage, bert, batch)
+        torch.cuda.empty_cache()
+
+        # (d) fused attention, no dropout: K1 and K8 on every layer
+        zero_counts()
+        state = coco_state(args, dev, stage, dataclasses.replace(
+            bert, attention_impl="fused"), total)
+        rec4 = coco_run(args, state, stage, spans, tok, 0, COCO_FUSED_STEPS,
+                        False)
+        counts4 = read_counts("coco (d) fused attention",
+                              ["K1_ffn_block", "K8_attention"])
+        check_counts("coco (d) fused attention", counts4, {
+            "K1_ffn_block": (layers + heads) * COCO_FUSED_STEPS,
+            "K8_attention": (layers + heads) * COCO_FUSED_STEPS})
+        fused_losses = check_steps(
+            "coco (d)", rec4, 1, COCO_FUSED_STEPS,
+            {"K1_ffn_block": layers + heads, "K8_attention": layers + heads})
+        phase(f"  coco (d) no dropout, fused attention: losses "
+              f"{', '.join(f'{x:.4f}' for x in fused_losses)}")
+        del state
+        torch.cuda.empty_cache()
+
+        # (e) the card against the CPU's plain versions in float32
+        small = next(coco_stream(args, stage, spans, tok, COCO_CMP_DOCS))
+        coco_cpu_compare(args, dev, stage, bert,
+                         {k: torch.from_numpy(v).to(dev)
+                          for k, v in small.items()})
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3309,6 +3924,10 @@ def main() -> None:
 
     phase("ance-mine")
     ance_mine(args, dev)
+    torch.cuda.empty_cache()
+
+    phase("coco")
+    coco(args, dev)
 
     # each kernel's numbers at the shape of the path that launches it, and
     # its launches on that path: (path's counts, the wrapper's counter)

@@ -1,12 +1,12 @@
 """Stage configurations: the counterpart of cocodr_tpu/core/configs.py for
-the BM25 warmup and ANCE (`OptimizerConfig`, `WarmupStageConfig`,
-`AnceStageConfig`), with the hyperparameters of record (reference
-warmup/README.md, warmup/commands/run_bm25_warmup.sh, ANCE/README.md).
+COCO pretraining, the BM25 warmup and ANCE (`OptimizerConfig`,
+`CocoStageConfig`, `WarmupStageConfig`, `AnceStageConfig`), with the
+hyperparameters of record (reference COCO/README.md, warmup/README.md,
+warmup/commands/run_bm25_warmup.sh, ANCE/README.md).
 
-`OptimizerConfig.build` makes the reference LAMB with the linear, cosine
-or ANCE episode schedules. What it does not build yet raises
-NotImplementedError with the ROADMAP.md item that brings it: AdamW and
-gradient accumulation (Queue 1 item 13).
+`OptimizerConfig.build` makes the reference LAMB or optax.adamw's AdamW
+with the linear, cosine or ANCE episode schedules. Gradient accumulation
+raises NotImplementedError: ROADMAP.md Queue 1 item 13.
 """
 from __future__ import annotations
 
@@ -32,7 +32,12 @@ class OptimizerConfig:
 
     def build(self, params):
         """-> a torch.optim.Optimizer over params."""
-        from cocodr_tpu_torch.optim import Lamb, warmup_cosine, warmup_linear
+        from cocodr_tpu_torch.optim import (
+            AdamW,
+            Lamb,
+            warmup_cosine,
+            warmup_linear,
+        )
         from cocodr_tpu_torch.optim.schedules import (
             episode_decay,
             episode_rewarmup,
@@ -41,11 +46,7 @@ class OptimizerConfig:
         if self.schedule not in ("linear", "cosine", "episode-rewarmup",
                                  "episode-decay"):
             raise ValueError(self.schedule)
-        if self.name == "adamw":
-            raise NotImplementedError(
-                "adamw is not ported yet: ROADMAP.md Queue 1 item 13"
-            )
-        if self.name != "lamb":
+        if self.name not in ("lamb", "adamw"):
             raise ValueError(self.name)
         if self.grad_accum_steps > 1:
             raise NotImplementedError(
@@ -66,8 +67,55 @@ class OptimizerConfig:
             sched = (warmup_linear if self.schedule == "linear"
                      else warmup_cosine)(self.lr, self.warmup_steps,
                                          self.total_steps)
-        return Lamb(params, sched, eps=self.eps,
-                    weight_decay=self.weight_decay)
+        opt = Lamb if self.name == "lamb" else AdamW
+        return opt(params, sched, eps=self.eps,
+                   weight_decay=self.weight_decay)
+
+
+@dataclasses.dataclass(frozen=True)
+class CocoStageConfig:
+    """COCO pretraining (reference COCO/README.md Key Hyperparameter; the
+    fields of COCO/arguments.py:20-134: mlm_probability :66-68,
+    n_head_layers/skip_from/late_mlm :120-122, warmup_ratio :127,
+    cache_chunk_size :134)."""
+
+    bert: BertConfig = BertConfig()
+    optimizer: OptimizerConfig = OptimizerConfig(lr=1e-4, schedule="linear")
+    per_device_batch_docs: int = 200  # x2 spans
+    num_epochs: int = 8
+    warmup_ratio: float = 0.1
+    max_seq_length: int = 128
+    mlm_probability: float = 0.15
+    n_head_layers: int = 2
+    skip_from: int = 6
+    late_mlm: bool = True
+    cache_chunk_size: int = 0
+    # the MLM decoder's gather budget as a fraction of B * S; the WWM
+    # collator masks at most round(mlm_probability * len) tokens a
+    # sequence, so any frac >= mlm_probability + 1 / (2 * max_seq_length)
+    # covers every masked position
+    mlm_budget_frac: float = 0.17
+
+    def warmup_steps_for(self, total_steps: int) -> int:
+        """warmup_ratio -> warmup steps from the run's step budget
+        (reference COCO/trainer.py:66-70: num_training_steps *
+        warmup_ratio, overriding a fixed warmup_steps)."""
+        if self.warmup_ratio > 0 and total_steps > 0:
+            return max(1, int(total_steps * self.warmup_ratio))
+        return self.optimizer.warmup_steps
+
+    @classmethod
+    def base(cls):
+        return cls()
+
+    @classmethod
+    def large(cls):
+        return cls(
+            bert=BertConfig.large(),
+            optimizer=OptimizerConfig(lr=1e-5, schedule="linear"),
+            per_device_batch_docs=100,
+            skip_from=12,
+        )
 
 
 @dataclasses.dataclass(frozen=True)

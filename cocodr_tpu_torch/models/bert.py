@@ -24,8 +24,13 @@ on the attention output and on the FFN output, each before its residual
 add. Its masks come from the `torch.Generator` the caller hands to
 `forward`; the port never draws from the global RNG.
 
-Not carried over yet: RoBERTa position ids, the pooler, hidden-state
-collection and remat (ROADMAP.md).
+`BertModel.forward(..., output_hidden_states=True)` also returns the
+embeddings output and each layer's output, HuggingFace-style, for the
+Condenser head; `BertMLMTransform` and `BertModel.mlm_logits_from_embed`
+(the tied decoder) are the MLM head of models/condenser.py.
+
+Not carried over yet: RoBERTa position ids, the pooler and remat
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -165,10 +170,17 @@ class BertEmbeddings(nn.Module):
 
     def forward(self, input_ids, token_type_ids, position_ids,
                 generator=None):
+        """The token-type rows are taken by a one-hot product, the same
+        values as a lookup: its backward is a GEMM, where the card's
+        embedding backward sums the many lookups of one row (every token
+        of a batch has type 0) in an order that changes from run to run."""
         dt = self.cfg.dtype
+        w = self.token_type_embeddings.weight
+        one_hot = F.one_hot(token_type_ids.long(), self.cfg.type_vocab_size)
+        token_type = one_hot.to(w.dtype) @ w
         h = (self.word_embeddings(input_ids).to(dt)
              + self.position_embeddings(position_ids).to(dt)
-             + self.token_type_embeddings(token_type_ids).to(dt))
+             + token_type.to(dt))
         return _dropout(self, self.LayerNorm(h), self.cfg.hidden_dropout_prob,
                         generator)
 
@@ -306,9 +318,17 @@ class BertEncoder(nn.Module):
             BertLayer(cfg) for _ in range(cfg.num_hidden_layers)
         )
 
-    def forward(self, h, attn_bias, generator=None):
+    def forward(self, h, attn_bias, generator=None,
+                output_hidden_states: bool = False):
+        """-> the last layer's output, or with output_hidden_states
+        (last, (h, layer 1's output, ..., layer L's output))."""
+        hidden_states = [h]
         for layer in self.layer:
             h = layer(h, attn_bias, generator)
+            if output_hidden_states:
+                hidden_states.append(h)
+        if output_hidden_states:
+            return h, tuple(hidden_states)
         return h
 
 
@@ -322,9 +342,12 @@ class BertModel(nn.Module):
         self.encoder = BertEncoder(cfg)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
-                generator=None):
+                generator=None, output_hidden_states: bool = False):
         """generator: the torch.Generator (on the inputs' device) that
-        dropout draws from in training mode; unused in eval mode."""
+        dropout draws from in training mode; unused in eval mode.
+        output_hidden_states: return (last, hidden_states), hidden_states
+        the tuple of the embeddings output and each layer's output, so that
+        hidden_states[i] is layer i's output (HuggingFace's order)."""
         B, S = input_ids.shape
         if S > self.cfg.max_position_embeddings:
             raise ValueError(
@@ -339,7 +362,33 @@ class BertModel(nn.Module):
         position_ids = torch.arange(S, device=dev)[None, :]
         h = self.embeddings(input_ids, token_type_ids, position_ids,
                             generator)
-        return self.encoder(h, make_attention_bias(attention_mask), generator)
+        return self.encoder(h, make_attention_bias(attention_mask), generator,
+                            output_hidden_states)
+
+    def mlm_logits_from_embed(self, transformed):
+        """The tied decoder: transformed [..., H] @ word_embeddings.T. As
+        flax's nn.Embed.attend, both operands are cast to the compute dtype
+        and the product comes out in it (bf16 logits from a bf16
+        product on the card)."""
+        dt = self.cfg.dtype
+        return F.linear(transformed.to(dt),
+                        self.embeddings.word_embeddings.weight.to(dt))
+
+
+class BertMLMTransform(nn.Module):
+    """HuggingFace's `cls.predictions.transform`: dense in the compute
+    dtype, the activation, then the float32-statistics LayerNorm."""
+
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
+                                   cfg.dtype)
+
+    def forward(self, h):
+        h = linear(h, self.dense, self.cfg.dtype)
+        return self.LayerNorm(activation(self.cfg.hidden_act)(h))
 
 
 def cast_matmul_weights(module: nn.Module, dtype: torch.dtype) -> None:

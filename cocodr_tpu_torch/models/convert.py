@@ -4,9 +4,11 @@ The tests run both packages on the same weights: they take the flax tree as
 numpy (`jax.device_get(params)`) and load the result of these functions
 into the port's modules. `load_jax_train_state` carries a whole JAX
 TrainState (params, LAMB moments, step, schedule count) into the port, so
-that a run started in the JAX package continues in the port. The name mapping is the HuggingFace one of
-cocodr_tpu/models/hf.py (`bert_params_to_torch`), kept here as a copy so
-that the port imports nothing of the JAX package.
+that a run started in the JAX package continues in the port;
+`condenser_state_dict_from_jax` takes the COCO stage's Condenser. The
+name mapping is the HuggingFace one of cocodr_tpu/models/hf.py
+(`bert_params_to_torch`), kept here as a copy so that the port imports
+nothing of the JAX package.
 
 flax layout: Dense kernels are [in, out] (nn.Linear keeps [out, in]); the
 encoder's layers are stacked on a leading `layer` axis (nn.scan); the
@@ -29,13 +31,50 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
+def _index(tree, i):
+    """Slice i of every leaf of a (nested) dict of stacked arrays."""
+    if isinstance(tree, Mapping):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _layer_state_dict(layer: Mapping, pre: str, H: int
+                      ) -> Dict[str, torch.Tensor]:
+    """One flax BertLayer's params (un-stacked) -> the port's BertLayer
+    names under `pre`."""
+    attn = layer["attention"]
+    out = {}
+    for name in ("query", "key", "value"):
+        out[f"{pre}.attention.self.{name}.weight"] = _t(
+            np.asarray(attn[name]["kernel"]).reshape(H, H).T)
+        out[f"{pre}.attention.self.{name}.bias"] = _t(
+            np.asarray(attn[name]["bias"]).reshape(H))
+    out[f"{pre}.attention.output.dense.weight"] = _t(
+        np.asarray(attn["output"]["kernel"]).reshape(H, H).T)
+    out[f"{pre}.attention.output.dense.bias"] = _t(attn["output"]["bias"])
+    out[f"{pre}.attention.output.LayerNorm.weight"] = _t(
+        layer["attention_layer_norm"]["scale"])
+    out[f"{pre}.attention.output.LayerNorm.bias"] = _t(
+        layer["attention_layer_norm"]["bias"])
+    out[f"{pre}.intermediate.dense.weight"] = _t(
+        np.asarray(layer["intermediate"]["kernel"]).T)
+    out[f"{pre}.intermediate.dense.bias"] = _t(layer["intermediate"]["bias"])
+    out[f"{pre}.output.dense.weight"] = _t(
+        np.asarray(layer["ffn_output"]["kernel"]).T)
+    out[f"{pre}.output.dense.bias"] = _t(layer["ffn_output"]["bias"])
+    out[f"{pre}.output.LayerNorm.weight"] = _t(
+        layer["output_layer_norm"]["scale"])
+    out[f"{pre}.output.LayerNorm.bias"] = _t(
+        layer["output_layer_norm"]["bias"])
+    return out
+
+
 def bert_state_dict_from_jax(params: Mapping, cfg: BertConfig
                              ) -> Dict[str, torch.Tensor]:
     """flax models.bert.BertModel params -> state dict of models.bert.BertModel."""
     L, H = cfg.num_hidden_layers, cfg.hidden_size
     emb = params["embeddings"]
     enc = params["encoder"]["layers"]["layer"]
-    attn = enc["attention"]
     out = {
         "embeddings.word_embeddings.weight":
             _t(emb["word_embeddings"]["embedding"]),
@@ -47,38 +86,7 @@ def bert_state_dict_from_jax(params: Mapping, cfg: BertConfig
         "embeddings.LayerNorm.bias": _t(emb["layer_norm"]["bias"]),
     }
     for i in range(L):
-        pre = f"encoder.layer.{i}"
-        for name in ("query", "key", "value"):
-            out[f"{pre}.attention.self.{name}.weight"] = _t(
-                np.asarray(attn[name]["kernel"][i]).reshape(H, H).T
-            )
-            out[f"{pre}.attention.self.{name}.bias"] = _t(
-                np.asarray(attn[name]["bias"][i]).reshape(H)
-            )
-        out[f"{pre}.attention.output.dense.weight"] = _t(
-            np.asarray(attn["output"]["kernel"][i]).reshape(H, H).T
-        )
-        out[f"{pre}.attention.output.dense.bias"] = _t(attn["output"]["bias"][i])
-        out[f"{pre}.attention.output.LayerNorm.weight"] = _t(
-            enc["attention_layer_norm"]["scale"][i]
-        )
-        out[f"{pre}.attention.output.LayerNorm.bias"] = _t(
-            enc["attention_layer_norm"]["bias"][i]
-        )
-        out[f"{pre}.intermediate.dense.weight"] = _t(
-            np.asarray(enc["intermediate"]["kernel"][i]).T
-        )
-        out[f"{pre}.intermediate.dense.bias"] = _t(enc["intermediate"]["bias"][i])
-        out[f"{pre}.output.dense.weight"] = _t(
-            np.asarray(enc["ffn_output"]["kernel"][i]).T
-        )
-        out[f"{pre}.output.dense.bias"] = _t(enc["ffn_output"]["bias"][i])
-        out[f"{pre}.output.LayerNorm.weight"] = _t(
-            enc["output_layer_norm"]["scale"][i]
-        )
-        out[f"{pre}.output.LayerNorm.bias"] = _t(
-            enc["output_layer_norm"]["bias"][i]
-        )
+        out.update(_layer_state_dict(_index(enc, i), f"encoder.layer.{i}", H))
     return out
 
 
@@ -96,6 +104,28 @@ def params_from_jax(params: Mapping, cfg: DualEncoderConfig
         out["head.dense.bias"] = _t(head["dense"]["bias"])
         out["head.layer_norm.weight"] = _t(head["layer_norm"]["scale"])
         out["head.layer_norm.bias"] = _t(head["layer_norm"]["bias"])
+    return out
+
+
+def condenser_state_dict_from_jax(params: Mapping, cfg: BertConfig,
+                                  n_head_layers: int
+                                  ) -> Dict[str, torch.Tensor]:
+    """flax models.condenser.CondenserForPretraining params (the scanned
+    `bert`, `mlm_transform`, `decoder_bias` and the un-stacked
+    `c_head_{i}`) -> state dict of models.condenser's module."""
+    out = {"bert." + k: v
+           for k, v in bert_state_dict_from_jax(params["bert"], cfg).items()}
+    tr = params["mlm_transform"]
+    pre = "cls.predictions"
+    out[f"{pre}.transform.dense.weight"] = _t(
+        np.asarray(tr["dense"]["kernel"]).T)
+    out[f"{pre}.transform.dense.bias"] = _t(tr["dense"]["bias"])
+    out[f"{pre}.transform.LayerNorm.weight"] = _t(tr["layer_norm"]["scale"])
+    out[f"{pre}.transform.LayerNorm.bias"] = _t(tr["layer_norm"]["bias"])
+    out[f"{pre}.bias"] = _t(params["decoder_bias"])
+    for i in range(n_head_layers):
+        out.update(_layer_state_dict(params[f"c_head_{i}"], f"c_head.{i}",
+                                     cfg.hidden_size))
     return out
 
 

@@ -21,7 +21,7 @@ are parallel/topk.py::search_topk and ops/kmeans.py on the device.
 (`place_corpus`) and both its searches read that one tensor. Not ported
 yet, each raising NotImplementedError naming its ROADMAP.md Queue 1 item:
 `search_method="ivf"` (item 7), multi-chunk models (item 3), a mesh and
-`device_put` (item 11), `train_loop(saver=...)` (item 13).
+`device_put` (item 11).
 """
 from __future__ import annotations
 
@@ -615,14 +615,10 @@ def train_loop(
     the mined dev nDCG/MRR are logged at the step where a file is
     consumed, with the per-BEIR-task group curves read from
     group_result_dir (reference run_ann.py:270-284), and after it the
-    file's steps and the DRO state's scalars. saver (the JAX package's
-    AsyncSaver) raises: ROADMAP.md Queue 1 item 13; device_put raises:
-    item 11."""
-    if saver is not None:
-        raise NotImplementedError(
-            "asynchronous checkpoint saves (saver) are not ported yet: "
-            "ROADMAP.md Queue 1 item 13"
-        )
+    file's steps and the DRO state's scalars. saver: a
+    utils.train_state.AsyncSaver, which writes the progress record after
+    the checkpoint's DONE marker (None: both written synchronously);
+    device_put raises: item 11."""
     if device_put is not None:
         raise NotImplementedError(
             "device_put (sharded placement) is not ported yet: ROADMAP.md "
@@ -662,9 +658,18 @@ def train_loop(
                             dro_state_summary(state.extra).items()
                             if not isinstance(v, list)})
             metrics_logger.log(int(state.step), rec, prefix="ance/")
-        save_checkpoint(ckpt_dir, state, keep=3)
-        _write_progress(ckpt_dir, n)
+        # the progress record never runs ahead of a valid checkpoint: a
+        # crash between them would resume from an older checkpoint and skip
+        # this file's training
+        if saver is not None:
+            saver.save(ckpt_dir, state, keep=3,
+                       on_complete=lambda n=n: _write_progress(ckpt_dir, n))
+        else:
+            save_checkpoint(ckpt_dir, state, keep=3)
+            _write_progress(ckpt_dir, n)
         consumed += 1
+    if saver is not None:
+        saver.wait()
     return state
 
 

@@ -8,9 +8,9 @@ is by line index.
 
 The tokenizer is any callable with the HuggingFace call signature
 (texts, padding=, truncation=, max_length=, return_tensors="np"); the port
-does not import `transformers`. Not carried over yet (ROADMAP.md Queue 1
-item 13): the JAX `saver` (an AsyncSaver; checkpoints are written
-synchronously) and sharded placement (`device_put`).
+does not import `transformers`. `saver` (utils/train_state.py::AsyncSaver)
+writes the checkpoints on a background thread. Sharded placement
+(`device_put`) is not carried over yet: ROADMAP.md Queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -93,12 +93,11 @@ def run_warmup(state: TrainState, train_step: Callable, triples_path: str,
     checkpoint of ckpt_dir and skips the batches its step consumed, before
     tokenizing them. dropout_seed: trains with dropout, the step's three
     generators seeded from (dropout_seed, step, tower), so a resumed run
-    draws the same masks; None trains in eval mode, without dropout."""
-    if saver is not None:
-        raise NotImplementedError(
-            "asynchronous checkpoints (AsyncSaver) are not ported yet: "
-            "ROADMAP.md Queue 1 item 13"
-        )
+    draws the same masks; None trains in eval mode, without dropout.
+    saver: a utils.train_state.AsyncSaver for checkpoints written in the
+    background (None: written synchronously); the run waits for the last
+    one before it returns."""
+    save = saver.save if saver is not None else save_checkpoint
     os.makedirs(ckpt_dir, exist_ok=True)
     if resume:
         ck = latest_checkpoint(ckpt_dir)
@@ -133,12 +132,14 @@ def run_warmup(state: TrainState, train_step: Callable, triples_path: str,
         if log_fn and step % cfg.log_every == 0:
             log_fn(step, {"loss": float(loss), "acc": float(acc)})
         if cfg.save_steps and step % cfg.save_steps == 0:
-            save_checkpoint(ckpt_dir, state, keep=cfg.keep_checkpoints)
+            save(ckpt_dir, state, keep=cfg.keep_checkpoints)
             saved_step = step
         if eval_fn and cfg.eval_every_steps and step % cfg.eval_every_steps == 0:
             eval_fn(state)
         if cfg.max_steps and step >= cfg.max_steps:
             break
     if saved_step != state.step:  # the JAX loop saves here again
-        save_checkpoint(ckpt_dir, state, keep=cfg.keep_checkpoints)
+        save(ckpt_dir, state, keep=cfg.keep_checkpoints)
+    if saver is not None:
+        saver.wait()
     return state

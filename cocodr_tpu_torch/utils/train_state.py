@@ -7,8 +7,10 @@ checkpoint-{step} protocol, ANCE/drivers/run_ann.py): one
 `DONE` marker last, so that a save cut short leaves a directory that
 discovery skips. The payload is the port's own: `state.pt`, a `torch.save`
 of the step, the model's state dict, the optimizer's state dict and the
-DRO state's tensors when the state carries one (not an orbax tree). `models/convert.py::load_jax_train_state` takes a JAX
-TrainState into a port state instead.
+DRO state's tensors when the state carries one (not an orbax tree).
+`models/convert.py::load_jax_train_state` takes a JAX TrainState into a
+port state instead. `AsyncSaver` writes the same checkpoints on a
+background thread.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import json
 import os
 import re
 import shutil
-from typing import Optional
+import threading
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -46,26 +49,104 @@ def _ckpt_dir(root: str, step: int) -> str:
     return os.path.join(root, f"{CKPT_PREFIX}{step}")
 
 
-def save_checkpoint(root: str, state: TrainState, keep: int = 0) -> str:
-    """Payload first, DONE marker last; then keep only the newest `keep`
-    checkpoints (0 keeps all)."""
-    path = _ckpt_dir(root, state.step)
-    if os.path.exists(path):
-        shutil.rmtree(path)
-    os.makedirs(path)
+def _payload(state: TrainState) -> dict:
     extra = (None if state.extra is None
              else {f.name: getattr(state.extra, f.name)
                    for f in dataclasses.fields(state.extra)})
-    torch.save({"step": state.step,
-                "model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "extra": extra},
-               os.path.join(path, PAYLOAD))
+    return {"step": state.step,
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "extra": extra}
+
+
+def _fresh_dir(root: str, step: int) -> str:
+    path = _ckpt_dir(root, step)
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    os.makedirs(path)
+    return path
+
+
+def _commit(root: str, path: str, payload: dict, keep: int) -> None:
+    """Payload first, DONE marker last; then keep only the newest `keep`
+    checkpoints (0 keeps all)."""
+    torch.save(payload, os.path.join(path, PAYLOAD))
     with open(os.path.join(path, DONE_MARKER), "w") as f:
-        json.dump({"step": state.step}, f)
+        json.dump({"step": payload["step"]}, f)
     if keep > 0:
         prune_checkpoints(root, keep)
+
+
+def save_checkpoint(root: str, state: TrainState, keep: int = 0) -> str:
+    """Payload first, DONE marker last; then keep only the newest `keep`
+    checkpoints (0 keeps all)."""
+    path = _fresh_dir(root, state.step)
+    _commit(root, path, _payload(state), keep)
     return path
+
+
+def _host_copy(obj):
+    """A copy of a (nested) payload whose tensors are new host tensors."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v) for v in obj)
+    return obj
+
+
+class AsyncSaver:
+    """Checkpoints written on a background thread, with the DONE-marker
+    protocol: the counterpart of the JAX package's AsyncSaver.
+
+    `save()` copies the model's and the optimizer's state to host memory
+    (training may then go on and change them) and returns while a thread
+    writes the payload; the DONE marker follows the payload, so that a
+    save cut short leaves a directory that discovery skips, not a corrupt
+    checkpoint. At most one save is in flight: a save first waits for the
+    previous one. `wait()` joins it and raises again what it raised;
+    call it, or `close()`, before the process ends."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, root: str, state: TrainState, keep: int = 0,
+             on_complete: Optional[Callable[[], None]] = None) -> str:
+        """on_complete() runs after the DONE marker is written: bookkeeping
+        that must never run ahead of a valid checkpoint (the ANCE loop's
+        ann-progress record) goes there."""
+        self.wait()
+        path = _fresh_dir(root, state.step)
+        payload = _host_copy(_payload(state))
+
+        def commit():
+            try:
+                _commit(root, path, payload, keep)
+                if on_complete is not None:
+                    on_complete()
+            except Exception as e:  # raised again by the next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=commit, daemon=True)
+        self._thread.start()
+        return path
+
+    def wait(self) -> None:
+        """Join the save in flight; raise again what it raised, so that a
+        checkpoint that failed to commit is not found only at a later
+        resume."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError(
+                "asynchronous checkpoint commit failed") from err
+
+    def close(self) -> None:
+        self.wait()
 
 
 def list_checkpoints(root: str):

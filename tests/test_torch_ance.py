@@ -360,7 +360,8 @@ def test_what_mining_leaves_names_its_item(tmp_path):
     """What the mining half still leaves raises NotImplementedError naming
     its ROADMAP.md Queue 1 item: search_method='ivf' (item 7; with
     exact_fp32 the search is exact and runs), a multi-chunk model (item
-    3), a mesh and device_put (item 11), train_loop's saver (item 13)."""
+    3), a mesh and device_put (item 11). train_loop's saver came with the
+    COCO slice (tests/test_torch_coco.py)."""
     qp, pp, ann = write_ann_data(tmp_path)
     qc, pc = trec.TokenCache(qp), trec.TokenCache(pp)
     model = DualEncoder(MODEL_REGISTRY["rdot_nll"](BertConfig.tiny()))
@@ -374,11 +375,9 @@ def test_what_mining_leaves_names_its_item(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         tance.mine(model, None, *args, mesh=object(), device="cpu")
     state = tstate.TrainState(model, Lamb(model.parameters(), 1e-3))
-    for kw, item in ((dict(saver=object()), "item 13"),
-                     (dict(device_put=lambda b: b), "item 11")):
-        with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
-            tance.train_loop(state, None, None, str(tmp_path),
-                             str(tmp_path / "ck"), 1, **kw)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        tance.train_loop(state, None, None, str(tmp_path),
+                         str(tmp_path / "ck"), 1, device_put=lambda b: b)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         tance.train_on_ann_file(None, None, None, "x", 1,
                                 device_put=lambda b: b)

@@ -174,3 +174,33 @@ def test_bf16_compute_stays_close_to_f32():
         a, b = f32.query_emb(*args), bf16.query_emb(*args)
     assert b.dtype == torch.bfloat16
     assert float((a - b.float()).abs().max()) < 0.1
+
+
+def test_token_type_one_hot_equals_the_lookup():
+    """BertEmbeddings takes the token-type rows by a one-hot product (a
+    GEMM backward, which sums in one order on the card): the rows equal
+    nn.Embedding's lookup bit for bit, with float32 weights and with
+    weights held in bf16 (cast_matmul_weights), and the gradient equals
+    the lookup's to 1e-6 (float32, sums in another order)."""
+    from cocodr_tpu_torch.models.bert import BertEmbeddings
+
+    cfg = BertConfig.tiny(type_vocab_size=3)
+    emb = BertEmbeddings(cfg).eval()
+    tt = torch.randint(0, 3, (4, 9), generator=torch.Generator().manual_seed(0))
+    ids = torch.randint(5, 128, (4, 9), generator=torch.Generator().manual_seed(1))
+    pos = torch.arange(9)[None, :]
+    out = emb(ids, tt, pos)
+    out.square().sum().backward()
+    got = emb.token_type_embeddings.weight.grad.clone()
+    emb.zero_grad()
+    ref = emb.LayerNorm(emb.word_embeddings(ids) + emb.position_embeddings(pos)
+                        + emb.token_type_embeddings(tt))
+    assert torch.equal(out, ref)
+    ref.square().sum().backward()
+    np.testing.assert_allclose(got.numpy(),
+                               emb.token_type_embeddings.weight.grad.numpy(),
+                               rtol=1e-6, atol=1e-6)
+    emb.token_type_embeddings.to(torch.bfloat16)
+    w = emb.token_type_embeddings.weight
+    one_hot = torch.nn.functional.one_hot(tt, 3).to(w.dtype) @ w
+    assert torch.equal(one_hot, emb.token_type_embeddings(tt))

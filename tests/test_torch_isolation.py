@@ -32,6 +32,7 @@ MODULES = [
     "cocodr_tpu_torch.models.bert",
     "cocodr_tpu_torch.models.dual_encoder",
     "cocodr_tpu_torch.models.convert",
+    "cocodr_tpu_torch.models.condenser",
     "cocodr_tpu_torch.parallel",
     "cocodr_tpu_torch.parallel.topk",
     "cocodr_tpu_torch.pipelines.encode",
@@ -40,6 +41,7 @@ MODULES = [
     "cocodr_tpu_torch.pipelines.warmup",
     "cocodr_tpu_torch.pipelines.eval_beir",
     "cocodr_tpu_torch.pipelines.ance",
+    "cocodr_tpu_torch.pipelines.coco",
     "cocodr_tpu_torch.evals",
     "cocodr_tpu_torch.evals.metrics",
     "cocodr_tpu_torch.evals.msmarco",
@@ -49,11 +51,15 @@ MODULES = [
     "cocodr_tpu_torch.data.preprocess",
     "cocodr_tpu_torch.data.records",
     "cocodr_tpu_torch.data.streams",
+    "cocodr_tpu_torch.data.coco_collator",
+    "cocodr_tpu_torch.data.coco_spans",
     "cocodr_tpu_torch.losses",
     "cocodr_tpu_torch.losses.dro",
     "cocodr_tpu_torch.losses.nll",
+    "cocodr_tpu_torch.losses.contrastive",
     "cocodr_tpu_torch.optim",
     "cocodr_tpu_torch.optim.lamb",
+    "cocodr_tpu_torch.optim.adamw",
     "cocodr_tpu_torch.optim.schedules",
     "cocodr_tpu_torch.core",
     "cocodr_tpu_torch.core.configs",

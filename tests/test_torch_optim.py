@@ -26,7 +26,7 @@ from cocodr_tpu_torch.losses import triplet_nll
 from cocodr_tpu_torch.models import convert
 from cocodr_tpu_torch.models.bert import BertConfig
 from cocodr_tpu_torch.models.dual_encoder import MODEL_REGISTRY, DualEncoder
-from cocodr_tpu_torch.optim import Lamb, schedules
+from cocodr_tpu_torch.optim import AdamW, Lamb, schedules
 from cocodr_tpu_torch.pipelines.train_step import (
     TrainStepConfig,
     build_train_step,
@@ -234,9 +234,10 @@ def test_triplet_nll_with_weights_matches_jax():
 def test_optimizer_config_builds_lamb_and_names_what_waits():
     """lamb with the linear, cosine and ANCE episode schedules (each equal
     to the JAX OptimizerConfig's schedule, lr_floor and episode_steps
-    passed through); adamw and gradient accumulation raise with their
-    ROADMAP item, episode-rewarmup without episode_steps with the JAX
-    config's complaint."""
+    passed through); adamw builds the port's AdamW (its steps are held
+    against optax.adamw in tests/test_torch_coco.py); gradient
+    accumulation raises with its ROADMAP item, episode-rewarmup without
+    episode_steps with the JAX config's complaint."""
     p = [torch.nn.Parameter(torch.zeros(2))]
     for kw in (dict(schedule="linear"), dict(schedule="cosine"),
                dict(schedule="episode-decay", lr_floor=0.3),
@@ -262,10 +263,11 @@ def test_optimizer_config_builds_lamb_and_names_what_waits():
         for step in range(15):
             np.testing.assert_allclose(opt.schedule(step), float(ref(step)),
                                        rtol=2e-7, atol=2e-4 * 2.0 ** -23)
-    for kw, item in ((dict(name="adamw"), "item 13"),
-                     (dict(grad_accum_steps=2), "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            configs.OptimizerConfig(**kw).build(p)
+    assert isinstance(configs.OptimizerConfig(name="adamw").build(p), AdamW)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        configs.OptimizerConfig(grad_accum_steps=2).build(p)
+    with pytest.raises(ValueError):
+        configs.OptimizerConfig(name="sgd").build(p)
     with pytest.raises(ValueError, match="episode_steps"):
         configs.OptimizerConfig(schedule="episode-rewarmup").build(p)
 

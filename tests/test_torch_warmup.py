@@ -269,8 +269,28 @@ def test_dropout_run_resumes_with_the_same_masks(tmp_path):
 
 
 def test_async_saver_is_not_ported_yet(tmp_path):
-    state, _ = port_state()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        warmup.run_warmup(state, build_train_step(), "unused", None,
-                          warmup.WarmupConfig(), str(tmp_path),
-                          saver=object())
+    """The name is older than the port's AsyncSaver, which came with the
+    COCO slice: run_warmup(saver=AsyncSaver()) now writes in the
+    background the checkpoints a synchronous run writes, payloads equal
+    tensor for tensor, and waits for the last one before it returns."""
+    path = write_triples(str(tmp_path / "triples.tsv"), 3 * B)
+    cfg = warmup.WarmupConfig(max_seq_len=S, batch_size=B, num_epochs=1,
+                              save_steps=2)
+    payloads = {}
+    for name, saver in (("sync", None), ("async", ts.AsyncSaver())):
+        state, _ = port_state()
+        warmup.run_warmup(state, build_train_step(), path,
+                          WordHashTokenizer(), cfg, str(tmp_path / name),
+                          dropout_seed=3, saver=saver)
+        cks = ts.list_checkpoints(str(tmp_path / name))
+        assert [os.path.basename(c) for c in cks] == ["checkpoint-2",
+                                                      "checkpoint-3"]
+        payloads[name] = [torch.load(os.path.join(c, ts.PAYLOAD),
+                                     weights_only=True) for c in cks]
+    for a, b in zip(payloads["sync"], payloads["async"]):
+        assert a["step"] == b["step"]
+        for k, v in a["model"].items():
+            assert torch.equal(v, b["model"][k]), k
+        for i, st in a["optimizer"]["state"].items():
+            for k, v in st.items():
+                assert torch.equal(v, b["optimizer"]["state"][i][k]), k
