@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (cocodr_tpu_torch) on one NVIDIA H100.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--phases kernels,variants,...]
 
 Phases, each printed with its elapsed seconds:
   1. environment: torch and CUDA versions, the card's name and power limit;
@@ -21,7 +21,11 @@ Phases, each printed with its elapsed seconds:
      k = 10) and on rows of ties, +-0, INT_MIN, finfo.min and -inf (with
      and without pad slots), k = W, more candidates than one segment holds
      and rows too wide for shared memory, each equal to its plain version
-     bit for bit; K4 (K1 at bert-large widths), K7 (W8A8 FFN
+     bit for bit; K1 also at RoBERTa's LayerNorm eps 1e-5 and the
+     multi-chunk encode's T = 64 x 4 x 512, K4 at eps 1e-5, K5 at a
+     multi-chunk training step's T = 8 x 2,048, K8 at 256 chunk rows of
+     S = 512 of which a quarter are all padding (every key masked);
+     K4 (K1 at bert-large widths), K7 (W8A8 FFN
      half-layer, T = 64 to 32,768 at bert-base and bert-large widths, its
      launches split by a profiler trace beside torch._int_mm of its GEMMs'
      shapes) and K8 (fused attention, beside scaled_dot_product_attention)
@@ -145,10 +149,38 @@ Phases, each printed with its elapsed seconds:
      fail them; (d) fused attention without dropout (K1 and K8 14 a step);
      (e) one direct step at 16 spans on the card and on the CPU through
      the plain versions in float32, by compare_step's bounds, a step with
-     the c_head fed from hidden_states[5] planted must fail them.
+     the c_head fed from hidden_states[5] planted must fail them;
+ 12. variants: the model variants, random weights from the seed, bf16
+     compute. A BEIR-shaped task of 4,096 random-word documents of
+     128-2,048 tokens and 512 queries tokenized by prepare_beir_task
+     (records of 2,048 = 4 chunks of 512). (a) rdot_nll_multi_chunk on
+     RoBERTa-base through encode_cache_multivector, 64 documents a batch,
+     with einsum and with fused attention (K1 at T = 131,072, K8 at S =
+     512): docs/s, rows/s, card ms a batch; row2doc against the documents'
+     real chunks, six chunks (partly padded ones among them) against the
+     CPU's float32 rows by cosine, RoBERTa positions replaced by arange
+     planted must fail; (b) rdot_nll on RoBERTa-large through encode_cache
+     (2,048 records of up to 128 tokens, batch 256, K4 24 a batch) against
+     the CPU; (c) evaluate_beir_task with (a)'s fused model at top 1000
+     over the chunk rows (K1, K8, K2, K3): seconds by stage, row ids
+     against an exact plain search, documents' relevant ranks moved only
+     by near-ties, metrics recomputed; (d) one mine() round with that
+     model (2,048 train and 256 dev queries, top 200): the rows placed
+     once, negatives document ids, the _mv emb cache and its row map,
+     time_* and peak memory; (e) nll_multichunk with dropout through
+     train_on_ann_file over (d)'s ann file (batch 8, queries 64, documents
+     2,048: K5 36 a step): triplets/s, card ms by phase, peak memory; then
+     an nll and a lane iDRO step (fused attention, dropout off, documents
+     of one real chunk and one all padding) against the CPU's float32
+     step; (f) DPR on BERT-base through run_warmup (batch 64 x 128, 5
+     steps, dropout: K5 36 a step), every parameter of both towers and
+     poolers given a gradient and LAMB moments, the checkpoint loaded back;
+     an nll step and a two-tower iDRO step against the CPU, a group pass
+     over the query tower alone planted must fail the cosine bound. Every
+     leg predicts its launches before it runs.
 Every path (the search phase, each serve mode, each encode configuration,
 each training run, each eval task, combined_mrr, each mining round, each
-COCO leg) runs
+COCO leg, each variants leg) runs
 with every kernel's launch count set to 0 just
 before it and read just after, and fails if a kernel of the path never
 launched or a count differs from the path's own. Then one JSON line of per-kernel numbers,
@@ -220,6 +252,13 @@ NODROP_STEPS = 5
 COCO_SPANS, COCO_LEN, COCO_CHUNK = 400, 128, 100
 COCO_T = COCO_SPANS * COCO_LEN  # T of K1 and K5 in a direct COCO step
 CMP_BATCH = 8  # the card-against-CPU step, at full depth
+# the model variants (phase 12): documents of up to 4 chunks of 512 tokens
+# (rdot_nll_multi_chunk on RoBERTa-base, LayerNorm eps 1e-5), encoded 64
+# documents a batch; multi-chunk training at 8 triplets a step
+VAR_DOCS, VAR_DOC_LEN, VAR_CHUNK, VAR_BATCH = 4096, 2048, 512, 64
+VAR_T = VAR_BATCH * VAR_DOC_LEN  # T of K1 in a multi-chunk encode batch
+ROBERTA_EPS = 1e-5
+MC_TRAIN_BATCH = 8
 # card against the CPU's plain versions, one step, dropout off. bf16
 # rounding at other places moves the clipped gradients: at BERT-base,
 # random weights, on the H100 the global cosine was 0.9936 and the loss
@@ -467,13 +506,19 @@ FFN_CHECK_T = (64, 1000, 4096, 4104, ENC_TOKENS)
 
 def check_k1(ffn, gen, dev):
     """K1 at bert-base widths, bf16, at FFN_CHECK_T and COCO's T (a cache
-    chunk's 100 * 128 and a step's 400 * 128); timed at T = 64 * 64
-    tokens (serving) and the encode path's T = 256 * 128."""
+    chunk's 100 * 128 and a step's 400 * 128), and at RoBERTa's LayerNorm
+    eps 1e-5 at the multi-chunk encode's T = 64 docs x 4 chunks x 512;
+    timed at T = 64 * 64 tokens (serving) and the encode path's T = 256 *
+    128."""
     H, F = 768, 3072
     errs = [check_ffn("K1", ffn.fused_ffn_block, ffn.ffn_block_reference,
                       ffn_inputs(gen, dev, T, H, F), f"T={T} H={H} F={F}",
                       K1_MAX_SHARE)
             for T in FFN_CHECK_T + (COCO_CHUNK * COCO_LEN, COCO_T)]
+    errs.append(check_ffn(
+        "K1", ffn.fused_ffn_block, ffn.ffn_block_reference,
+        ffn_inputs(gen, dev, VAR_T, H, F) + ("gelu", ROBERTA_EPS),
+        f"T={VAR_T} H={H} F={F} eps {ROBERTA_EPS}", K1_MAX_SHARE))
     out = None
     for T in (4096, ENC_TOKENS):
         args = ffn_inputs(gen, dev, T, H, F)
@@ -494,13 +539,18 @@ def check_k1(ffn, gen, dev):
 
 def check_k4(ffn, gen, dev):
     """K4: the JAX package's F-chunked half-layer (bert-large widths,
-    H = 1024, F = 4096) is K1's function; K1 at FFN_CHECK_T, timed at the
+    H = 1024, F = 4096) is K1's function; K1 at FFN_CHECK_T, and at the
+    RoBERTa-large encode's T = 256 * 128 with eps 1e-5, timed at the
     encode path's T."""
     H, F = 1024, 4096
     errs = [check_ffn("K4 (K1)", ffn.fused_ffn_block, ffn.ffn_block_reference,
                       ffn_inputs(gen, dev, T, H, F), f"T={T} H={H} F={F}",
                       K1_MAX_SHARE)
             for T in FFN_CHECK_T]
+    errs.append(check_ffn(
+        "K4 (K1)", ffn.fused_ffn_block, ffn.ffn_block_reference,
+        ffn_inputs(gen, dev, ENC_TOKENS, H, F) + ("gelu", ROBERTA_EPS),
+        f"T={ENC_TOKENS} H={H} F={F} eps {ROBERTA_EPS}", K1_MAX_SHARE))
     T = ENC_TOKENS
     args = ffn_inputs(gen, dev, T, H, F)
     ms, plain, b_ms, b_by = time_ffn(
@@ -519,7 +569,9 @@ def check_k5(ffn, gen, dev):
     """K5 (the FFN of the dropout path) at bert-base widths at
     FFN_CHECK_T, the training path's T = 64 * 128 (one tower of a warmup
     step), the JAX warmup preset's T = 256 * 128 and COCO's (100 * 128 and
-    400 * 128); timed at the warmup path's two. Besides the max-abs bound, the share of outputs that differ at
+    400 * 128) and a multi-chunk training step's document tower (T = 8 x
+    2,048); timed at the warmup path's two. Besides the max-abs bound, the
+    share of outputs that differ at
     all stays under K5_MAX_SHARE: on the CPU (tests/test_torch_ffn.py,
     test_k5_share_limit_*; T = 128) sums in another order move 0.5% of
     them, a moved rounding point (h in float32, a bf16 pre-activation, y
@@ -527,7 +579,8 @@ def check_k5(ffn, gen, dev):
     H, F = 768, 3072
     errs, out = [], None
     for T in sorted(set(FFN_CHECK_T + (TRAIN_T, 4 * TRAIN_T,
-                                       COCO_CHUNK * COCO_LEN, COCO_T))):
+                                       COCO_CHUNK * COCO_LEN, COCO_T,
+                                       MC_TRAIN_BATCH * VAR_DOC_LEN))):
         x, _, _, w1, b1, w2, b2, _, _ = ffn_inputs(gen, dev, T, H, F)
         args = (x, w1, b1, w2, b2)
         errs.append(check_ffn("K5", ffn.fused_ffn, ffn.ffn_reference, args,
@@ -654,7 +707,11 @@ def check_k8(att, gen, dev):
     timed only: it defers no rounding the way K8 does). Also odd shapes:
     bucket widths, S not a multiple of 16, the kernel's two-pass schedule
     (S > 128) with its shared-memory ring two deep (S = 384) and one deep
-    (S = 392, 512).
+    (S = 392, 512); and the multi-chunk encode's B = 256 chunk rows at
+    S = 512, a quarter of them all padding: every key of such a row
+    carries the -1e9 bias, s - 1e9 rounds every score alike in float32 and
+    the plain version's softmax is uniform (the mean of v); timed there
+    beside the plain version.
     Besides the bound, the share of outputs that differ at all stays under
     K8_MAX_SHARE: on the CPU (tests/test_torch_attention.py,
     test_k8_share_limit_separates_rounding_points; B = 16, S = 128,
@@ -667,11 +724,15 @@ def check_k8(att, gen, dev):
     for B, S, N in ((ENC_BATCH, ENC_LEN, 12), (COCO_SPANS, COCO_LEN, 12),
                     (ENC_BATCH, 32, 12),
                     (ENC_BATCH, 64, 16), (8, 200, 16), (4, 384, 12),
-                    (4, 392, 12), (4, 512, 16), (3, 40, 3)):
+                    (4, 392, 12), (4, 512, 16), (3, 40, 3),
+                    (4 * VAR_BATCH, VAR_CHUNK, 12)):
         q, k, v = (torch.randn(B, S, N, 64, generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
         lens = torch.randint(min(16, S), S + 1, (B,), generator=gen,
                              device=dev)
+        empty = S == VAR_CHUNK and B == 4 * VAR_BATCH
+        if empty:  # the all-pad chunks of multi-chunk documents
+            lens[3::4] = 0
         bias = torch.where(torch.arange(S, device=dev)[None, :]
                            < lens[:, None], 0.0, -1e9).float().contiguous()
         got = att.fused_attention_seq_major(q, k, v, bias, 0.125).float()
@@ -686,12 +747,29 @@ def check_k8(att, gen, dev):
         tol = 2.0 ** -8 * (ref.abs().max().item() + v.abs().max().item())
         phase(f"  K8 B={B} S={S} N={N} D=64: max_abs_err={e:.3e} "
               f"tol={tol:.3e}, {share:.2e} of elements differ "
-              f"(limit {K8_MAX_SHARE:.0e})")
+              f"(limit {K8_MAX_SHARE:.0e})"
+              + (f"; {int((lens == 0).sum())} rows with every key masked"
+                 if empty else ""))
         if (not e <= tol or not share <= K8_MAX_SHARE
                 or not torch.isfinite(got).all()):
             raise AssertionError(f"K8 disagrees with its plain version: max "
                                  f"abs err {e}, share differing {share}")
         err = max(err, e)
+        if empty:
+            mask = bias[:, None, None, :].to(torch.bfloat16)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            ms, lib = time_turns(
+                lambda: att.fused_attention_seq_major(q, k, v, bias, 0.125),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, scale=0.125), 20)
+            plain = time_ms(lambda: att.attention_reference(q, k, v, bias,
+                                                            0.125), runs=3)
+            b_ms, b_by = bound(4 * B * S * N * 64 * 2 + B * S * 4,
+                               4 * B * N * S * S * 64, BF16_FLOP_PER_S)
+            phase(f"  K8 B={B} S={S} N={N}: kernel {ms:.4f} ms, "
+                  f"scaled_dot_product_attention {lib:.4f} ms (in turns, 20 "
+                  f"launches an event pair); plain {plain:.4f} ms; bound "
+                  f"{b_ms:.4f} ms ({b_by})")
         if (B, S) != (ENC_BATCH, ENC_LEN):
             continue
         single = time_ms(lambda: att.fused_attention_seq_major(
@@ -1532,14 +1610,14 @@ def serve_mode(args, dev, corpus, model, mode):
     return counts
 
 
-def write_records(args, path):
-    """ENC_DOCS records of lengths uniform in 16..128, token ids in
-    [1000, 30522), through the port's RecordWriter. -> a TokenCache."""
+def write_records(args, path, n=ENC_DOCS):
+    """n records of lengths uniform in 16..128, token ids in [1000,
+    30522), through the port's RecordWriter. -> a TokenCache."""
     from cocodr_tpu_torch.data.records import RecordWriter, TokenCache
 
     rng = np.random.default_rng(args.seed)
-    lengths = rng.integers(16, ENC_LEN + 1, ENC_DOCS)
-    tokens = rng.integers(1000, 30522, (ENC_DOCS, ENC_LEN))
+    lengths = rng.integers(16, ENC_LEN + 1, n)
+    tokens = rng.integers(1000, 30522, (n, ENC_LEN))
     with RecordWriter(path, ENC_LEN) as w:
         for n, row in zip(lengths, tokens):
             w.write(row[:n])
@@ -1774,7 +1852,8 @@ class CountingTokenizer(HashTokenizer):
         return super().__call__(texts, **kw)
 
 
-def warmup_run(args, dev, path, ckpt, bert, steps, resume, dropout):
+def warmup_run(args, dev, path, ckpt, bert, steps, resume, dropout,
+               model_type="rdot_nll_condenser"):
     """One run_warmup of a model built from the seed, to step `steps` ->
     (state, recorder, tokenizer)."""
     from cocodr_tpu_torch.core.configs import OptimizerConfig
@@ -1783,7 +1862,7 @@ def warmup_run(args, dev, path, ckpt, bert, steps, resume, dropout):
     from cocodr_tpu_torch.pipelines.warmup import WarmupConfig, run_warmup
     from cocodr_tpu_torch.utils.train_state import TrainState
 
-    model = build_dual_encoder("rdot_nll_condenser", bert, device=dev,
+    model = build_dual_encoder(model_type, bert, device=dev,
                                generator=torch.Generator().manual_seed(
                                    args.seed))
     opt = OptimizerConfig(lr=2e-4, warmup_steps=5, total_steps=100
@@ -2096,11 +2175,11 @@ EVAL_CANDIDATES = 1000  # per query in the top1000.dev-style file
 EVAL_VOCAB = 30_000
 
 
-def write_beir_task(rng, root, name):
+def write_beir_task(rng, root, name, shape=None):
     """A BEIR task directory (corpus.jsonl, queries.jsonl, qrels/test.tsv)
-    of BEIR_SHAPES[name] random words; each query holds 5-19 words of its
-    first relevant document."""
-    shape = BEIR_SHAPES[name]
+    of random words in the shape BEIR_SHAPES[name] (or `shape`); each
+    query holds 5-19 words of its first relevant document."""
+    shape = shape or BEIR_SHAPES[name]
     data = os.path.join(root, name)
     os.makedirs(os.path.join(data, "qrels"))
     vocab = np.array([f"w{i}" for i in range(EVAL_VOCAB)])
@@ -2131,16 +2210,24 @@ def write_beir_task(rng, root, name):
 
 
 def recorded_eval(eb, model, paths, cfg, dev):
-    """evaluate_beir_task with its encode_cache and search_topk wrapped to
-    keep their outputs and host-clock seconds -> (metrics, record)."""
+    """evaluate_beir_task with its encode_cache, encode_cache_multivector
+    and search_topk wrapped to keep their outputs and host-clock seconds
+    -> (metrics, record)."""
     rec = {"encode_s": [], "emb": []}
     encode_fn, search_fn = eb.encode_cache, eb.search_topk
+    mv_fn = eb.encode_cache_multivector
 
     def encode(encoder, cache, ecfg):
         t = time.perf_counter()
         out = encode_fn(encoder, cache, ecfg)
         rec["encode_s"].append(time.perf_counter() - t)
         rec["emb"].append(out)
+        return out
+
+    def encode_mv(encoder, cache, ecfg, chunk_len):
+        t = time.perf_counter()
+        out = mv_fn(encoder, cache, ecfg, chunk_len=chunk_len)
+        rec["mv_s"], rec["mv"] = time.perf_counter() - t, out
         return out
 
     def search(queries, corpus, k, **kw):
@@ -2151,12 +2238,14 @@ def recorded_eval(eb, model, paths, cfg, dev):
         return vals, ids
 
     eb.encode_cache, eb.search_topk = encode, search
+    eb.encode_cache_multivector = encode_mv
     try:
         t = time.perf_counter()
         metrics = eb.evaluate_beir_task(model, *paths, cfg, device=dev)
         rec["total_s"] = time.perf_counter() - t
     finally:
         eb.encode_cache, eb.search_topk = encode_fn, search_fn
+        eb.encode_cache_multivector = mv_fn
     return metrics, rec
 
 
@@ -3852,9 +3941,820 @@ def coco(args, dev):
     return counts
 
 
+# --- variants: RoBERTa, multi-chunk documents and DPR ----------------------
+
+# (a)-(d): VAR_DOCS random-word documents of 128-2,048 tokens (a BEIR task
+# tokenized by prepare_beir_task), 512 eval queries of 64 tokens
+VAR_SHAPE = dict(docs=VAR_DOCS, queries=512, words=(126, VAR_DOC_LEN - 2),
+                 title=False, rel=(1, 2))
+VAR_EVAL_K = 1000
+VAR_EINSUM_DOCS = 1024  # (a) with einsum attention: the first documents
+VAR_TRAIN_Q, VAR_DEV_Q, VAR_MINE_K = 2048, 256, 200
+LARGE_RECORDS = 2048  # (b): RoBERTa-large records of up to 128 tokens
+MC_TRAIN_STEPS = 5  # (e), at MC_TRAIN_BATCH triplets of 64 / 2,048 tokens
+# (e)'s card-against-CPU steps: 2 triplets whose documents are cut to 2
+# chunks (a float32 CPU step at full depth over documents of 4 chunks
+# would take minutes), each its own group in the iDRO step
+MC_CMP_BATCH, MC_CMP_CHUNKS = 2, 2
+DPR_STEPS = 5  # (f): run_warmup at TRAIN_BATCH x TRAIN_LEN
+DPR_CMP_BATCH = 4  # (f)'s nll compare; its iDRO compare takes CMP_BATCH
+
+
+def variant_model(args, dev, model_type, bert, offset, **kw):
+    """A dual encoder of model_type with weights from the seed."""
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+
+    return build_dual_encoder(model_type, bert, device=dev,
+                              generator=torch.Generator().manual_seed(
+                                  args.seed + offset), **kw)
+
+
+def float32_twin(model):
+    """The model's weights in a float32 model on the CPU, where the
+    kernels' wrappers take their plain versions."""
+    from cocodr_tpu_torch.models.dual_encoder import DualEncoder
+
+    cfg = dataclasses.replace(model.cfg, bert=dataclasses.replace(
+        model.cfg.bert, dtype=torch.float32))
+    twin = DualEncoder(cfg)
+    twin.load_state_dict(model.state_dict())
+    return twin.train(model.training)
+
+
+def var_eval_cfg():
+    from cocodr_tpu_torch.pipelines.eval_beir import BeirEvalConfig
+
+    return BeirEvalConfig(task="variants", query_len=QUERY_LEN,
+                          doc_len=VAR_DOC_LEN, top_k=VAR_EVAL_K,
+                          batch_size=VAR_BATCH)
+
+
+def write_subset(cache, path, n):
+    """The first n records of a cache as a record file of their own."""
+    from cocodr_tpu_torch.data.records import RecordWriter, TokenCache
+
+    lengths, tokens = cache.batch(np.arange(n))
+    with RecordWriter(path, cache.max_len) as w:
+        for length, row in zip(lengths, tokens):
+            w.write(row[:length])
+    return TokenCache(path)
+
+
+def chunk_rows(lengths):
+    """row2doc of documents of these lengths: one row a chunk of VAR_CHUNK
+    tokens that holds a real token."""
+    return np.repeat(np.arange(len(lengths)), -(-lengths // VAR_CHUNK))
+
+
+def mc_encode(cache, model, name):
+    """(a): encode_cache_multivector of the corpus, VAR_BATCH documents a
+    batch, its launches predicted -> (rows, row2doc)."""
+    from cocodr_tpu_torch.pipelines.encode import (
+        EncodeConfig,
+        Encoder,
+        encode_cache_multivector,
+    )
+
+    bert = model.cfg.bert
+    enc = Encoder(model, is_query=False, device=next(model.parameters())
+                  .device)
+    tokens, mask = cache.batch_with_mask(np.arange(VAR_BATCH))
+    enc.collect(enc.dispatch(tokens, mask))  # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+    batches = -(-len(cache) // VAR_BATCH)
+    expect = {"K1_ffn_block": bert.num_hidden_layers * batches}
+    if bert.attention_impl == "fused":
+        expect["K8_attention"] = expect["K1_ffn_block"]
+    path = f"variants (a) {name}"
+    zero_counts()
+    t = time.perf_counter()
+    emb, row2doc = encode_cache_multivector(
+        enc, cache, EncodeConfig(batch_size=VAR_BATCH), chunk_len=VAR_CHUNK)
+    wall = time.perf_counter() - t
+    check_counts(path, read_counts(path, list(expect)), expect)
+    want = chunk_rows(cache.lengths())
+    if (not np.array_equal(row2doc, want) or not np.isfinite(emb).all()
+            or emb.shape != (len(want), model.cfg.head_dim)):
+        raise AssertionError(f"{path}: rows {emb.shape}, row2doc against "
+                             f"the documents' real chunks")
+    batch_ms = time_ms(lambda: enc(tokens, mask), runs=3, warmup=1)
+    phase(f"  {path}: {len(cache) / wall:.1f} docs/s, {len(want) / wall:.1f}"
+          f" rows/s ({len(cache)} docs -> {len(want)} rows, "
+          f"{VAR_DOC_LEN // VAR_CHUNK * len(cache) - len(want)} all-pad "
+          f"chunks dropped; {batches} batches of {VAR_BATCH} docs, "
+          f"{wall:.3f} s host clock); card {batch_ms:.3f} ms a batch (T = "
+          f"{VAR_T}); row2doc equal to the documents' real chunks "
+          f"[{nvidia_smi()}]")
+    return emb, row2doc
+
+
+def mc_sample(cache, row2doc):
+    """Chunks of three documents, as (doc, chunk) and as row indices: the
+    shortest (one partly padded chunk), one of three chunks whose last is
+    partly padded, and the longest one's first and last."""
+    lengths = cache.lengths()
+    short, full = int(np.argmin(lengths)), int(np.argmax(lengths))
+    part = int(np.nonzero((lengths > 2 * VAR_CHUNK) & (lengths % VAR_CHUNK > 0)
+                          & (lengths < 3 * VAR_CHUNK))[0][0])
+    pairs = [(short, 0), (part, 0), (part, 1), (part, 2), (full, 0),
+             (full, (int(lengths[full]) - 1) // VAR_CHUNK)]
+    first = np.searchsorted(row2doc, np.arange(len(lengths)))
+    return pairs, np.array([first[d] + c for d, c in pairs])
+
+
+def chunk_inputs(cache, pairs):
+    """[n, VAR_CHUNK] ids and mask of the (doc, chunk) pairs."""
+    tokens, mask = cache.batch_with_mask([d for d, _ in pairs])
+    span = [slice(c * VAR_CHUNK, (c + 1) * VAR_CHUNK) for _, c in pairs]
+    return (np.stack([a[i, s] for i, s in enumerate(span)])
+            for a in (tokens, mask))
+
+
+def mc_cpu_check(model, cache, rows, row2doc, dev):
+    """(a)'s sampled chunks re-encoded on the CPU in float32 through the
+    plain versions, one chunk a row (the same function as the folded
+    batch), against each card encode's rows: cosine >= CPU_COSINE. The card
+    model with BERT's positions (arange) in place of RoBERTa's, planted,
+    must fail the bound."""
+    from cocodr_tpu_torch.models.dual_encoder import DualEncoder
+    from cocodr_tpu_torch.pipelines.encode import Encoder
+
+    pairs, idx = mc_sample(cache, row2doc)
+    ids, mask = chunk_inputs(cache, pairs)
+    t = time.perf_counter()
+    ref = Encoder(float32_twin(model), device="cpu")(ids, mask).numpy()
+    cpu_s = time.perf_counter() - t
+    cos = {name: cosines(emb[idx], ref) for name, emb in rows.items()}
+    bert = dataclasses.replace(model.cfg.bert, position_style="bert")
+    wrong = DualEncoder(dataclasses.replace(model.cfg, bert=bert))
+    wrong.load_state_dict(model.state_dict())
+    planted = cosines(Encoder(wrong.to(dev), device=dev)(ids, mask)
+                      .float().cpu().numpy(), ref)
+    del wrong
+    phase(f"  variants (a): {len(pairs)} chunks (docs, chunk) {pairs} "
+          f"re-encoded on the CPU in float32 in {cpu_s:.1f} s: min cosine "
+          + ", ".join(f"{k} {v.min():.6f}" for k, v in cos.items())
+          + f" (bound {CPU_COSINE}); positions from arange planted on the "
+          f"card: min cosine {planted.min():.6f}")
+    if not all(v.min() >= CPU_COSINE for v in cos.values()):
+        raise AssertionError("variants (a): card and CPU rows disagree")
+    if planted.min() >= CPU_COSINE:
+        raise AssertionError("variants (a): the cosine bound lets positions "
+                             "from arange through")
+
+
+def roberta_large_encode(args, dev, root):
+    """(b): LARGE_RECORDS records of up to 128 tokens through encode_cache
+    by an rdot_nll RoBERTa-large tower (K4 = K1 at H 1024, F 4096, eps
+    1e-5, 24 launches a batch of 256); its first records against the CPU's
+    float32 rows."""
+    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.pipelines.encode import (
+        EncodeConfig,
+        Encoder,
+        encode_cache,
+    )
+
+    cache = write_records(args, os.path.join(root, "large"), LARGE_RECORDS)
+    model = variant_model(args, dev, "rdot_nll", BertConfig.roberta_large(
+        dtype=torch.bfloat16), 15)
+    layers = model.cfg.bert.num_hidden_layers
+    enc = Encoder(model, is_query=False, device=dev)
+    tokens, mask = cache.batch_with_mask(np.arange(ENC_BATCH))
+    enc.collect(enc.dispatch(tokens, mask))
+    torch.cuda.synchronize()
+    batches = -(-LARGE_RECORDS // ENC_BATCH)
+    expect = {"K1_ffn_block": layers * batches}
+    zero_counts()
+    t = time.perf_counter()
+    out = encode_cache(enc, cache, EncodeConfig(batch_size=ENC_BATCH))
+    wall = time.perf_counter() - t
+    check_counts("variants (b)", read_counts("variants (b)", list(expect)),
+                 expect)
+    if out.shape != (LARGE_RECORDS, model.cfg.head_dim) or not np.isfinite(
+            out).all():
+        raise AssertionError(f"variants (b): bad output {out.shape}")
+    batch_ms = time_ms(lambda: enc(tokens, mask), runs=3, warmup=1)
+    m = CPU_DOCS["e_bert_large"]
+    ref = encode_cache(Encoder(float32_twin(model), device="cpu"), cache,
+                       EncodeConfig(batch_size=m), indices=np.arange(m),
+                       prefetch_depth=0)
+    cos = cosines(out[:m], ref)
+    phase(f"  variants (b) RoBERTa-large rdot_nll: {LARGE_RECORDS / wall:.1f}"
+          f" docs/s ({batches} batches of {ENC_BATCH}, {wall:.3f} s host "
+          f"clock), card {batch_ms:.3f} ms a batch; {m} records on the CPU "
+          f"in float32: min cosine {cos.min():.6f} (bound {CPU_COSINE}) "
+          f"[{nvidia_smi()}]")
+    if not cos.min() >= CPU_COSINE:
+        raise AssertionError("variants (b): card and CPU disagree")
+
+
+def dedupe_docs(ids, row2doc, scores=None):
+    """[n_q, k] row ids (-1 pads) -> their documents in first-occurrence
+    order, [n_q, k] padded with -1; with scores [n_q, k] also the
+    documents' scores, padded with each row's k-th score."""
+    n_q, k = ids.shape
+    docs = np.full((n_q, k), -1, np.int64)
+    vals = None if scores is None else np.repeat(scores[:, -1:], k, 1)
+    for r in range(n_q):
+        seen = set()
+        for c, i in enumerate(ids[r].tolist()):
+            d = int(row2doc[i]) if i >= 0 else -1
+            if d < 0 or d in seen:
+                continue
+            if vals is not None:
+                vals[r, len(seen)] = scores[r, c]
+            docs[r, len(seen)] = d
+            seen.add(d)
+    return docs, vals
+
+
+def mc_eval(dev, model, paths, tok_s, rows_a):
+    """(c): evaluate_beir_task of the multi-chunk corpus with (a)'s fused
+    model at top 1000 (rows searched, mapped to documents, deduped), its
+    launches predicted; the card's row ids against an exact plain search
+    of the same rows up to near-ties, its documents' relevant ranks moved
+    only by near-ties (near_tie_moves), its metrics equal to the plain
+    run's with the rows whose document list differs taken from the card."""
+    from cocodr_tpu_torch.evals.metrics import evaluate_run, run_from_topk
+    from cocodr_tpu_torch.ops.mips import clamp_q_chunk
+    from cocodr_tpu_torch.pipelines import eval_beir as eb
+
+    corpus_path, query_path, d2o, q2o, qrels = paths
+    cfg = var_eval_cfg()
+    emb_a, row2doc = rows_a
+    R, n_q = len(row2doc), len(q2o)
+    layers = model.cfg.bert.num_hidden_layers
+    qc = clamp_q_chunk(cfg.q_chunk, R, DIM, device=dev)
+    k = min(cfg.top_k, R)
+    batches = -(-len(d2o) // cfg.batch_size) + -(-n_q // cfg.batch_size)
+    expect = {"K1_ffn_block": layers * batches,
+              "K8_attention": layers * batches,
+              "K2_dual_sweep": -(-n_q // qc),
+              "K3_topk": pallas_k3_launches(n_q, qc, R, DIM, 0, k)}
+    zero_counts()
+    metrics, rec = recorded_eval(eb, model, paths, cfg, dev)
+    check_counts("variants (c)", read_counts("variants (c)", list(expect)),
+                 expect)
+    emb, rows = rec["mv"]
+    if not np.array_equal(rows, row2doc):
+        raise AssertionError("variants (c): row2doc differs from (a)'s")
+    row_cos = cosines(emb, emb_a).min()
+    score_s = (rec["total_s"] - rec["mv_s"] - sum(rec["encode_s"])
+               - rec["search_s"])
+    phase(f"  variants (c) eval ({len(d2o)} docs -> {R} rows, {n_q} queries "
+          f"at {cfg.query_len}, top {k}, dedupe): tokenize {tok_s:.3f} s, "
+          f"encode docs {rec['mv_s']:.3f} s, queries "
+          f"{sum(rec['encode_s']):.3f} s, search {rec['search_s']:.3f} s, "
+          f"score {score_s:.3f} s (host clock); rows against (a)'s fused "
+          f"rows: min cosine {row_cos:.6f} [{nvidia_smi()}]")
+    if not row_cos >= CPU_COSINE:
+        raise AssertionError("variants (c): the eval's rows differ from (a)'s")
+
+    corpus = torch.from_numpy(emb).to(dev).to(torch.bfloat16)
+    scores, ref_v, ref_i = exact_search(
+        torch.from_numpy(rec["emb"][0]).to(dev), corpus, k)
+    tol = 1e-4 * scores.abs().max().item()
+    err = check_results(rec["vals"], rec["ids"], scores, ref_v, tol)
+    sc = scores.cpu().numpy()
+    del scores, corpus
+    first = np.searchsorted(row2doc, np.arange(len(d2o) + 1))
+    off2doc = {v: d for d, v in d2o.items()}
+    qids = [q for q, _ in sorted(q2o.items(), key=lambda kv: kv[1])]
+    rel = [[d2o[d] for d in qrels[q]] for q in qids]
+    rel_scores = [[float(sc[r, first[d]:first[d + 1]].max()) for d in rel[r]]
+                  for r in range(n_q)]
+    plain, plain_v = dedupe_docs(ref_i.cpu().numpy(), row2doc,
+                                 ref_v.cpu().numpy())
+    card, _ = dedupe_docs(np.asarray(rec["ids"]), row2doc)
+    moved = near_tie_moves(plain, card, plain_v, rel, rel_scores, tol)
+    differ = [r for r in range(n_q) if not np.array_equal(plain[r], card[r])]
+    patched = plain.copy()
+    patched[differ] = card[differ]
+
+    def score(ids):
+        return evaluate_run(run_from_topk(qids, ids, id_map=off2doc,
+                                          dedupe=True), qrels,
+                            ndcg_k=cfg.ndcg_k, recall_ks=cfg.recall_ks)
+
+    want = score(patched)
+    if metrics != want:
+        raise AssertionError(f"variants (c): metrics {metrics} != {want}")
+    pure = score(plain)
+    delta = max(abs(metrics[m] - pure[m]) for m in metrics)
+    phase(f"  variants (c): row ids equal the exact plain search up to "
+          f"near-ties (max score err {err:.3e}, tol {tol:.3e}); {len(differ)}"
+          f" of {n_q} document lists differ from the plain search's, "
+          f"{len(moved)} by a relevant document moved by a near-tie; "
+          f"metrics equal the plain run's with those rows from the card "
+          f"(without them: max |diff| {delta:.2e}); ndcg@10 "
+          f"{metrics['ndcg_cut_10']:.4f}, recall@1000 "
+          f"{metrics['recall_1000']:.4f}")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"variants (c): non-finite metrics {metrics}")
+
+
+def write_variant_queries(args, root, cache):
+    """VAR_TRAIN_Q train and VAR_DEV_Q dev query records (width 64) of
+    4-23 tokens drawn from the first chunk of their positive document, the
+    positives uniform over the documents -> (train cache, dev cache, train
+    positives, dev qrels)."""
+    from cocodr_tpu_torch.data.records import RecordWriter, TokenCache
+
+    rng = np.random.default_rng([args.seed, 13])
+    lengths, tokens = cache.batch(np.arange(len(cache)))
+    out = []
+    for split, n in (("train", VAR_TRAIN_Q), ("dev", VAR_DEV_Q)):
+        pos = rng.integers(0, len(cache), n)
+        path = os.path.join(root, f"mc-{split}-query")
+        with RecordWriter(path, QUERY_LEN) as w:
+            for p, n_tok in zip(pos, rng.integers(4, 24, n)):
+                src = tokens[p, 1:min(int(lengths[p]), VAR_CHUNK) - 1]
+                w.write([101] + rng.choice(src, n_tok - 2).tolist() + [102])
+        out.append((TokenCache(path), pos))
+    (tq, tpos), (dq, dpos) = out
+    return (tq, dq, {q: int(p) for q, p in enumerate(tpos)},
+            {q: {int(p): 1} for q, p in enumerate(dpos)})
+
+
+def mc_mine(args, dev, model, cache, queries, root, rows_a):
+    """(d): one mine() round with (a)'s fused model over the multi-chunk
+    corpus, top VAR_MINE_K, its launches predicted: the rows placed once
+    (n_real the row count) and both searches on them, the train search
+    against an exact plain search of the rows, negatives document ids
+    other than the positive, the `_mv` emb cache and its `.rows.npy` map
+    equal to (a)'s rows -> the ann file."""
+    from cocodr_tpu_torch.data.streams import parse_ann_line
+    from cocodr_tpu_torch.ops.mips import clamp_q_chunk
+    from cocodr_tpu_torch.pipelines import ance
+
+    tq, dq, positives, dev_qrels = queries
+    emb_a, row2doc = rows_a
+    R = len(row2doc)
+    rows = R + (-R) % ance.CORPUS_ROW_MULTIPLE
+    layers = model.cfg.bert.num_hidden_layers
+    cfg = ance.MineConfig(topk_training=VAR_MINE_K, negative_sample=30,
+                          n_splits=5, batch_size=VAR_BATCH,
+                          emb_cache_dir=os.path.join(root, "emb"),
+                          seed=args.seed)
+    qc = clamp_q_chunk(cfg.q_chunk, rows, DIM, device=dev)
+    encoded = sum(-(-n // VAR_BATCH) for n in (len(cache), VAR_DEV_Q,
+                                                VAR_TRAIN_Q))
+    expect = {"K1_ffn_block": layers * encoded,
+              "K8_attention": layers * encoded,
+              "K2_dual_sweep": -(-VAR_DEV_Q // qc) + -(-VAR_TRAIN_Q // qc),
+              "K3_topk": (pallas_k3_launches(VAR_DEV_Q, qc, rows, DIM, R,
+                                             min(cfg.dev_topk, R))
+                          + pallas_k3_launches(VAR_TRAIN_Q, qc, rows, DIM, R,
+                                               min(VAR_MINE_K, R)))}
+    work = os.path.join(root, "mine")
+    with MineRecorder() as rec:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_counts()
+        m = ance.mine(model, None, cache, tq, positives, dq, dev_qrels, work,
+                      0, cfg, checkpoint_name="variants", device=dev)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        check_counts("variants (d)", read_counts("variants (d)",
+                                                  list(expect)), expect)
+        [((placed, n_real), growth)] = rec.placed
+        shared = (len(rec.searches) == 2
+                  and all(s["corpus"] is placed and s["n_real"] == R
+                          for s in rec.searches))
+        if tuple(placed.shape) != (rows, DIM) or n_real != R or not shared:
+            raise AssertionError(f"variants (d): placed {tuple(placed.shape)}"
+                                 f" n_real {n_real}, shared {shared}")
+        check_train_search("variants (d)", rec.searches[1], R, dev)
+    ann = ance.ann_data_path(work, 0)
+    lines = negs = 0
+    with open(ann) as f:
+        for line in f:
+            qid, pos, ns, _, _ = parse_ann_line(line)
+            if (pos != positives[qid] or not ns or pos in ns
+                    or len(set(ns)) != len(ns)
+                    or not all(0 <= p < VAR_DOCS for p in ns)):
+                raise AssertionError(f"variants (d): bad line {line!r}")
+            lines, negs = lines + 1, negs + len(ns)
+    emb_file = os.path.join(cfg.emb_cache_dir, "corpus_variants_mv.npy")
+    cached = np.load(emb_file)
+    cached_rows = np.load(emb_file.replace(".npy", ".rows.npy"))
+    cos = cosines(cached, emb_a).min()
+    phase(f"  variants (d) mine ({VAR_DOCS} docs -> {R} rows placed as "
+          f"{tuple(placed.shape)} {placed.dtype} with n_real {n_real}, "
+          f"{placed.nbytes} bytes, memory_allocated grew {growth}; "
+          f"{VAR_TRAIN_Q} train and {VAR_DEV_Q} dev queries, top "
+          f"{VAR_MINE_K}): time (s) {timing_line(m)}; {lines} ann lines, "
+          f"{negs / lines:.1f} negatives a line, all document ids; the _mv "
+          f"emb cache against (a)'s rows: min cosine {cos:.6f}; peak memory "
+          f"{peak:.2f} GiB [{nvidia_smi()}]")
+    if not (np.array_equal(cached_rows, row2doc) and cos >= CPU_COSINE):
+        raise AssertionError("variants (d): the emb cache differs from (a)")
+    return ann
+
+
+def random_first_token(args, arrays):
+    """The triplet arrays with each sequence's first token ([CLS]) drawn at
+    random from the seed. With random weights a shared first token makes
+    every CLS embedding alike (two documents' at cosine 0.9986, scores 745
+    +- 1 under the rdot_nll head), and the loss's gradient a difference of
+    near-equal terms that bf16 rounding swamps: on the card the
+    multi-chunk step's worst tensor read 0.53 (the CPU's bf16 step 0.65),
+    with the tokens drawn 0.9985 (CPU)."""
+    rng = np.random.default_rng([args.seed, 14])
+    out = dict(arrays)
+    for key in ("q_ids", "pos_ids", "neg_ids"):
+        if key not in arrays:
+            continue
+        ids = np.array(arrays[key])
+        ids[:, 0] = rng.integers(1000, 30522, len(ids))
+        out[key] = ids
+    return out
+
+
+def mc_compare_arrays(args, cache):
+    """MC_CMP_BATCH triplets whose documents are cut to MC_CMP_CHUNKS
+    chunks, each document of one real chunk (partly padded) and the rest
+    all padding, first tokens drawn (random_first_token); each query is
+    its negative's first 16 tokens, a hard negative that outscores the
+    positive, so the loss stays far from 0, where bf16 rounding moves a
+    small loss by a large share (the rdot_nll head's LayerNorm puts
+    logits tens apart: at a mean loss near 0 the CPU's bf16 step read 14%
+    off its float32 loss, 0.2% with these queries); each triplet its own
+    group. With two real chunks the card and the CPU could take the max at
+    different chunks wherever two chunks of one document score within
+    bf16 rounding of each other."""
+    width = MC_CMP_CHUNKS * VAR_CHUNK
+    short = np.nonzero(cache.lengths() < VAR_CHUNK)[0]
+    out = {}
+    for key, idx in (("pos", short[:MC_CMP_BATCH]),
+                     ("neg", short[MC_CMP_BATCH:2 * MC_CMP_BATCH])):
+        ids, mask = cache.batch_with_mask(idx)
+        out[f"{key}_ids"] = np.ascontiguousarray(ids[:, :width])
+        out[f"{key}_mask"] = np.ascontiguousarray(mask[:, :width])
+    out = random_first_token(args, out)
+    q_ids = np.zeros((MC_CMP_BATCH, QUERY_LEN), out["neg_ids"].dtype)
+    q_ids[:, :16] = out["neg_ids"][:, :16]
+    out["q_ids"], out["q_mask"] = q_ids, (q_ids > 0).astype(np.int32)
+    out["groups"] = np.arange(MC_CMP_BATCH)
+    return out
+
+
+def variant_compare(name, model, arrays, expect):
+    """One nll step (the model's loss kind: multi-chunk documents score
+    by their best chunk), dropout off, on the card and on the model's
+    float32 twin on the CPU from the same weights: the loss and the
+    clipped gradients by compare_step's bounds."""
+    from cocodr_tpu_torch.pipelines.train_step import (
+        clip_by_global_norm_,
+        nll_loss,
+    )
+
+    out = {}
+    zero_counts()
+    for where, m in (("card", model), ("cpu", float32_twin(model))):
+        d = next(m.parameters()).device
+        m.zero_grad(set_to_none=True)
+        t = time.perf_counter()
+        loss, _ = nll_loss(m, {k: torch.from_numpy(np.asarray(v)).to(d)
+                               for k, v in arrays.items() if k != "groups"})
+        loss.backward()
+        clip_by_global_norm_(m.parameters(), 1.0)
+        out[where] = (loss.item(), {k: p.grad.detach().double().cpu()
+                                    for k, p in m.named_parameters()})
+        phase(f"  {name}: {where} step {time.perf_counter() - t:.2f} s, "
+              f"loss {out[where][0]:.6f}")
+        if where == "card":
+            check_counts(name, read_counts(name, list(expect)), expect)
+    rel, glob, worst, cos = step_agreement(*out["card"], *out["cpu"])
+    phase(f"  {name} card vs CPU float32 (dropout off): loss rel {rel:.2e} "
+          f"(bound {CMP_LOSS_RTOL}); clipped-gradient cosine {glob:.6f} "
+          f"(bound {CMP_GLOBAL_COSINE}); worst tensor {worst} {cos:.6f} "
+          f"(bound {CMP_TENSOR_COSINE})")
+    if not steps_agree(rel, glob, cos):
+        raise AssertionError(f"{name}: card and CPU steps disagree")
+
+
+def lane_idro_step(model, batch, dstate, cfg):
+    """One iDRO step, dropout off, of a model that takes the lane group
+    pass (rows in idro_lane_grad_dtype), up to the clipped gradients ->
+    (robust loss, {name: gradient}, the updated h_fun, the cosines of the
+    groups' gradients that the group pass forms)."""
+    from cocodr_tpu_torch.losses.dro import gram
+    from cocodr_tpu_torch.pipelines import train_step as ts
+
+    seen, real = {}, ts.per_group_grads
+
+    def recorded(*a, **kw):
+        seen["rows"] = real(*a, **kw)
+        return seen["rows"]
+
+    model.zero_grad(set_to_none=True)
+    ts.per_group_grads = recorded
+    try:
+        losses, _ = ts.triplet_losses(model, batch)
+        robust, new, (_, gc) = ts.idro_group_pass(
+            model, losses, batch["groups"], dstate, cfg)
+    finally:
+        ts.per_group_grads = real
+    ts.idro_backward(losses, batch["groups"], dstate.h_fun, gc)
+    ts.clip_by_global_norm_(model.parameters(), 1.0)
+    m = gram(seen.pop("rows")).double().cpu()
+    norms = m.diagonal().clamp_min(0.0).sqrt()
+    return (robust.item(), {k: p.grad.detach().double().cpu()
+                            for k, p in model.named_parameters()},
+            new.h_fun.detach().double().cpu(),
+            m / (norms[:, None] * norms[None, :]))
+
+
+def query_tower_group_pass():
+    """Plant a two-tower group pass over the query tower's last K layers
+    alone (doc_encoder's left out) -> a function that removes it."""
+    from cocodr_tpu_torch.pipelines import train_step as ts
+
+    real = ts.last_k_layers
+    ts.last_k_layers = lambda model, k: [
+        p for layer in model.encoder.encoder.layer[-k:]
+        for p in layer.parameters()]
+    return lambda: setattr(ts, "last_k_layers", real)
+
+
+def variant_idro_compare(args, name, model, arrays, cfg, expect, plants=()):
+    """One lane iDRO step on the card and on the float32 twin on the CPU
+    from the same weights and DroState, by the iDRO compare's bounds (the
+    loss, clipped gradients, h_fun, the group-gradient cosines); each
+    planted wrong group pass must fail the cosine bound on the card."""
+    from cocodr_tpu_torch.losses.dro import DroState
+    from cocodr_tpu_torch.pipelines.train_step import lane_group_pass
+
+    if not lane_group_pass(model, cfg):
+        raise AssertionError(f"{name}: the model should take the lane pass")
+    dstate = compare_dro_state(cfg.dro, args.seed)
+
+    def step(m):
+        d = next(m.parameters()).device
+        return lane_idro_step(
+            m, {k: torch.from_numpy(np.asarray(v)).to(d)
+                for k, v in arrays.items()},
+            DroState(*(x.to(d) for x in (dstate.h_fun, dstate.sum_losses,
+                                         dstate.count_cat))), cfg)
+
+    out = {}
+    zero_counts()
+    for where, m in (("card", model), ("cpu", float32_twin(model))):
+        t = time.perf_counter()
+        out[where] = step(m)
+        phase(f"  {name}: {where} iDRO step {time.perf_counter() - t:.2f} "
+              f"s, loss {out[where][0]:.6f}")
+        if where == "card":
+            check_counts(name, read_counts(name, list(expect)), expect)
+    (la, ga, ha, ca), (lb, gb, hb, cb) = out["card"], out["cpu"]
+    rel, glob, worst, cos = step_agreement(la, ga, lb, gb)
+    herr = h_fun_log_err(ha, hb)
+    cerr = (ca - cb).abs().max().item()
+    faults = {}
+    for label, plant in plants:
+        remove = plant()
+        try:
+            faults[label] = (step(model)[3] - cb).abs().max().item()
+        finally:
+            remove()
+    phase(f"  {name} card vs CPU float32 (G {cfg.dro.n_groups}, K "
+          f"{cfg.idro_last_k_layers}, dropout off): loss rel {rel:.2e} "
+          f"(bound {CMP_LOSS_RTOL}); clipped-gradient cosine {glob:.6f} "
+          f"(bound {CMP_GLOBAL_COSINE}); worst tensor {worst} {cos:.6f} "
+          f"(bound {CMP_TENSOR_COSINE}); h_fun max |log diff| {herr:.2e} "
+          f"(bound {IDRO_H_LOG_TOL}); group-gradient cosines max |diff| "
+          f"{cerr:.2e} (bound {IDRO_COSINE_TOL})"
+          + "".join(f"; {k} planted on the card: {v:.2e}"
+                    for k, v in faults.items()))
+    if not (steps_agree(rel, glob, cos) and herr <= IDRO_H_LOG_TOL
+            and cerr <= IDRO_COSINE_TOL):
+        raise AssertionError(f"{name}: card and CPU iDRO steps disagree")
+    if not all(v > IDRO_COSINE_TOL for v in faults.values()):
+        raise AssertionError(f"{name}: the cosine bound lets a wrong group "
+                             f"pass through: {faults}")
+
+
+def mc_train(args, dev, cache, queries, ann):
+    """(e): 'nll_multichunk' steps with dropout through train_on_ann_file
+    over (d)'s ann file (queries 64, documents 2,048 tokens), K5 3 x 12 a
+    step; a step's card ms by phase; then the nll and the iDRO step against
+    the CPU (fused attention, dropout off: K1 and K8 36 a step)."""
+    from cocodr_tpu_torch.core.configs import AnceStageConfig
+    from cocodr_tpu_torch.data.streams import TripletBatcher
+    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.pipelines.ance import train_on_ann_file
+    from cocodr_tpu_torch.pipelines.train_step import (
+        TrainStepConfig,
+        build_train_step,
+        dropout_generators,
+        nll_loss,
+    )
+    from cocodr_tpu_torch.utils.train_state import TrainState
+
+    tq = queries[0]
+    stage = AnceStageConfig.base()
+    model = variant_model(args, dev, "rdot_nll_multi_chunk",
+                          BertConfig.roberta_base(dtype=torch.bfloat16), 16,
+                          base_len=VAR_CHUNK)
+    layers = model.cfg.bert.num_hidden_layers
+    state = TrainState(model, stage.optimizer.build(model.parameters()))
+    rec = StepRecorder(build_train_step(TrainStepConfig(
+        loss_kind="nll_multichunk",
+        max_grad_norm=stage.optimizer.max_grad_norm)))
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    _, taken = train_on_ann_file(state, rec, TripletBatcher(tq, cache), ann,
+                                 MC_TRAIN_BATCH, max_steps=MC_TRAIN_STEPS,
+                                 seed=args.seed, dropout_seed=args.seed)
+    check_counts("variants (e)", read_counts("variants (e)", ["K5_ffn"]),
+                 {"K5_ffn": 3 * layers * MC_TRAIN_STEPS})
+    if taken != MC_TRAIN_STEPS:
+        raise AssertionError(f"variants (e): {taken} steps")
+    losses = check_steps("variants (e)", rec, 1, MC_TRAIN_STEPS,
+                         {"K5_ffn": 3 * layers})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ends = [t for _, _, t in rec.records]
+    tps = MC_TRAIN_BATCH * (len(ends) - 1) / (ends[-1] - ends[0])
+    batch = ance_batch((tq.path, cache.path, ann), MC_TRAIN_BATCH, dev, 1)
+
+    def forward(st):
+        gens = dropout_generators(args.seed, st.step, dev)
+        return lambda: nll_loss(st.model, batch, gens)[0]
+
+    (fwd, bwd, opt), host = step_phases(state, forward)
+    phase(f"  variants (e) nll_multichunk (dropout 0.1, batch "
+          f"{MC_TRAIN_BATCH}, queries {QUERY_LEN}, docs {VAR_DOC_LEN} = "
+          f"{VAR_DOC_LEN // VAR_CHUNK} chunks): {tps:.1f} triplets/s (host "
+          f"clock, steps 2-{MC_TRAIN_STEPS}); card ms a step: forward "
+          f"{fwd:.3f}, backward {bwd:.3f}, optimizer {opt:.3f}; host ms to "
+          f"issue them {host[0]:.3f}, {host[1]:.3f}, {host[2]:.3f}; peak "
+          f"memory {peak:.2f} GiB; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)} [{nvidia_smi()}]")
+    del state, model, batch
+    torch.cuda.empty_cache()
+
+    model = variant_model(args, dev, "rdot_nll_multi_chunk",
+                          BertConfig.roberta_base(dtype=torch.bfloat16,
+                                                  attention_impl="fused"),
+                          17, base_len=VAR_CHUNK)
+    arrays = mc_compare_arrays(args, cache)
+    expect = {"K1_ffn_block": 3 * layers, "K8_attention": 3 * layers}
+    variant_compare(f"variants (e) compare (batch {MC_CMP_BATCH}, docs of "
+                    f"{MC_CMP_CHUNKS} chunks)", model, arrays, expect)
+    cfg = TrainStepConfig(
+        loss_kind="idro", dro=dataclasses.replace(stage.dro,
+                                                  n_groups=MC_CMP_BATCH),
+        idro_last_k_layers=stage.idro_last_k_layers)
+    variant_idro_compare(args, "variants (e) iDRO compare", model, arrays,
+                         cfg, expect)
+
+
+def dpr_leg(args, dev, root):
+    """(f): the DPR two-tower model on BERT-base through run_warmup (batch
+    64 x 128, dropout 0.1: K5 36 a step), every parameter of both towers
+    and both poolers given a gradient and LAMB moments, its checkpoint
+    loaded back into a fresh state; one nll step against the CPU; one
+    iDRO step whose group pass covers both towers' last K layers against
+    the CPU, a pass over the query tower alone planted."""
+    from cocodr_tpu_torch.core.configs import (
+        AnceStageConfig,
+        OptimizerConfig,
+    )
+    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.pipelines.train_step import TrainStepConfig
+    from cocodr_tpu_torch.pipelines.warmup import (
+        TripleTextBatcher,
+        stream_triples,
+    )
+    from cocodr_tpu_torch.utils.train_state import (
+        TrainState,
+        latest_checkpoint,
+        load_checkpoint,
+    )
+
+    bert = BertConfig.base(dtype=torch.bfloat16)
+    layers = bert.num_hidden_layers
+    path = write_triples(args, os.path.join(root, "dpr.tsv"),
+                         TRAIN_BATCH * (DPR_STEPS + 2))
+    ckpt = os.path.join(root, "dpr_ckpt")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    state, rec, _ = warmup_run(args, dev, path, ckpt, bert, DPR_STEPS,
+                               resume=False, dropout=True, model_type="dpr")
+    check_counts("variants (f)", read_counts("variants (f)", ["K5_ffn"]),
+                 {"K5_ffn": 3 * layers * DPR_STEPS})
+    losses = check_steps("variants (f)", rec, 1, DPR_STEPS,
+                         {"K5_ffn": 3 * layers})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ends = [t for _, _, t in rec.records]
+    tps = TRAIN_BATCH * (len(ends) - 1) / (ends[-1] - ends[0])
+    named = list(state.model.named_parameters())
+    missing = [n for n, p in named
+               if p.grad is None or not state.optimizer.state[p]]
+    poolers = [n for n, _ in named if ".pooler." in n]
+    towers = {t: sum(p.numel() for n, p in named if n.startswith(t + "."))
+              for t in ("encoder", "doc_encoder")}
+    if missing or len(poolers) != 4:
+        raise AssertionError(f"variants (f): no gradient or moments for "
+                             f"{missing}; poolers {poolers}")
+    model = variant_model(args, dev, "dpr", bert, 18)
+    fresh = TrainState(model, OptimizerConfig(lr=2e-4).build(
+        model.parameters()))
+    load_checkpoint(latest_checkpoint(ckpt), fresh)
+    same = all(torch.equal(v, fresh.model.state_dict()[k])
+               for k, v in state.model.state_dict().items())
+    phase(f"  variants (f) DPR (two towers of {towers['encoder']} and "
+          f"{towers['doc_encoder']} parameters) through run_warmup (dropout "
+          f"0.1, batch {TRAIN_BATCH} x {TRAIN_LEN}): {tps:.1f} triplets/s "
+          f"(host clock, steps 2-{DPR_STEPS}); peak memory {peak:.2f} GiB; "
+          f"losses {', '.join(f'{x:.4f}' for x in losses)}; all {len(named)} "
+          f"parameter tensors (the 4 of the poolers included) have a "
+          f"gradient and LAMB moments; checkpoint-{fresh.step} loads back "
+          f"both towers equal: {same} [{nvidia_smi()}]")
+    if not same or fresh.step != DPR_STEPS:
+        raise AssertionError("variants (f): the checkpoint's towers")
+    del state, fresh, model
+    torch.cuda.empty_cache()
+
+    model = variant_model(args, dev, "dpr", dataclasses.replace(
+        bert, attention_impl="fused"), 19)
+    triples = [t for t, _ in zip(stream_triples(path), range(CMP_BATCH))]
+    arrays = random_first_token(args, TripleTextBatcher(
+        HashTokenizer(), TRAIN_LEN).collate(triples))
+    expect = {"K1_ffn_block": 3 * layers, "K8_attention": 3 * layers}
+    variant_compare(f"variants (f) compare (batch {DPR_CMP_BATCH})", model,
+                    {k: v[:DPR_CMP_BATCH] for k, v in arrays.items()},
+                    expect)
+    dro = dataclasses.replace(AnceStageConfig.base().dro,
+                              n_groups=IDRO_CMP_GROUPS)
+    arrays["groups"] = np.arange(CMP_BATCH) % IDRO_CMP_GROUPS
+    variant_idro_compare(
+        args, f"variants (f) iDRO compare (batch {CMP_BATCH})", model,
+        arrays, TrainStepConfig(loss_kind="idro", dro=dro,
+                                idro_last_k_layers=3), expect,
+        plants=[("a group pass over the query tower alone",
+                 query_tower_group_pass)])
+
+
+def variants(args, dev):
+    """Phase 12: the model variants. Each leg's launches are predicted,
+    checked and printed here."""
+    from cocodr_tpu_torch.data.records import TokenCache
+    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.pipelines import eval_beir as eb
+
+    with tempfile.TemporaryDirectory() as root:
+        rng = np.random.default_rng([args.seed, 12])
+        data = write_beir_task(rng, root, "variants", VAR_SHAPE)
+        t = time.perf_counter()
+        paths = eb.prepare_beir_task(data, os.path.join(root, "work"),
+                                     HashTokenizer(), var_eval_cfg())
+        tok_s = time.perf_counter() - t
+        cache = TokenCache(paths[0])
+        lengths = cache.lengths()
+        phase(f"  variants: {len(cache)} documents of {lengths.min()}.."
+              f"{lengths.max()} tokens ({len(chunk_rows(lengths))} chunks "
+              f"with a real token) and {len(paths[3])} queries tokenized by "
+              f"prepare_beir_task in {tok_s:.1f} s")
+        first = write_subset(cache, os.path.join(root, "einsum"),
+                             VAR_EINSUM_DOCS)
+        rows = {}
+        for impl, docs in (("einsum", first), ("fused", cache)):
+            model = variant_model(
+                args, dev, "rdot_nll_multi_chunk", BertConfig.roberta_base(
+                    dtype=torch.bfloat16, attention_impl=impl), 13,
+                base_len=VAR_CHUNK)
+            rows[impl] = mc_encode(docs, model, impl)
+        n = len(rows["einsum"][1])  # the einsum rows: a prefix of fused's
+        mc_cpu_check(model, first, {"einsum": rows["einsum"][0],
+                                    "fused": rows["fused"][0][:n]},
+                     rows["einsum"][1], dev)
+        torch.cuda.empty_cache()
+        roberta_large_encode(args, dev, root)
+        torch.cuda.empty_cache()
+        mc_eval(dev, model, paths, tok_s, rows["fused"])
+        queries = write_variant_queries(args, root, cache)
+        ann = mc_mine(args, dev, model, cache, queries, root, rows["fused"])
+        del model
+        torch.cuda.empty_cache()
+        mc_train(args, dev, cache, queries, ann)
+        torch.cuda.empty_cache()
+        dpr_leg(args, dev, root)
+    torch.cuda.empty_cache()
+
+
+PHASES = ["kernels", "search", "serve", "encode", "train", "eval",
+          "ance-train", "ance-mine", "coco", "variants"]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default="all",
+                    help="comma-separated phases to run (kernels first when "
+                         "a later phase needs its corpus), for development; "
+                         f"default all: {','.join(PHASES)}")
     args = ap.parse_args()
 
     phase(f"environment: python {sys.version.split()[0]}, torch "
@@ -3883,51 +4783,53 @@ def main() -> None:
     phase(f"  built={lib.built} in {lib.seconds:.2f} s: {lib.path}")
     check_stack_frames(lib.log)
 
-    phase("kernel checks")
-    k5 = check_k5(ffn, gen, dev)
-    kernels = [check_k1(ffn, gen, dev), k5]
-    corpus = make_corpus(gen, dev)
-    kernels.append(check_k2(mips_hier, corpus, gen, dev))
-    kernels.append(check_k3(mips_hier, gen, dev))
-    kernels.append(check_k4(ffn, gen, dev))
-    kernels.append(check_k7(ffn, gen, dev))
-    check_map_cache(ffn, gen, dev)
-    kernels.append(check_k8(attention, gen, dev))
-    corpus_i8, dim_scale = mips_int8.quantize_corpus_int8(corpus)
-    sweeps = check_sweeps(gen, dev, corpus, corpus_i8, dim_scale)
-    check_sweep_shapes(gen, dev, corpus, corpus_i8)
-
-    phase("search")
-    search_counts = search(gen, dev, corpus, corpus_i8, dim_scale)
-    del corpus_i8
-
-    phase("serve")
-    serve_counts = serve(args, dev, corpus)
-    del corpus
+    run = PHASES if args.phases == "all" else args.phases.split(",")
+    unknown = set(run) - set(PHASES)
+    if unknown:
+        raise ValueError(f"unknown phases {sorted(unknown)}; known {PHASES}")
+    if "kernels" in run:
+        phase("kernel checks")
+        k5 = check_k5(ffn, gen, dev)
+        kernels = [check_k1(ffn, gen, dev), k5]
+        corpus = make_corpus(gen, dev)
+        kernels.append(check_k2(mips_hier, corpus, gen, dev))
+        kernels.append(check_k3(mips_hier, gen, dev))
+        kernels.append(check_k4(ffn, gen, dev))
+        kernels.append(check_k7(ffn, gen, dev))
+        check_map_cache(ffn, gen, dev)
+        kernels.append(check_k8(attention, gen, dev))
+        corpus_i8, dim_scale = mips_int8.quantize_corpus_int8(corpus)
+        sweeps = check_sweeps(gen, dev, corpus, corpus_i8, dim_scale)
+        check_sweep_shapes(gen, dev, corpus, corpus_i8)
+    if "search" in run:
+        phase("search")
+        search_counts = search(gen, dev, corpus, corpus_i8, dim_scale)
+    if "kernels" in run:
+        del corpus_i8
+    if "serve" in run:
+        phase("serve")
+        serve_counts = serve(args, dev, corpus)
+    if "kernels" in run:
+        del corpus
     torch.cuda.empty_cache()
-
-    phase("encode")
-    encode_counts = encode(args, dev)
-    torch.cuda.empty_cache()
-
-    phase("train")
-    train_counts = train(args, dev, k5["ms"])
-    torch.cuda.empty_cache()
-
-    phase("eval")
-    evaluate(args, dev)
-    torch.cuda.empty_cache()
-
-    phase("ance-train")
-    ance_train(args, dev)
-    torch.cuda.empty_cache()
-
-    phase("ance-mine")
-    ance_mine(args, dev)
-    torch.cuda.empty_cache()
-
-    phase("coco")
-    coco(args, dev)
+    for name, fn in (("encode", encode), ("train", train),
+                     ("eval", evaluate), ("ance-train", ance_train),
+                     ("ance-mine", ance_mine), ("coco", coco),
+                     ("variants", variants)):
+        if name not in run:
+            continue
+        phase(name)
+        out = fn(args, dev, k5["ms"]) if name == "train" else fn(args, dev)
+        if name == "encode":
+            encode_counts = out
+        elif name == "train":
+            train_counts = out
+        torch.cuda.empty_cache()
+    if run != PHASES:
+        print(smi, flush=True)
+        phase(f"partial run of {run}: no kernel summary, no result line")
+        faulthandler.cancel_dump_traceback_later()
+        return
 
     # each kernel's numbers at the shape of the path that launches it, and
     # its launches on that path: (path's counts, the wrapper's counter)

@@ -27,10 +27,17 @@ add. Its masks come from the `torch.Generator` the caller hands to
 `BertModel.forward(..., output_hidden_states=True)` also returns the
 embeddings output and each layer's output, HuggingFace-style, for the
 Condenser head; `BertMLMTransform` and `BertModel.mlm_logits_from_embed`
-(the tied decoder) are the MLM head of models/condenser.py.
+(the tied decoder) are the MLM head of models/condenser.py. A BertModel
+built `with_pooler` (the DPR towers) also returns `BertPooler`'s tanh of a
+dense layer on the CLS vector.
 
-Not carried over yet: RoBERTa position ids, the pooler and remat
-(ROADMAP.md).
+RoBERTa (`BertConfig.roberta_base` / `roberta_large`, position_style
+'roberta') takes the JAX package's position ids: the running count of
+non-pad tokens, offset past pad_token_id, on every slot. Records pad with
+id 0, which RoBERTa's vocabulary reads as `<s>` and not as its pad id 1,
+so padded slots of a record get positions past its length (at most
+S + 1 = 513 of 514 at S = 512); they are masked out of attention, as in
+the JAX package. Not carried over yet: remat (ROADMAP.md Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -65,6 +72,10 @@ class BertConfig:
     type_vocab_size: int = 2
     initializer_range: float = 0.02
     layer_norm_eps: float = 1e-12
+    pad_token_id: int = 0
+    # 'bert': positions 0..S-1; 'roberta': the running count of non-pad
+    # tokens offset past pad_token_id (HF create_position_ids_from_input_ids)
+    position_style: str = "bert"
     dtype: torch.dtype = torch.float32  # compute dtype
     # 'einsum' (default) or 'fused': K8 for sequence lengths divisible by 8
     # when no attention dropout runs
@@ -87,10 +98,23 @@ class BertConfig:
             raise ValueError(
                 f"ffn_impl must be 'dense' or 'fused', got {self.ffn_impl!r}"
             )
+        if self.position_style not in ("bert", "roberta"):
+            raise ValueError(
+                f"position_style must be 'bert' or 'roberta', got "
+                f"{self.position_style!r}"
+            )
 
     @classmethod
     def base(cls, **kw) -> "BertConfig":
         return cls(**kw)
+
+    @classmethod
+    def roberta_base(cls, **kw) -> "BertConfig":
+        return cls(**{**_ROBERTA, **kw})
+
+    @classmethod
+    def roberta_large(cls, **kw) -> "BertConfig":
+        return cls.large(**{**_ROBERTA, **kw})
 
     @classmethod
     def large(cls, **kw) -> "BertConfig":
@@ -109,6 +133,23 @@ class BertConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+
+# what RoBERTa changes in BertConfig's defaults (HF roberta-base)
+_ROBERTA = dict(vocab_size=50265, max_position_embeddings=514,
+                type_vocab_size=1, layer_norm_eps=1e-5, pad_token_id=1,
+                position_style="roberta")
+
+
+def position_ids_for(input_ids, cfg: BertConfig):
+    """[B, S] ids -> position ids: [1, S] arange for 'bert'; for 'roberta'
+    cumsum(ids != pad) * (ids != pad) + pad on every slot, as the JAX
+    package computes them (padded slots of a record whose pad id is not
+    pad_token_id count as tokens)."""
+    if cfg.position_style == "roberta":
+        not_pad = (input_ids != cfg.pad_token_id).to(torch.int64)
+        return torch.cumsum(not_pad, 1) * not_pad + cfg.pad_token_id
+    return torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
 
 
 def make_attention_bias(attention_mask, dtype=torch.float32):
@@ -332,14 +373,29 @@ class BertEncoder(nn.Module):
         return h
 
 
-class BertModel(nn.Module):
-    """Backbone: token ids -> last hidden state [B, S, H] in cfg.dtype."""
+class BertPooler(nn.Module):
+    """HuggingFace's pooler: tanh(dense(CLS)), the dense in the compute
+    dtype (the JAX package's BertPooler)."""
 
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.cfg = cfg
+        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+
+    def forward(self, h):
+        return torch.tanh(linear(h[:, 0], self.dense, self.cfg.dtype))
+
+
+class BertModel(nn.Module):
+    """Backbone: token ids -> last hidden state [B, S, H] in cfg.dtype;
+    with_pooler adds `pooler` and its output to what forward returns."""
+
+    def __init__(self, cfg: BertConfig, with_pooler: bool = False):
+        super().__init__()
+        self.cfg = cfg
         self.embeddings = BertEmbeddings(cfg)
         self.encoder = BertEncoder(cfg)
+        self.pooler = BertPooler(cfg) if with_pooler else None
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 generator=None, output_hidden_states: bool = False):
@@ -347,7 +403,9 @@ class BertModel(nn.Module):
         dropout draws from in training mode; unused in eval mode.
         output_hidden_states: return (last, hidden_states), hidden_states
         the tuple of the embeddings output and each layer's output, so that
-        hidden_states[i] is layer i's output (HuggingFace's order)."""
+        hidden_states[i] is layer i's output (HuggingFace's order). A model
+        with a pooler appends the pooled [B, H] vector: (last, pooled) or
+        (last, hidden_states, pooled)."""
         B, S = input_ids.shape
         if S > self.cfg.max_position_embeddings:
             raise ValueError(
@@ -359,11 +417,15 @@ class BertModel(nn.Module):
             attention_mask = torch.ones((B, S), dtype=torch.int32, device=dev)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        position_ids = torch.arange(S, device=dev)[None, :]
-        h = self.embeddings(input_ids, token_type_ids, position_ids,
-                            generator)
-        return self.encoder(h, make_attention_bias(attention_mask), generator,
-                            output_hidden_states)
+        h = self.embeddings(input_ids, token_type_ids,
+                            position_ids_for(input_ids, self.cfg), generator)
+        out = self.encoder(h, make_attention_bias(attention_mask), generator,
+                           output_hidden_states)
+        if self.pooler is None:
+            return out
+        last = out[0] if output_hidden_states else out
+        pooled = self.pooler(last)
+        return (*out, pooled) if output_hidden_states else (last, pooled)
 
     def mlm_logits_from_embed(self, transformed):
         """The tied decoder: transformed [..., H] @ word_embeddings.T. As

@@ -5,7 +5,9 @@ numpy (`jax.device_get(params)`) and load the result of these functions
 into the port's modules. `load_jax_train_state` carries a whole JAX
 TrainState (params, LAMB moments, step, schedule count) into the port, so
 that a run started in the JAX package continues in the port;
-`condenser_state_dict_from_jax` takes the COCO stage's Condenser. The
+`condenser_state_dict_from_jax` takes the COCO stage's Condenser. Every
+model type maps: the pooler, the DPR `doc_encoder` and a two-tower
+`doc_head` included. The
 name mapping is the HuggingFace one of cocodr_tpu/models/hf.py
 (`bert_params_to_torch`), kept here as a copy so that the port imports
 nothing of the JAX package.
@@ -87,23 +89,30 @@ def bert_state_dict_from_jax(params: Mapping, cfg: BertConfig
     }
     for i in range(L):
         out.update(_layer_state_dict(_index(enc, i), f"encoder.layer.{i}", H))
+    if "pooler" in params:
+        dense = params["pooler"]["dense"]
+        out["pooler.dense.weight"] = _t(np.asarray(dense["kernel"]).T)
+        out["pooler.dense.bias"] = _t(dense["bias"])
     return out
 
 
 def params_from_jax(params: Mapping, cfg: DualEncoderConfig
                     ) -> Dict[str, torch.Tensor]:
-    """flax models.dual_encoder.DualEncoder params (shared tower) -> state
-    dict of models.dual_encoder.DualEncoder."""
-    out = {
-        "encoder." + k: v
-        for k, v in bert_state_dict_from_jax(params["encoder"], cfg.bert).items()
-    }
-    if cfg.use_head:
-        head = params["head"]
-        out["head.dense.weight"] = _t(np.asarray(head["dense"]["kernel"]).T)
-        out["head.dense.bias"] = _t(head["dense"]["bias"])
-        out["head.layer_norm.weight"] = _t(head["layer_norm"]["scale"])
-        out["head.layer_norm.bias"] = _t(head["layer_norm"]["bias"])
+    """flax models.dual_encoder.DualEncoder params -> state dict of
+    models.dual_encoder.DualEncoder (both towers of a two-tower model)."""
+    towers = [("encoder", "head")]
+    if cfg.two_tower:
+        towers.append(("doc_encoder", "doc_head"))
+    out = {}
+    for enc, head in towers:
+        out.update({f"{enc}.{k}": v for k, v in
+                    bert_state_dict_from_jax(params[enc], cfg.bert).items()})
+        if cfg.use_head:
+            p = params[head]
+            out[f"{head}.dense.weight"] = _t(np.asarray(p["dense"]["kernel"]).T)
+            out[f"{head}.dense.bias"] = _t(p["dense"]["bias"])
+            out[f"{head}.layer_norm.weight"] = _t(p["layer_norm"]["scale"])
+            out[f"{head}.layer_norm.bias"] = _t(p["layer_norm"]["bias"])
     return out
 
 

@@ -18,10 +18,13 @@ time-multiplexed mode (mine, then train N steps); `mine_loop` /
 are parallel/topk.py::search_topk and ops/kmeans.py on the device.
 
 `mine` puts the corpus embeddings on the device once a round
-(`place_corpus`) and both its searches read that one tensor. Not ported
+(`place_corpus`) and both its searches read that one tensor. A multi-chunk
+model's corpus is one row a real chunk (`encode_cache_multivector`, its
+emb cache `corpus_{ckpt}_mv.npy` with the row -> document map beside it
+in `.rows.npy`); the searches run over the rows, and their ids map back to
+documents before the dev metrics (deduped) and the negatives. Not ported
 yet, each raising NotImplementedError naming its ROADMAP.md Queue 1 item:
-`search_method="ivf"` (item 7), multi-chunk models (item 3), a mesh and
-`device_put` (item 11).
+`search_method="ivf"` (item 7), a mesh and `device_put` (item 11).
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ from cocodr_tpu_torch.pipelines.encode import (
     EncodeConfig,
     Encoder,
     encode_cache,
+    encode_cache_multivector,
 )
 from cocodr_tpu_torch.pipelines.train_step import dropout_generators
 from cocodr_tpu_torch.utils.misc import read_group_results
@@ -297,7 +301,14 @@ def mine(
     passage_cache; either way they reach the device once (`place_corpus`)
     before the dev and the train search. Writes ann_training_data_{n} and
     ann_ndcg_{n} under out_dir (n = output_num); with cfg.cluster_query
-    each train query's group is its k-means cluster (ops/kmeans.py)."""
+    each train query's group is its k-means cluster (ops/kmeans.py).
+
+    A multi-chunk model over records wider than its chunk_len searches
+    one row a real chunk: the encode (or the `_mv` emb cache and its
+    `.rows.npy` map) gives the rows, `place_corpus` places them (n_real
+    the row count), and the top ids map to documents before the dev
+    metrics (deduped) and the negatives; a corpus_emb the caller passes
+    is searched as documents, as in the JAX package."""
     if mesh is not None:
         raise NotImplementedError(
             "mining over a mesh is not ported yet: ROADMAP.md Queue 1 "
@@ -307,11 +318,6 @@ def mine(
         raise NotImplementedError(
             "search_method='ivf' is not ported yet: ROADMAP.md Queue 1 "
             "item 7 (ops/ivf.py)"
-        )
-    if getattr(model.cfg, "chunk_len", 0):
-        raise NotImplementedError(
-            "multi-chunk models are not ported yet: ROADMAP.md Queue 1 "
-            "item 3 (model variants)"
         )
     dev = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
@@ -331,22 +337,35 @@ def mine(
         model = copy.deepcopy(model)
         model.load_state_dict(params)
     q_enc = Encoder(model, is_query=True, device=dev)
+    chunk_len = model.cfg.chunk_len
+    multivector = bool(chunk_len) and passage_cache.max_len > chunk_len
+    row2doc = None
     if corpus_emb is None:
         emb_file = None
         if cfg.emb_cache_dir and checkpoint_name:
             os.makedirs(cfg.emb_cache_dir, exist_ok=True)
             safe = checkpoint_name.replace(os.sep, "_")
-            emb_file = os.path.join(cfg.emb_cache_dir, f"corpus_{safe}.npy")
+            suffix = "_mv" if multivector else ""
+            emb_file = os.path.join(cfg.emb_cache_dir,
+                                    f"corpus_{safe}{suffix}.npy")
         if emb_file and os.path.exists(emb_file):
             os.utime(emb_file)  # LRU: a reused cache is the one to keep
             corpus_emb = np.load(emb_file)
+            if multivector:
+                row2doc = np.load(emb_file.replace(".npy", ".rows.npy"))
         else:
-            corpus_emb = encode_cache(
-                Encoder(model, is_query=False, device=dev), passage_cache,
-                ecfg)
+            d_enc = Encoder(model, is_query=False, device=dev)
+            if multivector:
+                corpus_emb, row2doc = encode_cache_multivector(
+                    d_enc, passage_cache, ecfg, chunk_len=chunk_len)
+            else:
+                corpus_emb = encode_cache(d_enc, passage_cache, ecfg)
+            del d_enc
             if emb_file:
                 np.save(emb_file + ".tmp.npy", corpus_emb)
                 os.replace(emb_file + ".tmp.npy", emb_file)
+                if multivector:
+                    np.save(emb_file.replace(".npy", ".rows.npy"), row2doc)
         if emb_file and cfg.emb_cache_keep > 0:
             _prune_emb_cache(cfg.emb_cache_dir, cfg.emb_cache_keep)
     _mark("corpus_encode")
@@ -357,17 +376,21 @@ def mine(
     _mark("corpus_to_device")
 
     def search(queries, k):
+        """-> top ids as documents (a multi-chunk corpus's rows mapped)."""
         _, top = search_topk(
             queries, corpus, k, q_chunk=cfg.q_chunk, tile=cfg.mips_tile,
             exact_fp32=cfg.exact_fp32, method=cfg.search_method,
             n_real=n_real, device=dev)
-        return top
+        if row2doc is None:
+            return top
+        return np.where(top >= 0, row2doc[top], -1)
 
     # dev eval at this checkpoint (data_gen.py:306-319)
     dev_emb = encode_cache(q_enc, dev_query_cache, ecfg)
     k = min(cfg.dev_topk, n_docs)
     dev_top = search(dev_emb, k)
-    dev_run = run_from_topk(list(range(len(dev_emb))), dev_top)
+    dev_run = run_from_topk(list(range(len(dev_emb))), dev_top,
+                            dedupe=row2doc is not None)
     dev_metrics = evaluate_run(dev_run, dev_qrels, recall_ks=(k,))
     _mark("dev_eval")
 

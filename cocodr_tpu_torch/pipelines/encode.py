@@ -10,9 +10,11 @@ PyTorch launches asynchronously, so the loop keeps one batch in flight: it
 enqueues batch i + 1 before it reads batch i's embeddings back (a copy to
 pinned host memory that waits on an event of batch i alone). The JAX
 package's `to_host` field is not carried over: the JAX function ignores it
-and always returns host arrays, as this one does. Multi-vector encoding
-(`encode_cache_multivector`) comes with the multi-chunk models (ROADMAP.md
-Queue 1 item 3), and a mesh with sharding (item 11).
+and always returns host arrays, as this one does.
+`encode_cache_multivector` encodes multi-chunk documents (a
+`rdot_nll_multi_chunk` model's body tower) into one row a real chunk and
+the row -> document map. A mesh with sharding comes with ROADMAP.md
+Queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -142,6 +144,44 @@ def _stream(batches, prefetch_depth):
     if prefetch_depth > 0:
         return prefetch(batches, depth=prefetch_depth, device_put=False)
     return batches
+
+
+def encode_cache_multivector(
+    encoder: Encoder,
+    cache,
+    cfg: EncodeConfig = EncodeConfig(),
+    chunk_len: int = 512,
+    prefetch_depth: int = 2,
+):
+    """Multi-chunk documents -> a flat multi-vector index (rows, row2doc).
+
+    The encoder gives [B, C, D] a batch, one vector a chunk of chunk_len
+    tokens (models/dual_encoder.py::_multi_chunk_emb); a chunk whose first
+    mask slot is 0 has no real token and is dropped. -> (emb [R, D] in
+    cfg.emb_dtype, row2doc [R] int64, the record offset of each row), the
+    layout the reference searches over and dedupes downstream (reference
+    ANCE/drivers/run_ann_data_gen.py:201-204). The trailing batch is padded
+    by repeating its last index; cfg.length_buckets is not used (chunked
+    records have one width)."""
+    n = len(cache)
+    bs = cfg.batch_size
+    embs, row2doc = [], []
+
+    def batches():
+        for s, pad, tokens, mask in _padded_batches(cache, np.arange(n), bs):
+            yield (s, mask[:, ::chunk_len]), pad, tokens, mask
+
+    def emit(key, pad, emb):
+        s, first = key
+        real = bs - pad
+        keep = first[:real].astype(bool).reshape(-1)
+        emb = emb[:real]
+        embs.append(emb.reshape(-1, emb.shape[-1])[keep]
+                    .astype(cfg.emb_dtype))
+        row2doc.append(np.repeat(np.arange(s, s + real), emb.shape[1])[keep])
+
+    _encode_stream(encoder, _stream(batches(), prefetch_depth), emit)
+    return np.concatenate(embs), np.concatenate(row2doc)
 
 
 def encode_cache(

@@ -8,17 +8,26 @@ Per-task sequence lengths follow the reference (evaluate/README.md):
 query 64 (128 for ArguAna), doc 128 (256 for TREC-NEWS, Robust04 and
 SciFact). ArguAna skips self-matches (evaluate_beir.py:143-145).
 
+A multi-chunk model (chunk_len, records wider than one chunk) indexes one
+row a real chunk (`encode_cache_multivector`); the search's row ids map
+back to documents and each query's list keeps a document's best row
+(`run_from_topk(dedupe=True)`, the reference's seen_pid handling,
+evaluate_beir.py:132-134).
+
 The functions take the port's model module where the JAX ones take
 (model, params), and read records with data.records.TokenCache (the JAX
 package's native reader only adds speed). Not ported yet, each raising
-NotImplementedError: `search_method="ivf"` (ROADMAP.md Queue 1 item 7),
-multi-chunk models (item 3) and a mesh (item 11).
+NotImplementedError: `search_method="ivf"` (ROADMAP.md Queue 1 item 7)
+and a mesh (item 11).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 from typing import Dict, Optional
+
+import numpy as np
 
 from cocodr_tpu_torch.data.preprocess import (
     load_beir_qrels,
@@ -33,6 +42,7 @@ from cocodr_tpu_torch.pipelines.encode import (
     EncodeConfig,
     Encoder,
     encode_cache,
+    encode_cache_multivector,
 )
 
 # Reference lengths: evaluate/README.md + evaluate_beir.py:62
@@ -108,19 +118,26 @@ def evaluate_beir_task(model, corpus_path: str, query_path: str,
             "search_method='ivf' is not ported yet: ROADMAP.md Queue 1 "
             "item 7 (ops/ivf.py)"
         )
-    if getattr(model.cfg, "chunk_len", 0):
-        raise NotImplementedError(
-            "multi-chunk models are not ported yet: ROADMAP.md Queue 1 "
-            "item 3 (model variants)"
-        )
     dev = resolve_device(device)
     corpus_cache = TokenCache(corpus_path)
     query_cache = TokenCache(query_path)
     ecfg = EncodeConfig(batch_size=cfg.batch_size,
                         length_buckets=cfg.length_buckets)
-    corpus_emb = encode_cache(
-        Encoder(model, mesh=mesh, is_query=False, device=dev), corpus_cache,
-        ecfg)
+    doc_encoder = Encoder(model, mesh=mesh, is_query=False, device=dev)
+    chunk_len = model.cfg.chunk_len
+    multivector = bool(chunk_len) and corpus_cache.max_len > chunk_len
+    row2doc = None
+    if multivector:
+        if cfg.length_buckets:
+            warnings.warn(
+                "length_buckets is ignored for multi-chunk models: chunked "
+                "records are fixed-width (C*chunk_len)", stacklevel=2,
+            )
+        corpus_emb, row2doc = encode_cache_multivector(
+            doc_encoder, corpus_cache, ecfg, chunk_len=chunk_len)
+    else:
+        corpus_emb = encode_cache(doc_encoder, corpus_cache, ecfg)
+    del doc_encoder
     query_emb = encode_cache(
         Encoder(model, mesh=mesh, is_query=True, device=dev), query_cache,
         ecfg)
@@ -131,11 +148,14 @@ def evaluate_beir_task(model, corpus_path: str, query_path: str,
         tile=cfg.mips_tile, exact_fp32=cfg.exact_fp32,
         method=cfg.search_method, device=dev,
     )
+    if row2doc is not None:
+        top_ids = np.where(top_ids >= 0, row2doc[top_ids], -1)
     off2docid = {v: k_ for k_, v in docid2off.items()}
     off2qid = {v: k_ for k_, v in qid2off.items()}
     query_ids = [off2qid[i] for i in range(len(query_cache))]
     run = run_from_topk(query_ids, top_ids, id_map=off2docid,
-                        skip_self=cfg.task in SELF_SKIP_TASKS)
+                        skip_self=cfg.task in SELF_SKIP_TASKS,
+                        dedupe=multivector)
     return evaluate_run(run, qrels, ndcg_k=cfg.ndcg_k,
                         recall_ks=cfg.recall_ks)
 

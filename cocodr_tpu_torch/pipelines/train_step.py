@@ -3,28 +3,37 @@ cocodr_tpu/pipelines/train_step.py for the loss kinds
 
 - 'nll': the triplet 2-way NLL with optional per-sample weights (the BM25
   warmup);
+- 'nll_multichunk': the same over multi-chunk documents (a
+  `rdot_nll_multi_chunk` model, documents [B, C * chunk_len]): a
+  document scores by its best real chunk, a chunk being real iff its mask
+  sums above 0 (reference NLL_MultiChunk, ANCE/model/models.py:307-399);
 - 'dro-greedy': the DRO-greedy robust loss over query groups, the
   per-sample weights applied inside it;
 - 'idro': iDRO, whose per-group gradients over the last K encoder layers
   feed the multiplicative weight update (reference
   ANCE/model/dro_loss.py:174-254); the weights are ignored, as in the JAX
-  step.
+  step. It takes every model type, multi-chunk documents included.
 
 A step runs three tower forwards (query, positive, negative), the loss,
 the backward, clipping by global norm with optax's rule, and one optimizer
 update. The DRO kinds read and replace `state.extra`, a losses.dro.DroState.
+'nll' and 'dro-greedy' raise ValueError on multi-chunk documents, which
+the JAX step would feed to the single-vector NLL.
 
 The iDRO group pass takes the reference's route rather than the JAX
 package's per-sample Gram (`vmap` cannot batch through the kernels'
 torch.autograd.Functions): G vector-Jacobian products of the per-sample
 losses on the step's own graph, one per group present in the batch, each
 restricted to the last K layers' parameters (`losses/dro.py::
-per_group_grads`); then one backward with the robust loss's cotangent
+per_group_grads`) of the query tower and, for a two-tower model, of the
+document tower too; then one backward with the robust loss's cotangent
 h_pre[g_i] / count[g_i] (the PRE-update weights) for the training
 gradient. With dropout off this equals the JAX Gram path up to float
 rounding. With dropout on, the products reuse the forward's masks, as the
 reference does, where the JAX package re-runs the top K layers with fresh
-masks; either way the group gradients feed an EMA'd weight update.
+masks; either way the group gradients feed an EMA'd weight update. The
+models that the JAX package sends to its lane step (two towers, chunk_len,
+the tanh pooler) keep the group rows in idro_lane_grad_dtype here too.
 
 Dropout: a step takes three torch.Generators, one per tower, as the JAX
 step folds the tower index 0/1/2 into its key, so the positive and
@@ -32,10 +41,10 @@ negative towers draw independent masks; `dropout_generators` seeds them
 from (seed, step, tower). Without generators the model runs in eval mode
 (the JAX step's deterministic=True) and draws nothing.
 
-Every loss kind reaches every parameter of the dual encoder, so the
-port's Lamb, which skips a None gradient where optax would decay the
-moments, updates every parameter as optax does. Multi-chunk documents
-('nll_multichunk') raise NotImplementedError: ROADMAP.md Queue 1 item 3.
+Every loss kind reaches every parameter of the dual encoder (both towers
+and poolers of a two-tower model), so the port's Lamb, which skips a None
+gradient where optax would decay the moments, updates every parameter as
+optax does.
 """
 from __future__ import annotations
 
@@ -52,7 +61,7 @@ from cocodr_tpu_torch.losses.dro import (
     idro_loss,
     per_group_grads,
 )
-from cocodr_tpu_torch.losses.nll import triplet_nll
+from cocodr_tpu_torch.losses.nll import triplet_nll, triplet_nll_multichunk
 from cocodr_tpu_torch.utils.train_state import TrainState
 
 DRO_KINDS = ("dro-greedy", "idro")
@@ -60,7 +69,7 @@ DRO_KINDS = ("dro-greedy", "idro")
 
 @dataclasses.dataclass(frozen=True)
 class TrainStepConfig:
-    loss_kind: str = "nll"  # 'nll' | 'dro-greedy' | 'idro'
+    loss_kind: str = "nll"  # 'nll' | 'nll_multichunk' | 'dro-greedy' | 'idro'
     dro: Optional[DroConfig] = None
     max_grad_norm: float = 1.0  # 0 disables clipping
     # base: last 3; large: last 2 (reference dro_loss.py:179-183); clamped
@@ -100,22 +109,50 @@ def embed_triplet(model, batch, generators: Optional[Sequence] = None):
     return q, a, b
 
 
+def chunked(model, batch) -> bool:
+    """True when the batch's documents are multi-chunk for this model
+    (wider than its chunk_len, DualEncoder.body_emb's dispatch)."""
+    chunk_len = getattr(model.cfg, "chunk_len", 0)
+    return bool(chunk_len) and batch["pos_ids"].shape[1] > chunk_len
+
+
+def _chunk_mask(mask, C):
+    """[B, C * L] token mask -> [B, C]: a chunk is real iff its mask sums
+    above 0."""
+    return mask.reshape(mask.shape[0], C, -1).sum(-1) > 0
+
+
 def triplet_losses(model, batch, generators=None):
-    """-> (per-sample NLL [B], mean accuracy), unweighted."""
+    """-> (per-sample NLL [B], mean accuracy), unweighted; multi-chunk
+    documents score by their best real chunk."""
     q, a, b = embed_triplet(model, batch, generators)
-    losses, acc, _ = triplet_nll(q, a, b)
+    if a.dim() == 3:
+        C = a.shape[1]
+        losses, acc, _ = triplet_nll_multichunk(
+            q, a, _chunk_mask(batch["pos_mask"], C),
+            b, _chunk_mask(batch["neg_mask"], C))
+    else:
+        losses, acc, _ = triplet_nll(q, a, b)
     return losses, acc.mean()
 
 
 def nll_loss(model, batch, generators=None):
     """-> (mean loss, mean accuracy), the loss weighted per sample by
     batch["weights"] when the batch has them."""
-    q, a, b = embed_triplet(model, batch, generators)
-    losses, acc, _ = triplet_nll(q, a, b)
+    losses, acc = triplet_losses(model, batch, generators)
     w = batch.get("weights")
     if w is not None:
         losses = losses * w
-    return losses.mean(), acc.mean()
+    return losses.mean(), acc
+
+
+def _require_chunks(kind: str, model, batch, want: bool) -> None:
+    if chunked(model, batch) != want:
+        raise ValueError(
+            f"loss_kind {kind!r} takes {'only' if want else 'no'} "
+            f"multi-chunk documents (an rdot_nll_multi_chunk model with "
+            f"documents wider than chunk_len), as in the JAX package"
+            + ("" if want else "; use 'nll_multichunk' or 'idro'"))
 
 
 @torch.no_grad()
@@ -144,14 +181,28 @@ def apply_gradients(state: TrainState, max_grad_norm: float) -> None:
 
 
 def last_k_layers(model, k: int) -> list:
-    """The parameters of the encoder's last min(k, depth) layers: a model
-    no deeper than k gives every layer, as the reference's last-k
-    selection degenerates to the whole stack (the JAX package clamps K to
-    the depth the same way)."""
+    """The parameters of the encoder's last min(k, depth) layers, then,
+    for a two-tower model, those of doc_encoder's (the JAX lane step's
+    diff["q"] and diff["d"]): a model no deeper than k gives every layer,
+    as the reference's last-k selection degenerates to the whole stack
+    (the JAX package clamps K to the depth the same way). Poolers and
+    heads stay out, as in the JAX group passes."""
     if k <= 0:
         raise ValueError("idro needs idro_last_k_layers > 0")
-    return [p for layer in model.encoder.encoder.layer[-k:]
+    towers = [model.encoder]
+    if getattr(model, "doc_encoder", None) is not None:
+        towers.append(model.doc_encoder)
+    return [p for tower in towers for layer in tower.encoder.layer[-k:]
             for p in layer.parameters()]
+
+
+def lane_group_pass(model, cfg: TrainStepConfig) -> bool:
+    """The JAX package's routing: the lane step (rows in
+    idro_lane_grad_dtype) when asked, and for every model its Gram path
+    cannot take: two towers, chunk_len, the tanh pooler."""
+    mcfg = model.cfg
+    return (cfg.idro_lane_group_pass or mcfg.two_tower
+            or bool(mcfg.chunk_len) or mcfg.pooling not in ("cls", "mean"))
 
 
 def group_gram(model, losses, groups, cfg: TrainStepConfig):
@@ -165,8 +216,9 @@ def idro_group_pass(model, losses, groups, dstate, cfg: TrainStepConfig):
     """The iDRO weight update from the per-sample losses' graph ->
     (robust loss, new DroState, (group_losses, group_counts)):
     losses/dro.py::idro_loss on the float32 rows' Gram matrix, or on the
-    rows themselves in idro_lane_grad_dtype for the lane config."""
-    if cfg.idro_lane_group_pass:
+    rows themselves in idro_lane_grad_dtype for the lane config and the
+    models the JAX package sends to its lane step (`lane_group_pass`)."""
+    if lane_group_pass(model, cfg):
         rows = per_group_grads(
             losses, last_k_layers(model, cfg.idro_last_k_layers), groups,
             cfg.dro.n_groups,
@@ -193,15 +245,14 @@ def build_train_step(cfg: TrainStepConfig = TrainStepConfig()) -> Callable:
     group_losses [G] and group_counts [G].
 
     batch: q_ids/q_mask/pos_ids/pos_mask/neg_ids/neg_mask [B, S] tensors on
-    the model's device (queries and documents may differ in S), optional
-    weights [B], and for the DRO kinds groups [B] (ints < n_groups)."""
-    if cfg.loss_kind == "nll_multichunk":
-        raise NotImplementedError(
-            "loss_kind 'nll_multichunk' is not ported yet: ROADMAP.md "
-            "Queue 1 item 3 (multi-chunk models)"
-        )
-    if cfg.loss_kind == "nll":
+    the model's device (queries and documents may differ in S; multi-chunk
+    documents are [B, C * chunk_len]), optional weights [B], and for the
+    DRO kinds groups [B] (ints < n_groups)."""
+    if cfg.loss_kind in ("nll", "nll_multichunk"):
+        multichunk = cfg.loss_kind == "nll_multichunk"
+
         def train_step(state: TrainState, batch, generators=None):
+            _require_chunks(cfg.loss_kind, state.model, batch, multichunk)
             state.optimizer.zero_grad(set_to_none=True)
             loss, acc = nll_loss(state.model, batch, generators)
             loss.backward()
@@ -221,6 +272,7 @@ def build_train_step(cfg: TrainStepConfig = TrainStepConfig()) -> Callable:
 
     if cfg.loss_kind == "dro-greedy":
         def train_step(state: TrainState, batch, generators=None):
+            _require_chunks(cfg.loss_kind, state.model, batch, False)
             state.optimizer.zero_grad(set_to_none=True)
             losses, acc = triplet_losses(state.model, batch, generators)
             robust, dstate, (gl, gc) = dro_greedy_loss(

@@ -359,9 +359,13 @@ def test_train_on_ann_file_dropout_generators(tmp_path):
 def test_what_mining_leaves_names_its_item(tmp_path):
     """What the mining half still leaves raises NotImplementedError naming
     its ROADMAP.md Queue 1 item: search_method='ivf' (item 7; with
-    exact_fp32 the search is exact and runs), a multi-chunk model (item
-    3), a mesh and device_put (item 11). train_loop's saver came with the
-    COCO slice (tests/test_torch_coco.py)."""
+    exact_fp32 the search is exact and runs), a mesh and device_put (item
+    11). A multi-chunk model (item 3) now mines: over records of one
+    chunk's width its corpus is single vectors and the round writes the
+    ann file of rdot_nll on the same weights (the multi-chunk corpus is
+    held against the JAX mine in tests/test_torch_multichunk.py).
+    train_loop's saver came with the COCO slice
+    (tests/test_torch_coco.py)."""
     qp, pp, ann = write_ann_data(tmp_path)
     qc, pc = trec.TokenCache(qp), trec.TokenCache(pp)
     model = DualEncoder(MODEL_REGISTRY["rdot_nll"](BertConfig.tiny()))
@@ -381,9 +385,16 @@ def test_what_mining_leaves_names_its_item(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         tance.train_on_ann_file(None, None, None, "x", 1,
                                 device_put=lambda b: b)
-    model.cfg = type("Cfg", (), {"chunk_len": 8})()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tance.mine(model, None, *args, device="cpu")
+    chunked = DualEncoder(MODEL_REGISTRY["rdot_nll_multi_chunk"](
+        BertConfig.tiny(), base_len=pc.max_len))
+    chunked.load_state_dict(model.state_dict())
+    cfg = tance.MineConfig(exact_fp32=True, batch_size=8)
+    for name, m in (("plain", model), ("chunked", chunked)):
+        tance.mine(m, None, *args[:-2], str(tmp_path / name), 0, cfg,
+                   device="cpu")
+    with open(tance.ann_data_path(str(tmp_path / "plain"), 0)) as a, \
+            open(tance.ann_data_path(str(tmp_path / "chunked"), 0)) as b:
+        assert a.read() == b.read()
 
 
 def test_checkpoint_round_trip_with_dro_state(tmp_path):

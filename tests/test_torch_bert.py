@@ -128,7 +128,7 @@ def test_build_dual_encoder_is_seeded_and_in_eval_mode():
     w = a.encoder.encoder.layer[0].intermediate.dense.weight.detach()
     assert abs(float(w.std()) - cfg.initializer_range) < 0.005
     with pytest.raises(KeyError):
-        build_dual_encoder("dpr", cfg, device="cpu")
+        build_dual_encoder("no_such_model_type", cfg, device="cpu")
 
 
 def test_training_mode_with_dropout_raises(monkeypatch):

@@ -191,17 +191,29 @@ def test_eval_beir_idempotent_prepare_and_buckets(tmp_path, tokenizer):
 
 
 def test_eval_beir_names_what_waits(tmp_path, tokenizer):
-    """ivf (item 7) and multi-chunk models (item 3) raise; so does a run
-    without a card unless asked for the CPU."""
+    """ivf (item 7) raises, naming its item. Multi-chunk models (item 3)
+    now evaluate: over records wider than chunk_len the corpus is one row
+    a chunk, deduped to documents (held against the JAX eval in
+    tests/test_torch_multichunk.py); a corpus of one chunk's width
+    evaluates as single vectors, equal to rdot_nll on the same weights."""
     data = write_task(tmp_path, n_docs=10)
     _, _, model = models()
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         teb.eval_beir(model, data, str(tmp_path / "w"), tokenizer,
                       device="cpu", search_method="ivf")
-    model.cfg = type("Cfg", (), {"chunk_len": 8})()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        teb.eval_beir(model, data, str(tmp_path / "w"), tokenizer,
-                      device="cpu")
+    _, _, plain = models("rdot_nll")
+    chunked = DualEncoder(MODEL_REGISTRY["rdot_nll_multi_chunk"](
+        BertConfig.tiny(), base_len=8, head_dim=16))
+    chunked.load_state_dict(plain.state_dict())
+    kw = dict(device="cpu", batch_size=8, top_k=10, mips_tile=16, q_chunk=4,
+              query_len=8, exact_fp32=True)
+    wide = teb.eval_beir(chunked, data, str(tmp_path / "w16"), tokenizer,
+                         doc_len=16, **kw)
+    assert wide["num_queries"] == 10
+    assert (teb.eval_beir(chunked, data, str(tmp_path / "w8"), tokenizer,
+                          doc_len=8, **kw)
+            == teb.eval_beir(plain, data, str(tmp_path / "w8p"), tokenizer,
+                             doc_len=8, **kw))
 
 
 def _mrr_caches(tmp_path):

@@ -32,6 +32,7 @@ MODULES = [
     "cocodr_tpu_torch.models.bert",
     "cocodr_tpu_torch.models.dual_encoder",
     "cocodr_tpu_torch.models.convert",
+    "cocodr_tpu_torch.models.hf",
     "cocodr_tpu_torch.models.condenser",
     "cocodr_tpu_torch.parallel",
     "cocodr_tpu_torch.parallel.topk",

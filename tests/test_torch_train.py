@@ -123,12 +123,17 @@ def test_trajectory_matches_jax_train_step(model_type):
                                        ("idro", "item 9"),
                                        ("nll_multichunk", "item 3")])
 def test_other_loss_kinds_name_their_roadmap_item(kind, item):
-    """nll_multichunk raises, naming its ROADMAP item; the DRO kinds came
-    with item 9 and now build, given a DroConfig (their steps are held
-    against the JAX package in tests/test_torch_ance.py)."""
+    """The other loss kinds came with their ROADMAP items and now build:
+    nll_multichunk (item 3) builds without a DroConfig and refuses
+    single-chunk documents with a ValueError, as the JAX step cannot
+    score them (its trajectory is held against the JAX package in
+    tests/test_torch_multichunk.py); the DRO kinds (item 9) build given a
+    DroConfig (their steps are held in tests/test_torch_ance.py)."""
     if item == "item 3":
-        with pytest.raises(NotImplementedError, match=item):
-            build_train_step(TrainStepConfig(loss_kind=kind))
+        step = build_train_step(TrainStepConfig(loss_kind=kind))
+        state, _ = port_setup("rdot_nll", jax_setup("rdot_nll")[0].params)
+        with pytest.raises(ValueError, match="multi-chunk"):
+            step(state, to_torch(batches(1)[0]))
         return
     from cocodr_tpu_torch.losses.dro import DroConfig
 
