@@ -178,9 +178,36 @@ Phases, each printed with its elapsed seconds:
      an nll step and a two-tower iDRO step against the CPU, a group pass
      over the query tower alone planted must fail the cosine bound. Every
      leg predicts its launches before it runs.
+ 13. recipe: the four COCO-DR stages chained at BERT-base width, with
+     remat and gradient accumulation (depth cut for time). (a) COCO at
+     CocoStageConfig.base() (400 spans x 128, dropout) with remat '': 3
+     direct steps (K5 26 a step: the backbone's 12 layers run again in
+     the backward), then a grad-cache step (K5 152), each chunk's pass-2
+     CLS equal to pass 1's; one direct step of each remat policy from the
+     same weights (K5 14, 26, 26, 14): the loss equal, the peak memory
+     beside its prediction; (b) the handoff on the card
+     (split_state_dict, state_dict_from_hf, a rdot_nll_condenser
+     DualEncoder), its backbone equal to COCO's bit for bit; (c) warmup
+     at WarmupStageConfig.base()'s model and LAMB, 64 x 128, dropout,
+     remat '', 2 micro-batches an update (MultiSteps; K5 72 a
+     micro-batch): 6 micro-batches saving at 3, inside the second window,
+     and a fresh state resumed from checkpoint-3 equal to the
+     uninterrupted run bit for bit (parameters, moments, accumulator);
+     then one warmup forward and backward of each policy against no remat
+     (K5 36, 72, 72, 36): loss, every gradient and the generators' end
+     states bit-equal, a recompute that draws from the caller's generator
+     planted must differ, each policy's peak memory; one window of 2 x 4
+     triplets (first tokens at random), dropout off, on the card (K1 144)
+     and on the CPU in float32: the accumulated gradient by compare_step's
+     bounds and its norm; (d) one ance_round of dro-greedy at
+     AnceStageConfig.base() (2 micro-batches an update, remat '') over
+     32,768 passages, 2,048 train and 256 dev queries (K1 828, K2 2, K3,
+     K5 144); (e) SciFact's shape through prepare_beir_task and
+     evaluate_beir_task (K1 144, K2 1, K3 2), ids against the plain exact
+     search up to near-ties (near_tie_moves).
 Every path (the search phase, each serve mode, each encode configuration,
 each training run, each eval task, combined_mrr, each mining round, each
-COCO leg, each variants leg) runs
+COCO leg, each variants leg, each recipe leg) runs
 with every kernel's launch count set to 0 just
 before it and read just after, and fails if a kernel of the path never
 launched or a count differs from the path's own. Then one JSON line of per-kernel numbers,
@@ -3701,6 +3728,39 @@ def coco_cpu_compare(args, dev, stage, bert, batch):
                              "wrong layer passes the bounds")
 
 
+def record_cls(model):
+    """Wrap a Condenser's cls_emb (the grad cache's pass 1) and forward
+    (pass 2) to keep each chunk's CLS -> {"pass 1": [...], "pass 2":
+    [...]}; `del model.cls_emb, model.forward` removes the wrappers."""
+    seen = {"pass 1": [], "pass 2": []}
+    cls_emb, forward = model.cls_emb, model.forward
+
+    def rec_cls(*a, **k):
+        out = cls_emb(*a, **k)
+        seen["pass 1"].append(out.clone())
+        return out
+
+    def rec_forward(*a, **k):
+        loss, aux = forward(*a, **k)
+        seen["pass 2"].append(aux["cls"].detach().clone())
+        return loss, aux
+
+    model.cls_emb, model.forward = rec_cls, rec_forward
+    return seen
+
+
+def check_cls_replay(name, seen, n_chunks):
+    """Every chunk's pass-2 CLS equals its pass-1 CLS bit for bit."""
+    if not len(seen["pass 1"]) == len(seen["pass 2"]) == n_chunks:
+        raise AssertionError(f"{name}: {len(seen['pass 1'])} pass-1 and "
+                             f"{len(seen['pass 2'])} pass-2 chunks")
+    for i, (a, b) in enumerate(zip(seen["pass 1"], seen["pass 2"])):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"{name}: chunk {i}'s pass-2 CLS is not its pass-1 CLS (max "
+                f"|diff| {(a.float() - b.float()).abs().max():.3e})")
+
+
 def check_resume(losses, resumed_losses, final, model, n_batches):
     """The resumed run's losses and final parameters must equal the
     uninterrupted run's bit for bit."""
@@ -3866,20 +3926,7 @@ def coco(args, dev):
         zero_counts()
         state = coco_state(args, dev, stage, bert, total)
         model = state.model
-        seen = {"pass 1": [], "pass 2": []}
-        cls_emb, forward = model.cls_emb, model.forward
-
-        def rec_cls(*a, **k):
-            out = cls_emb(*a, **k)
-            seen["pass 1"].append(out.clone())
-            return out
-
-        def rec_forward(*a, **k):
-            loss, aux = forward(*a, **k)
-            seen["pass 2"].append(aux["cls"].detach().clone())
-            return loss, aux
-
-        model.cls_emb, model.forward = rec_cls, rec_forward
+        seen = record_cls(model)
         n_chunks = spans_a_step // COCO_CHUNK
         per_step = n_chunks * (2 * layers + heads)
         rec3 = coco_run(args, state, stage, spans, tok, COCO_CHUNK,
@@ -3891,15 +3938,7 @@ def coco(args, dev):
         cache_losses = check_steps("coco (b)", rec3, 1, COCO_CACHE_STEPS,
                                         {"K5_ffn": per_step})
         del model.cls_emb, model.forward  # the recorders' references
-        if not (len(seen["pass 1"]) == len(seen["pass 2"])
-                == n_chunks * COCO_CACHE_STEPS):
-            raise AssertionError(f"coco (b): {len(seen['pass 1'])} pass-1 "
-                                 f"and {len(seen['pass 2'])} pass-2 chunks")
-        for i, (a, b) in enumerate(zip(seen["pass 1"], seen["pass 2"])):
-            if not torch.equal(a, b):
-                raise AssertionError(
-                    f"coco (b): chunk {i}'s pass-2 CLS is not its pass-1 CLS"
-                    f" (max |diff| {(a.float() - b.float()).abs().max():.3e})")
+        check_cls_replay("coco (b)", seen, n_chunks * COCO_CACHE_STEPS)
         sps_b, n_b = spans_per_s(rec3, spans_a_step)
         phase(f"  coco (b) grad cache, {n_chunks} chunks of {COCO_CHUNK}, "
               f"dropout 0.1: every chunk's pass-2 CLS equals its pass-1 CLS "
@@ -4744,8 +4783,534 @@ def variants(args, dev):
     torch.cuda.empty_cache()
 
 
+# --- recipe: the four stages chained, with remat and accumulation ---------
+
+RECIPE_COCO_BATCHES = 4  # batches of 200 docs in (a)'s span corpus
+RECIPE_COCO_STEPS = 3  # (a): direct steps with remat, then one cache step
+RECIPE_POLICIES = (None, "", "dots_saveable",
+                   "no_save:attn_scores,attn_probs")  # None: remat off
+RECIPE_ACCUM = 2  # micro-batches an update in (c), (d) and the compare
+RECIPE_WARMUP_STEPS, RECIPE_WARMUP_SAVE = 6, 3  # (c): 3 windows
+RECIPE_DOCS, RECIPE_TRAIN_Q, RECIPE_DEV_Q = 32_768, 2_048, 256  # (d)
+RECIPE_ANCE_STEPS = 2  # (d): one window of dro-greedy
+RECIPE_KMEANS_ITERS = 100  # (d): 100 Lloyd steps x 1 restart
+# peak memory above the parameters, GiB, predicted from the tensors each
+# policy keeps before the first run (PERF.md): a warmup step (64 x
+# 128, three towers) and a COCO direct step; printed beside the readings,
+# which must also fall in the order no remat > no_save > dots_saveable > ''
+RECIPE_PEAK_PREDICTED = {
+    "warmup": {None: 14.0, "": 1.5, "dots_saveable": 5.5,
+               "no_save:attn_scores,attn_probs": 9.0},
+    "coco": {None: 36.0, "": 12.0, "dots_saveable": 19.0,
+             "no_save:attn_scores,attn_probs": 26.0}}
+
+
+def policy_name(policy):
+    return "no remat" if policy is None else f"remat {policy!r}"
+
+
+def with_policy(bert, policy):
+    return dataclasses.replace(bert, remat=policy is not None,
+                               remat_policy=policy or "")
+
+
+def check_peaks(name, peaks):
+    """peaks {policy: GiB}: printed beside the prediction; the order of
+    the policies' memory must hold (remat that keeps everything reads as
+    no remat)."""
+    want = RECIPE_PEAK_PREDICTED[name]
+    phase(f"  recipe {name} step peak memory above the parameters, by "
+          f"policy: " + "; ".join(f"{policy_name(p)} {g:.2f} GiB "
+                                  f"(predicted ~{want[p]})"
+                                  for p, g in peaks.items()))
+    order = [peaks[p] for p in (None, RECIPE_POLICIES[3], RECIPE_POLICIES[2],
+                                RECIPE_POLICIES[1])]
+    if not all(a > b for a, b in zip(order, order[1:])):
+        raise AssertionError(f"recipe {name}: the policies' peaks are out of "
+                             f"order: {peaks}")
+
+
+def predicted_launches(policy, forward):
+    """A kernel's launches in a forward that launches it `forward` times
+    and in its backward: '' and 'dots_saveable' run every remat layer's
+    forward again (the kernels are outside what the policy sees); no_save
+    recomputes the attention core alone."""
+    return forward * (2 if policy in ("", "dots_saveable") else 1)
+
+
+def recipe_coco(args, dev, root, stage, bert, card):
+    """(a) COCO at CocoStageConfig.base() with remat '': direct steps with
+    dropout, then a grad-cache step; then one direct step of each policy
+    from the same weights for the peak memory -> the state."""
+    from cocodr_tpu_torch.data.coco_spans import count_span_batches
+    from cocodr_tpu_torch.pipelines.coco import build_coco_train_step
+    from cocodr_tpu_torch.utils.train_state import TrainState
+
+    layers, heads = bert.num_hidden_layers, stage.n_head_layers
+    docs = stage.per_device_batch_docs
+    spans, tok = write_coco_corpus(args, root, docs * RECIPE_COCO_BATCHES)
+    total = count_span_batches([spans], docs)
+    remat = with_policy(bert, "")
+    direct = {"K5_ffn": predicted_launches("", layers) + heads}
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    state = coco_state(args, dev, stage, remat, total)
+    rec = coco_run(args, state, stage, spans, tok, 0, RECIPE_COCO_STEPS, True)
+    counts = read_counts("recipe (a) COCO direct, remat ''", ["K5_ffn"])
+    check_counts("recipe (a) COCO direct, remat ''", counts,
+                 {"K5_ffn": direct["K5_ffn"] * RECIPE_COCO_STEPS})
+    losses = check_steps("recipe (a) COCO", rec, 1, RECIPE_COCO_STEPS, direct)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sps, n_gaps = spans_per_s(rec, 2 * docs)
+    # the grad cache with remat: pass 1 runs without gradients (no remat),
+    # pass 2 recomputes each chunk's backbone layers
+    n_chunks = 2 * docs // COCO_CHUNK
+    cache = {"K5_ffn": n_chunks * (layers + predicted_launches("", layers)
+                                   + heads)}
+    seen = record_cls(state.model)
+    zero_counts()
+    rec2 = coco_run(args, state, stage, spans, tok, COCO_CHUNK,
+                    RECIPE_COCO_STEPS + 1, True, start=RECIPE_COCO_STEPS)
+    del state.model.cls_emb, state.model.forward
+    counts2 = read_counts("recipe (a) COCO grad cache, remat ''", ["K5_ffn"])
+    check_counts("recipe (a) COCO grad cache, remat ''", counts2, cache)
+    losses += check_steps("recipe (a) COCO cache", rec2,
+                          RECIPE_COCO_STEPS + 1, RECIPE_COCO_STEPS + 1, cache)
+    check_cls_replay("recipe (a) grad cache under remat", seen, n_chunks)
+    phase(f"  recipe (a) COCO, remat '', dropout 0.1, {2 * docs} spans x "
+          f"{stage.max_seq_length}: {sps:.1f} spans/s (host clock, {n_gaps} "
+          f"steps); peak memory {peak:.2f} GiB over the run; then a grad-"
+          f"cache step ({n_chunks} chunks) whose pass-2 CLS equal pass 1's "
+          f"bit for bit; losses {', '.join(f'{x:.4f}' for x in losses)} "
+          f"[{card}]")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(coco_stream(
+        args, stage, spans, tok, docs)).items()}
+    readings = []
+    for policy in RECIPE_POLICIES:
+        model = coco_model(args, dev, stage, with_policy(bert, policy), 11)
+        model.load_state_dict(state.model.state_dict())
+        name = f"recipe (a) COCO direct step, {policy_name(policy)}"
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t = time.perf_counter()
+        metrics = build_coco_train_step(coco_config(stage))(
+            TrainState(model, NoUpdate(model.parameters())), batch,
+            args.seed)
+        loss = metrics["loss"].item()
+        secs = time.perf_counter() - t
+        gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        counts = read_counts(name, ["K5_ffn"])
+        check_counts(name, counts, {"K5_ffn": predicted_launches(policy, layers)
+                                    + heads})
+        readings.append((policy, gib, loss, secs))
+        del model
+        torch.cuda.empty_cache()
+    if len({loss for _, _, loss, _ in readings}) != 1:
+        raise AssertionError(f"recipe (a): the policies' COCO losses differ: "
+                             f"{readings}")
+    phase("  recipe (a) COCO direct step with dropout, by policy: the loss "
+          "equal in all; " + "; ".join(
+              f"{policy_name(p)} {s:.3f} s (host clock, one step)"
+              for p, _, _, s in readings) + f" [{card}]")
+    check_peaks("coco", {p: g for p, g, _, _ in readings})
+    return state
+
+
+def recipe_handoff(args, dev, coco, bert):
+    """(b) split_state_dict -> state_dict_from_hf -> DualEncoder on the
+    card: its backbone must equal the COCO backbone bit for bit."""
+    from cocodr_tpu_torch.models.condenser import split_state_dict
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+    from cocodr_tpu_torch.models.hf import state_dict_from_hf
+
+    backbone, c_head = split_state_dict(coco.model.state_dict())
+    model = build_dual_encoder("rdot_nll_condenser", bert, device=dev,
+                               generator=torch.Generator().manual_seed(
+                                   args.seed + 16))
+    model.load_state_dict(state_dict_from_hf(backbone, model.cfg))
+    sd = model.encoder.state_dict()
+    differ = [k for k, v in coco.model.bert.state_dict().items()
+              if not torch.equal(sd[k], v)]
+    phase(f"  recipe (b) handoff: {len(backbone)} backbone and "
+          f"{len(c_head)} c_head tensors split; the DualEncoder's "
+          f"{len(sd)} backbone tensors equal the COCO backbone's bit for bit:"
+          f" {not differ}")
+    if differ or set(sd) != set(coco.model.bert.state_dict()):
+        raise AssertionError(f"recipe (b): handoff lost {differ}")
+    return model
+
+
+def recipe_optimizer(opt):
+    """The stage's optimizer cut for a run of a few windows: warmup of 2
+    updates in 100, RECIPE_ACCUM micro-batches an update."""
+    return dataclasses.replace(opt, warmup_steps=2, total_steps=100,
+                               grad_accum_steps=RECIPE_ACCUM)
+
+
+def recipe_warmup(args, dev, root, model, stage, card):
+    """(c) run_warmup at WarmupStageConfig.base()'s model and LAMB (64 x
+    128, dropout 0.1, remat '', 2 micro-batches an update): 3 windows
+    saving at micro-batch 3, inside the second window; a fresh state
+    resumed from checkpoint-3 must end equal to the uninterrupted run bit
+    for bit -> (state, triples path)."""
+    from cocodr_tpu_torch.pipelines.train_step import build_train_step
+    from cocodr_tpu_torch.pipelines.warmup import WarmupConfig, run_warmup
+    from cocodr_tpu_torch.utils.train_state import TrainState
+
+    layers = model.cfg.bert.num_hidden_layers
+    path = write_triples(args, os.path.join(root, "triples.tsv"),
+                         TRAIN_BATCH * (RECIPE_WARMUP_STEPS + 2))
+    ckpt = os.path.join(root, "warmup_ckpt")
+    opt = recipe_optimizer(stage.optimizer)
+    start = copy.deepcopy(model.state_dict())
+    per_step = {"K5_ffn": predicted_launches("", 3 * layers)}
+
+    def run(state, steps, resume):
+        rec = StepRecorder(build_train_step())
+        cfg = WarmupConfig(max_seq_len=TRAIN_LEN, batch_size=TRAIN_BATCH,
+                           num_epochs=1, save_steps=RECIPE_WARMUP_SAVE,
+                           max_steps=steps, log_every=10 ** 9,
+                           keep_checkpoints=2)
+        run_warmup(state, rec, path, CountingTokenizer(), cfg, ckpt,
+                   resume=resume, dropout_seed=args.seed)
+        return rec
+
+    state = TrainState(model, opt.build(model.parameters()))
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rec = run(state, RECIPE_WARMUP_STEPS, False)
+    counts = read_counts("recipe (c) warmup", ["K5_ffn"])
+    check_counts("recipe (c) warmup", counts, {
+        "K5_ffn": per_step["K5_ffn"] * RECIPE_WARMUP_STEPS})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = check_steps("recipe (c) warmup", rec, 1, RECIPE_WARMUP_STEPS,
+                         per_step)
+    windows = RECIPE_WARMUP_STEPS // RECIPE_ACCUM
+    o = state.optimizer
+    if (o.gradient_step, o.mini_step, o.param_groups[0]["count"]) != (
+            windows, 0, windows):
+        raise AssertionError(f"recipe (c): {o.gradient_step} updates, "
+                             f"mini-step {o.mini_step}, count "
+                             f"{o.param_groups[0]['count']}")
+    # host-clock intervals after 2 untimed micro-batches, leaving out the
+    # one that holds the save
+    ends = {st: t for st, _, t in rec.records}
+    gaps = [ends[i] - ends[i - 1] for i in range(3, RECIPE_WARMUP_STEPS + 1)
+            if i != RECIPE_WARMUP_SAVE + 1]
+    tps = TRAIN_BATCH * len(gaps) / sum(gaps)
+    # resume inside the second window from checkpoint-3
+    shutil.rmtree(os.path.join(ckpt, f"checkpoint-{RECIPE_WARMUP_STEPS}"))
+    model2 = copy.deepcopy(model)
+    model2.load_state_dict(start)
+    resumed = TrainState(model2, opt.build(model2.parameters()))
+    zero_counts()
+    rec2 = run(resumed, RECIPE_WARMUP_STEPS, True)
+    counts2 = read_counts("recipe (c) warmup resume", ["K5_ffn"])
+    check_counts("recipe (c) warmup resume", counts2, {
+        "K5_ffn": per_step["K5_ffn"]
+        * (RECIPE_WARMUP_STEPS - RECIPE_WARMUP_SAVE)})
+    losses2 = check_steps("recipe (c) warmup resume", rec2,
+                          RECIPE_WARMUP_SAVE + 1, RECIPE_WARMUP_STEPS,
+                          per_step)
+    differ = [k for k, v in state.model.state_dict().items()
+              if not torch.equal(v, resumed.model.state_dict()[k])]
+    for p, q in zip(state.model.parameters(), resumed.model.parameters()):
+        tensors = [(o.acc[p], resumed.optimizer.acc[q])] + [
+            (o.state[p][k], resumed.optimizer.state[q][k])
+            for k in ("exp_avg", "exp_avg_sq")]
+        if not all(torch.equal(a, b) for a, b in tensors):
+            differ.append("optimizer state")
+            break
+    phase(f"  recipe (c) warmup, remat '', {RECIPE_ACCUM} micro-batches of "
+          f"{TRAIN_BATCH} x {TRAIN_LEN} an update, dropout 0.1: "
+          f"{tps:.1f} triplets/s ({len(gaps)} micro-batches after 2 "
+          f"untimed, without the one after the save; host clock); peak "
+          f"memory {peak:.2f} GiB; {windows} updates; resumed from "
+          f"checkpoint-{RECIPE_WARMUP_SAVE} (mini-step 1 of "
+          f"{RECIPE_ACCUM}): losses "
+          f"{'equal' if losses2 == losses[RECIPE_WARMUP_SAVE:] else 'differ'}"
+          f", {len(differ)} parameter or optimizer tensors differ; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)} [{card}]")
+    if differ or losses2 != losses[RECIPE_WARMUP_SAVE:]:
+        raise AssertionError(f"recipe (c): the resumed run left the "
+                             f"uninterrupted one: {differ[:5]}")
+    del resumed, model2
+    torch.cuda.empty_cache()
+    return state, path
+
+
+def remat_step(args, dev, bert, sd, batch, name, expect):
+    """One warmup forward and backward with dropout (the step's generators
+    of (seed, 0)), no optimizer -> (loss, {name: gradient} on the card,
+    the generators' end states, peak GiB above what was allocated)."""
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+    from cocodr_tpu_torch.pipelines.train_step import (
+        dropout_generators,
+        nll_loss,
+    )
+
+    model = build_dual_encoder("rdot_nll_condenser", bert, device=dev,
+                               generator=torch.Generator().manual_seed(
+                                   args.seed))
+    model.load_state_dict(sd)
+    gens = dropout_generators(args.seed, 0, dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    loss, _ = nll_loss(model, batch, gens)
+    loss.backward()
+    torch.cuda.synchronize()
+    gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    check_counts(name, read_counts(name, list(expect)), expect)
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    return loss.detach(), grads, [g.get_state() for g in gens], gib
+
+
+def remat_agreement(ref, got):
+    """-> (loss equal, tensors whose gradient differs, max |diff|,
+    generators' end states equal)."""
+    differ = [k for k, g in ref[1].items() if not torch.equal(g, got[1][k])]
+    worst = max(((ref[1][k].float() - got[1][k].float()).abs().max().item()
+                 for k in differ), default=0.0)
+    gens = all(torch.equal(a, b) for a, b in zip(ref[2], got[2]))
+    return torch.equal(ref[0], got[0]), differ, worst, gens
+
+
+def recipe_remat_compare(args, dev, model, path, card):
+    """Remat against no remat at the warmup step's shape (64 x 128, three
+    towers, dropout on): one forward and backward for each policy from
+    the same weights and generators; the loss and every gradient must be
+    bit-equal, the generators end in the same states; a recompute that
+    draws from the caller's generator (planted) must differ. The peak
+    memory of each, above the parameters."""
+    from cocodr_tpu_torch.models import bert as tbert
+    from cocodr_tpu_torch.pipelines.warmup import (
+        TripleTextBatcher,
+        stream_triples,
+    )
+
+    triples = [t for t, _ in zip(stream_triples(path), range(TRAIN_BATCH))]
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in TripleTextBatcher(
+        HashTokenizer(), TRAIN_LEN).collate(triples).items()}
+    sd = model.state_dict()
+    plain = dataclasses.replace(model.cfg.bert, remat=False, remat_policy="")
+    layers = plain.num_hidden_layers
+    out = {}
+    for policy in RECIPE_POLICIES:
+        name = f"recipe remat compare, {policy_name(policy)}"
+        out[policy] = remat_step(args, dev, with_policy(plain, policy), sd,
+                                 batch, name,
+                                 {"K5_ffn": predicted_launches(policy, 3 * layers)})
+        torch.cuda.empty_cache()
+    real = tbert.recompute_generator
+    tbert.recompute_generator = lambda generator, state: generator
+    try:
+        planted = remat_step(args, dev, with_policy(plain, ""), sd, batch,
+                             "recipe remat compare, planted",
+                             {"K5_ffn": predicted_launches("", 3 * layers)})
+    finally:
+        tbert.recompute_generator = real
+    check_peaks("warmup", {p: out[p][3] for p in RECIPE_POLICIES})
+    ref = out[None]
+    lines, bad = [], []
+    for policy in RECIPE_POLICIES[1:]:
+        same_loss, differ, worst, gens = remat_agreement(ref, out[policy])
+        lines.append(f"{policy_name(policy)}: loss "
+                     f"{'equal' if same_loss else 'differs'}, "
+                     f"{len(differ)} of {len(ref[1])} gradients differ (max "
+                     f"|diff| {worst:.3e}), generators' end states "
+                     f"{'equal' if gens else 'differ'}")
+        if not (same_loss and not differ and gens):
+            bad.append(policy)
+    p_loss, p_differ, p_worst, _ = remat_agreement(ref, planted)
+    phase(f"  recipe remat against no remat, one warmup step of "
+          f"{TRAIN_BATCH} x {TRAIN_LEN} with dropout, bound bit-equal: "
+          + "; ".join(lines) + f"; the recompute drawing "
+          f"from the caller's generator (planted): {len(p_differ)} "
+          f"gradients differ (max |diff| {p_worst:.3e}) [{card}]")
+    if bad:
+        raise AssertionError(f"recipe: remat {bad} changed the step")
+    if not p_differ:
+        raise AssertionError("recipe: a recompute from the caller's "
+                             "generator passes the remat compare")
+
+
+def recipe_accum_compare(args, dev, model, path, stage):
+    """One window of RECIPE_ACCUM micro-batches, CMP_BATCH triples in all
+    (their first tokens drawn at random: random_first_token), dropout
+    off, on the card (bf16, remat '') and on the CPU (float32 plain
+    versions, no remat) from the same weights, both through
+    OptimizerConfig(grad_accum_steps=RECIPE_ACCUM): the accumulated
+    gradient MultiSteps hands the inner LAMB, by compare_step's bounds;
+    both take their first update at rate 0, so the parameters stay."""
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+    from cocodr_tpu_torch.pipelines.train_step import build_train_step
+    from cocodr_tpu_torch.pipelines.warmup import (
+        TripleTextBatcher,
+        stream_triples,
+    )
+    from cocodr_tpu_torch.utils.train_state import TrainState
+
+    per = CMP_BATCH // RECIPE_ACCUM
+    triples = [t for t, _ in zip(stream_triples(path), range(CMP_BATCH))]
+    arrays = random_first_token(args, TripleTextBatcher(
+        HashTokenizer(), TRAIN_LEN).collate(triples))
+    micro = [{k: v[i:i + per] for k, v in arrays.items()}
+             for i in range(0, CMP_BATCH, per)]
+    bert = model.cfg.bert
+    cpu = build_dual_encoder("rdot_nll_condenser", dataclasses.replace(
+        bert, dtype=torch.float32, remat=False), device="cpu",
+        generator=torch.Generator().manual_seed(args.seed))
+    cpu.load_state_dict(model.state_dict())
+    card_model = copy.deepcopy(model)
+    layers = bert.num_hidden_layers
+    out = {}
+    for name, m in (("card", card_model), ("cpu", cpu)):
+        d = next(m.parameters()).device
+        state = TrainState(m, recipe_optimizer(stage.optimizer).build(
+            m.parameters()))
+        before = {k: v.clone() for k, v in m.state_dict().items()}
+        seen = {}
+        inner_step = state.optimizer.inner.step
+
+        def record():
+            seen.update({k: p.grad.detach().double().cpu()
+                         for k, p in m.named_parameters()})
+            inner_step()
+
+        state.optimizer.inner.step = record
+        step = build_train_step()
+        zero_counts()
+        t = time.perf_counter()
+        losses = [step(state, {k: torch.from_numpy(v).to(d)
+                               for k, v in b.items()})[0].item()
+                  for b in micro]
+        secs = time.perf_counter() - t
+        if name == "card":  # K1 forward and again in the recompute
+            n = predicted_launches("", 3 * layers) * RECIPE_ACCUM
+            check_counts("recipe accumulation compare (card)", read_counts(
+                "recipe accumulation compare (card)", ["K1_ffn_block"]),
+                {"K1_ffn_block": n})
+        moved = [k for k, v in m.state_dict().items()
+                 if not torch.equal(v, before[k])]
+        if (moved or state.optimizer.gradient_step != 1
+                or state.optimizer.param_groups[0]["count"] != 1):
+            raise AssertionError(f"recipe accumulation compare ({name}): "
+                                 f"{len(moved)} tensors moved at rate 0")
+        out[name] = (statistics.mean(losses), seen)
+        phase(f"  recipe accumulation compare: {name} window "
+              f"{secs:.2f} s, micro-batch losses "
+              f"{', '.join(f'{x:.6f}' for x in losses)}")
+    (la, ga), (lb, gb) = out["card"], out["cpu"]
+    rel, glob, worst, cos = step_agreement(la, ga, lb, gb)
+    # the cosines cannot see a scale (a sum where the mean belongs)
+    norm = math.sqrt(sum(g.square().sum().item() for g in ga.values())
+                     / sum(g.square().sum().item() for g in gb.values()))
+    phase(f"  recipe accumulation compare card (bf16, remat '') vs CPU "
+          f"(float32), {RECIPE_ACCUM} x {per} triplets, dropout off: "
+          f"mean loss rel {rel:.2e} (bound {CMP_LOSS_RTOL}); the "
+          f"accumulated gradient's cosine {glob:.6f} (bound "
+          f"{CMP_GLOBAL_COSINE}), norm ratio {norm:.6f} (bound 1 +- "
+          f"{CMP_LOSS_RTOL}); worst tensor {worst} {cos:.6f} (bound "
+          f"{CMP_TENSOR_COSINE})")
+    if not (steps_agree(rel, glob, cos)
+            and abs(norm - 1.0) <= CMP_LOSS_RTOL):
+        raise AssertionError("recipe: the card's accumulated gradient and "
+                             "the CPU's disagree")
+
+
+def recipe_ance(args, dev, root, model, card):
+    """(d) one ance_round of dro-greedy at AnceStageConfig.base() (LAMB,
+    2 micro-batches an update, remat '', dropout 0.1) over RECIPE_DOCS
+    passages: mine with the warmup's weights, then one window."""
+    from cocodr_tpu_torch.core.configs import AnceStageConfig
+    from cocodr_tpu_torch.data.streams import TripletBatcher
+    from cocodr_tpu_torch.losses.dro import dro_greedy_init
+    from cocodr_tpu_torch.pipelines import ance
+    from cocodr_tpu_torch.pipelines.train_step import build_train_step
+    from cocodr_tpu_torch.utils.train_state import TrainState
+
+    stage = AnceStageConfig.base()
+    layers = model.cfg.bert.num_hidden_layers
+    cfg = ance.MineConfig(
+        topk_training=stage.topk_training,
+        negative_sample=stage.negative_sample, n_splits=5,
+        cluster_query=True, cluster_centroids=stage.dro.n_groups,
+        kmeans_iters=RECIPE_KMEANS_ITERS, kmeans_redo=1,
+        batch_size=stage.eval_batch, seed=args.seed)
+    pc, tq, dq, positives, dev_qrels = write_mine_data(
+        args, root, "recipe", RECIPE_DOCS, RECIPE_DOCS, RECIPE_TRAIN_Q,
+        RECIPE_DEV_Q)
+    state = TrainState(model, recipe_optimizer(stage.optimizer).build(
+        model.parameters()), extra=dro_greedy_init(stage.dro, dev))
+    step = StepRecorder(build_train_step(ance_step_config(stage,
+                                                          "dro-greedy")))
+    work = os.path.join(root, "ann")
+    per_step = {"K5_ffn": predicted_launches("", 3 * layers)}
+    with MineRecorder() as rec:
+        def expect():
+            e = mine_expected(rec, cfg, layers,
+                              (RECIPE_DOCS, RECIPE_DEV_Q, RECIPE_TRAIN_Q))
+            e["K5_ffn"] = per_step["K5_ffn"] * RECIPE_ANCE_STEPS
+            return e
+
+        state, m, steps = counted(
+            "recipe (d) ance_round",
+            lambda: ance.ance_round(
+                state, step, TripletBatcher(tq, pc), pc, tq, positives, dq,
+                dev_qrels, work, 0, cfg, stage.per_device_batch,
+                RECIPE_ANCE_STEPS, dropout_seed=args.seed, device=dev),
+            expect, ["K1_ffn_block", "K2_dual_sweep", "K3_topk", "K5_ffn"])
+        check_train_search("recipe (d)", rec.searches[1], RECIPE_DOCS, dev)
+    if steps != RECIPE_ANCE_STEPS or state.optimizer.gradient_step != 1:
+        raise AssertionError(f"recipe (d): {steps} steps, "
+                             f"{state.optimizer.gradient_step} updates")
+    check_steps("recipe (d) dro-greedy", step, 1, RECIPE_ANCE_STEPS, per_step)
+    lines = check_ann_file(ance.ann_data_path(work, 0), RECIPE_DOCS,
+                           positives, cfg.cluster_centroids,
+                           stage.negative_sample // 5)
+    phase(f"  recipe (d) ance_round over {RECIPE_DOCS} passages, "
+          f"{RECIPE_TRAIN_Q} train and {RECIPE_DEV_Q} dev queries: time (s) "
+          f"{timing_line(m)}; {lines} ann lines; dev ndcg@10 "
+          f"{m['ndcg_cut_10']:.4f}; {steps} dro-greedy micro-batches, one "
+          f"update [{card}]")
+    return state
+
+
+def recipe(args, dev):
+    """Phase 13: the four COCO-DR stages chained through the port at
+    BERT-base width, with remat and gradient accumulation. Each leg's
+    launches are predicted, checked and printed here."""
+    from cocodr_tpu_torch.core.configs import (
+        CocoStageConfig,
+        WarmupStageConfig,
+    )
+
+    coco_stage, warm_stage = CocoStageConfig.base(), WarmupStageConfig.base()
+    card = nvidia_smi()
+    with tempfile.TemporaryDirectory() as root:
+        coco = recipe_coco(args, dev, root, coco_stage, dataclasses.replace(
+            coco_stage.bert, dtype=torch.bfloat16), card)
+        bert = dataclasses.replace(warm_stage.bert, dtype=torch.bfloat16,
+                                   remat=True)
+        model = recipe_handoff(args, dev, coco, bert)
+        del coco
+        torch.cuda.empty_cache()
+        state, path = recipe_warmup(args, dev, root, model, warm_stage, card)
+        recipe_remat_compare(args, dev, state.model, path, card)
+        recipe_accum_compare(args, dev, state.model, path, warm_stage)
+        torch.cuda.empty_cache()
+        state = recipe_ance(args, dev, root, state.model, card)
+        torch.cuda.empty_cache()
+        eval_task(args, dev, state.model, root, "scifact")
+    torch.cuda.empty_cache()
+
+
 PHASES = ["kernels", "search", "serve", "encode", "train", "eval",
-          "ance-train", "ance-mine", "coco", "variants"]
+          "ance-train", "ance-mine", "coco", "variants", "recipe"]
 
 
 def main() -> None:
@@ -4815,7 +5380,7 @@ def main() -> None:
     for name, fn in (("encode", encode), ("train", train),
                      ("eval", evaluate), ("ance-train", ance_train),
                      ("ance-mine", ance_mine), ("coco", coco),
-                     ("variants", variants)):
+                     ("variants", variants), ("recipe", recipe)):
         if name not in run:
             continue
         phase(name)

@@ -5,8 +5,9 @@ hyperparameters of record (reference COCO/README.md, warmup/README.md,
 warmup/commands/run_bm25_warmup.sh, ANCE/README.md).
 
 `OptimizerConfig.build` makes the reference LAMB or optax.adamw's AdamW
-with the linear, cosine or ANCE episode schedules. Gradient accumulation
-raises NotImplementedError: ROADMAP.md Queue 1 item 13.
+with the linear, cosine or ANCE episode schedules, wrapped in
+optim/multi_steps.py's MultiSteps (optax.MultiSteps) when grad_accum_steps
+is above 1.
 """
 from __future__ import annotations
 
@@ -28,13 +29,20 @@ class OptimizerConfig:
     weight_decay: float = 0.0
     eps: float = 1e-6
     max_grad_norm: float = 1.0
+    # gradient accumulation (DDP no_sync's counterpart; reference
+    # warmup/drivers/run_bm25_warmup.py:211-215). It does not give a larger
+    # CONTRASTIVE batch (the COCO/README warning): each micro-batch's
+    # in-batch negatives are its own; the grad cache or more devices give
+    # that.
     grad_accum_steps: int = 1
 
     def build(self, params):
-        """-> a torch.optim.Optimizer over params."""
+        """-> a torch.optim.Optimizer over params, or a MultiSteps around
+        one when grad_accum_steps > 1."""
         from cocodr_tpu_torch.optim import (
             AdamW,
             Lamb,
+            MultiSteps,
             warmup_cosine,
             warmup_linear,
         )
@@ -48,11 +56,6 @@ class OptimizerConfig:
             raise ValueError(self.schedule)
         if self.name not in ("lamb", "adamw"):
             raise ValueError(self.name)
-        if self.grad_accum_steps > 1:
-            raise NotImplementedError(
-                "grad_accum_steps > 1 is not ported yet: ROADMAP.md Queue 1 "
-                "item 13"
-            )
         if self.schedule == "episode-decay":
             sched = episode_decay(self.lr, self.warmup_steps,
                                   self.total_steps, floor=self.lr_floor,
@@ -67,9 +70,11 @@ class OptimizerConfig:
             sched = (warmup_linear if self.schedule == "linear"
                      else warmup_cosine)(self.lr, self.warmup_steps,
                                          self.total_steps)
-        opt = Lamb if self.name == "lamb" else AdamW
-        return opt(params, sched, eps=self.eps,
-                   weight_decay=self.weight_decay)
+        opt = (Lamb if self.name == "lamb" else AdamW)(
+            params, sched, eps=self.eps, weight_decay=self.weight_decay)
+        if self.grad_accum_steps > 1:
+            return MultiSteps(opt, self.grad_accum_steps)
+        return opt
 
 
 @dataclasses.dataclass(frozen=True)

@@ -37,16 +37,51 @@ non-pad tokens, offset past pad_token_id, on every slot. Records pad with
 id 0, which RoBERTa's vocabulary reads as `<s>` and not as its pad id 1,
 so padded slots of a record get positions past its length (at most
 S + 1 = 513 of 514 at S = 512); they are masked out of attention, as in
-the JAX package. Not carried over yet: remat (ROADMAP.md Queue 1 item 13).
+the JAX package.
+
+Remat (`BertConfig.remat`, with the JAX package's `remat_policy` names)
+trades memory for a second forward in the backward, and never changes a
+value: the recompute draws dropout from a fresh generator set to the
+state the caller's generator had before the forward (`checkpointed`), so
+it draws the forward's masks while the caller's generator goes on past the
+later layers and towers as it does without remat.
+  ''                 each encoder layer under torch.utils.checkpoint: the
+                     forward keeps the layer's input, the backward runs the
+                     layer again;
+  'dots_saveable'    the same, but the outputs of the matrix products
+                     (aten mm, addmm, bmm, baddbmm) are kept and the
+                     elementwise tail is recomputed (a selective-checkpoint
+                     policy). The kernels K1, K5 and K8 run through ctypes,
+                     outside the dispatcher that the policy sees, so their
+                     outputs are recomputed: their forward launches again;
+  'no_save:attn_scores,attn_probs'
+                     the layers run as without remat except the attention
+                     core of the einsum path (the float32 scores, their
+                     exponentials, the dropout on them and the PV product),
+                     which keeps only q, k and v and is recomputed in the
+                     backward: no [B, N, S, S] tensor is kept. K8's path
+                     keeps none anyway and is left alone.
+Under '' and 'dots_saveable' every kernel a layer's forward launches
+launches once more in the backward (K5 36 -> 72 a bert-base warmup step
+with dropout). The Condenser's c_head layers run without remat, as in the
+JAX package, whose remat wraps the encoder's scan only; an encoder whose
+`no_remat_last` is k runs its last k layers without it (the iDRO step's
+group pass, pipelines/train_step.py).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from cocodr_tpu_torch.ops.attention import attention
 from cocodr_tpu_torch.ops.ffn import (
@@ -56,6 +91,9 @@ from cocodr_tpu_torch.ops.ffn import (
     ffn_block_int8,
     layer_norm_f32,
 )
+
+REMAT_POLICIES = ("", "dots_saveable", "no_save:attn_scores,attn_probs")
+NO_SAVE_SCORES = REMAT_POLICIES[2]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +125,12 @@ class BertConfig:
     # W8A8 int8 FFN half-layers (K7), an inference mode; the FFN weights
     # stay float32 and are quantized per call, as in the JAX package
     matmul_int8: bool = False
+    # recompute in the backward instead of keeping activations (the module
+    # docstring): remat_policy '' (each layer), 'dots_saveable' (each
+    # layer, the matrix products kept) or 'no_save:attn_scores,attn_probs'
+    # (the einsum attention core only)
+    remat: bool = False
+    remat_policy: str = ""
 
     def __post_init__(self):
         if self.attention_impl not in ("einsum", "fused"):
@@ -102,6 +146,11 @@ class BertConfig:
             raise ValueError(
                 f"position_style must be 'bert' or 'roberta', got "
                 f"{self.position_style!r}"
+            )
+        if self.remat and self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"unknown remat_policy {self.remat_policy!r}; valid names "
+                f"are {', '.join(repr(p) for p in REMAT_POLICIES)}"
             )
 
     @classmethod
@@ -133,6 +182,45 @@ class BertConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+
+# the products 'dots_saveable' keeps, as aten ops reach the dispatcher
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def recompute_generator(generator: torch.Generator, state) -> torch.Generator:
+    """The generator a recompute draws dropout from: a fresh one on
+    generator's device, set to `state`, the caller's state before the
+    forward. The caller's own generator is never rewound."""
+    g = torch.Generator(device=generator.device)
+    g.set_state(state)
+    return g
+
+
+def checkpointed(fn, generator, *args, context_fn=None):
+    """fn(*args, generator) under torch.utils.checkpoint (non-reentrant):
+    the forward keeps args, the backward runs fn again, drawing from
+    recompute_generator(generator, its state before the forward).
+    context_fn: a selective-checkpoint context (None: recompute all)."""
+    state = None if generator is None else generator.get_state()
+    runs = []
+
+    def run(*a):
+        gen = generator
+        if runs and generator is not None:
+            gen = recompute_generator(generator, state)
+        runs.append(None)
+        return fn(*a, gen)
+
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
 
 
 # what RoBERTa changes in BertConfig's defaults (HF roberta-base)
@@ -235,13 +323,12 @@ class BertSelfAttention(nn.Module):
         self.key = nn.Linear(H, H)
         self.value = nn.Linear(H, H)
 
-    def forward(self, h, attn_bias, generator=None):
+    def forward(self, h, attn_bias, generator=None,
+                recompute_scores: bool = False):
         """K8 when attention_impl is 'fused', S % 8 == 0 and no attention
         dropout runs, as in the JAX package; otherwise einsum attention
-        with float32 scores and a max held constant under
-        differentiation, the softmax division applied to the context,
-        (exp(s - max)·V) / Σexp, and dropout on the bf16 exponentials
-        after their sum is taken, as in cocodr_tpu/models/bert.py."""
+        (`core`). recompute_scores: the einsum core runs under
+        `checkpointed` (the 'no_save:attn_scores,attn_probs' policy)."""
         cfg = self.cfg
         B, S, H = h.shape
         N, D = cfg.num_attention_heads, cfg.head_dim
@@ -255,15 +342,28 @@ class BertSelfAttention(nn.Module):
             bias = attn_bias[:, 0, 0, :].contiguous()
             ctx = attention(q, k, v, bias, 1.0 / math.sqrt(D))
             return ctx.reshape(B, S, H)
+        if recompute_scores:
+            ctx = checkpointed(self.core, generator, q, k, v, attn_bias)
+        else:
+            ctx = self.core(q, k, v, attn_bias, generator)
+        return ctx.reshape(B, S, H)
+
+    def core(self, q, k, v, attn_bias, generator):
+        """q, k, v [B, S, N, D] -> the context [B, S, N, D]: float32
+        scores and a max held constant under differentiation, the softmax
+        division applied to the context, (exp(s - max)·V) / Σexp, and
+        dropout on the bf16 exponentials after their sum is taken, as in
+        cocodr_tpu/models/bert.py."""
+        dt = self.cfg.dtype
         scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
-        scores = scores * (1.0 / math.sqrt(D)) + attn_bias
+        scores = scores * (1.0 / math.sqrt(q.shape[-1])) + attn_bias
         m = scores.amax(-1, keepdim=True).detach()
         unnorm = torch.exp(scores - m).to(dt)
         denom = unnorm.float().sum(-1)  # [B, N, S]
-        unnorm = _dropout(self, unnorm, p, generator)
+        unnorm = _dropout(self, unnorm, self.cfg.attention_probs_dropout_prob,
+                          generator)
         ctx = torch.einsum("bnqk,bknd->bqnd", unnorm, v)
-        ctx = (ctx.float() / denom.transpose(1, 2)[..., None]).to(dt)
-        return ctx.reshape(B, S, H)
+        return (ctx.float() / denom.transpose(1, 2)[..., None]).to(dt)
 
 
 class BertSelfOutput(nn.Module):
@@ -308,11 +408,12 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(cfg)
         self.output = BertOutput(cfg)
 
-    def forward(self, h, attn_bias, generator=None):
+    def forward(self, h, attn_bias, generator=None,
+                recompute_scores: bool = False):
         cfg = self.cfg
         dt = cfg.dtype
         p = cfg.hidden_dropout_prob
-        ctx = self.attention.self(h, attn_bias, generator)
+        ctx = self.attention.self(h, attn_bias, generator, recompute_scores)
         r = h + _dropout(self, linear(ctx, self.attention.output.dense, dt),
                          p, generator)
         B, S, H = r.shape
@@ -355,17 +456,34 @@ class BertLayer(nn.Module):
 class BertEncoder(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
+        self.cfg = cfg
         self.layer = nn.ModuleList(
             BertLayer(cfg) for _ in range(cfg.num_hidden_layers)
         )
+        # the last layers that run without remat (set by the iDRO step)
+        self.no_remat_last = 0
 
     def forward(self, h, attn_bias, generator=None,
                 output_hidden_states: bool = False):
         """-> the last layer's output, or with output_hidden_states
-        (last, (h, layer 1's output, ..., layer L's output))."""
+        (last, (h, layer 1's output, ..., layer L's output)). With
+        cfg.remat and gradients on, each layer but the last no_remat_last
+        runs under the remat policy (the module docstring)."""
+        cfg = self.cfg
+        n_remat = (len(self.layer) - self.no_remat_last
+                   if cfg.remat and torch.is_grad_enabled() else 0)
+        context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                        _dots_saveable)
+                      if cfg.remat_policy == "dots_saveable" else None)
         hidden_states = [h]
-        for layer in self.layer:
-            h = layer(h, attn_bias, generator)
+        for i, layer in enumerate(self.layer):
+            if i >= n_remat:
+                h = layer(h, attn_bias, generator)
+            elif cfg.remat_policy == NO_SAVE_SCORES:
+                h = layer(h, attn_bias, generator, recompute_scores=True)
+            else:
+                h = checkpointed(layer, generator, h, attn_bias,
+                                 context_fn=context_fn)
             if output_hidden_states:
                 hidden_states.append(h)
         if output_hidden_states:

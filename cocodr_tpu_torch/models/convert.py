@@ -27,6 +27,7 @@ import torch
 from cocodr_tpu_torch.losses.dro import DroState
 from cocodr_tpu_torch.models.bert import BertConfig
 from cocodr_tpu_torch.models.dual_encoder import DualEncoderConfig
+from cocodr_tpu_torch.optim import MultiSteps
 
 
 def _t(x) -> torch.Tensor:
@@ -147,12 +148,26 @@ def load_jax_train_state(state, jax_state, cfg: DualEncoderConfig):
     (ScaleByLambState(mu, nu), ScaleByScheduleState(count)). mu and nu have
     the params' tree, so the params' mapping splits their [L, ...] leaves
     per layer too; they become the Lamb optimizer's exp_avg and exp_avg_sq,
-    and count its schedule count. jax_state.extra, a DroState of the DRO
+    and count its schedule count. An optax.MultiStepsState (gradient
+    accumulation) goes into the port's optim.MultiSteps: its
+    inner_opt_state into the inner Lamb as above, acc_grads, mini_step and
+    gradient_step into the wrapper. jax_state.extra, a DroState of the DRO
     kinds, becomes the port's losses.dro.DroState (None stays None)."""
     model, opt = state.model, state.optimizer
     dev = next(model.parameters()).device
     model.load_state_dict(params_from_jax(jax_state.params, cfg))
-    lamb_state, sched_state = jax_state.opt_state
+    opt_state = jax_state.opt_state
+    if hasattr(opt_state, "inner_opt_state"):  # optax.MultiStepsState
+        if not isinstance(opt, MultiSteps):
+            raise ValueError("a JAX state with gradient accumulation needs "
+                             "an optimizer built with grad_accum_steps > 1")
+        acc = params_from_jax(opt_state.acc_grads, cfg)
+        opt.acc = {p: acc[name].to(dev)
+                   for name, p in model.named_parameters()}
+        opt.mini_step = int(np.asarray(opt_state.mini_step))
+        opt.gradient_step = int(np.asarray(opt_state.gradient_step))
+        opt_state = opt_state.inner_opt_state
+    lamb_state, sched_state = opt_state
     mu = params_from_jax(lamb_state.mu, cfg)
     nu = params_from_jax(lamb_state.nu, cfg)
     for name, p in model.named_parameters():

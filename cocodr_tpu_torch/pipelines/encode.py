@@ -39,6 +39,21 @@ class EncodeConfig:
     length_buckets: tuple = ()
 
 
+def inference_copy(model, device):
+    """A copy of a models.dual_encoder.DualEncoder to serve or encode from:
+    on `device`, in eval mode, without .grad or requires_grad, its matmul
+    weights cast to the compute dtype (`cast_matmul_weights`). The caller's
+    model keeps its float32 Parameters, their values and its train/eval
+    mode."""
+    out = copy.deepcopy(model)
+    for p in out.parameters():
+        p.grad = None
+    out.requires_grad_(False)
+    out.to(device).eval()
+    cast_matmul_weights(out, model.cfg.bert.dtype)
+    return out
+
+
 class Encoder:
     """The embedding function of one tower on one device.
 
@@ -63,12 +78,7 @@ class Encoder:
                 "item 11 (parallel/*)"
             )
         self.device = resolve_device(device)
-        self.model = copy.deepcopy(model)
-        for p in self.model.parameters():
-            p.grad = None
-        self.model.requires_grad_(False)
-        self.model.to(self.device).eval()
-        cast_matmul_weights(self.model, model.cfg.bert.dtype)
+        self.model = inference_copy(model, self.device)
         self._method = (self.model.query_emb if is_query
                         else self.model.body_emb)
         self.noise_level = noise_level

@@ -34,7 +34,6 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from cocodr_tpu_torch.models.bert import cast_matmul_weights
 from cocodr_tpu_torch.ops._device import resolve_device
 from cocodr_tpu_torch.ops.mips import mips_topk
 from cocodr_tpu_torch.ops.mips_hier import (
@@ -43,6 +42,7 @@ from cocodr_tpu_torch.ops.mips_hier import (
     mips_topk_hierarchical,
 )
 from cocodr_tpu_torch.ops.mips_int8 import mips_topk_int8, quantize_corpus_int8
+from cocodr_tpu_torch.pipelines.encode import inference_copy
 
 SEARCH_TILE = 2048  # corpus row multiple of the kernel searches' sweeps
 
@@ -74,8 +74,11 @@ class RetrievalService:
         mesh=None,
         device="cuda",
     ):
-        """model: a models.dual_encoder.DualEncoder (moved to `device`, its
-        matmul weights cast to the compute dtype in place);
+        """model: a models.dual_encoder.DualEncoder, served from a copy on
+        `device` in eval mode with its matmul weights cast to the compute
+        dtype (pipelines/encode.py::inference_copy); the caller's model
+        keeps its float32 Parameters, their values and its mode, so a
+        service built from a model under training leaves it as it was;
         tokenizer: any callable with the HuggingFace call signature
         (texts, padding="max_length", truncation=True, max_length=...,
         return_tensors="np") -> {"input_ids", "attention_mask"};
@@ -106,8 +109,7 @@ class RetrievalService:
         else:
             corpus = corpus.to(self.device, torch.bfloat16)
             self.corpus = _pad_replicate(corpus, SEARCH_TILE).contiguous()
-        self.model = model.to(self.device).eval()
-        cast_matmul_weights(self.model, model.cfg.bert.dtype)
+        self.model = inference_copy(model, self.device)
 
     def _bucket(self, nq: int) -> int:
         """Static batch size for nq queries: next power of two >= nq

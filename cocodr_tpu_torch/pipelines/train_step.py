@@ -34,6 +34,9 @@ reference does, where the JAX package re-runs the top K layers with fresh
 masks; either way the group gradients feed an EMA'd weight update. The
 models that the JAX package sends to its lane step (two towers, chunk_len,
 the tanh pooler) keep the group rows in idro_lane_grad_dtype here too.
+Under remat (models/bert.py) each tower's last K layers run without it in
+an iDRO step (`no_remat_last`), so the G products read their stored
+activations, as the JAX package's group pass runs with remat=False.
 
 Dropout: a step takes three torch.Generators, one per tower, as the JAX
 step folds the tower index 0/1/2 into its key, so the positive and
@@ -48,6 +51,7 @@ optax does.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional, Sequence
 
@@ -173,7 +177,9 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
 
 
 def apply_gradients(state: TrainState, max_grad_norm: float) -> None:
-    """Clip the model's gradients, take one optimizer update, count it."""
+    """Clip the model's gradients, take one optimizer step (an update, or
+    with optim.MultiSteps an accumulation that updates every k-th time),
+    count the micro-batch."""
     if max_grad_norm > 0:
         clip_by_global_norm_(state.model.parameters(), max_grad_norm)
     state.optimizer.step()
@@ -194,6 +200,25 @@ def last_k_layers(model, k: int) -> list:
         towers.append(model.doc_encoder)
     return [p for tower in towers for layer in tower.encoder.layer[-k:]
             for p in layer.parameters()]
+
+
+@contextlib.contextmanager
+def no_remat_last(model, k: int):
+    """Inside the block, each tower's last min(k, depth) layers run without
+    remat: the iDRO group pass takes its G products through them, which
+    would otherwise recompute them once a product (the JAX package runs
+    its K-layer group pass with remat=False)."""
+    towers = [model.encoder]
+    if getattr(model, "doc_encoder", None) is not None:
+        towers.append(model.doc_encoder)
+    encoders = [t.encoder for t in towers]
+    try:
+        for enc in encoders:
+            enc.no_remat_last = k
+        yield
+    finally:
+        for enc in encoders:
+            enc.no_remat_last = 0
 
 
 def lane_group_pass(model, cfg: TrainStepConfig) -> bool:
@@ -287,7 +312,8 @@ def build_train_step(cfg: TrainStepConfig = TrainStepConfig()) -> Callable:
 
     def train_step(state: TrainState, batch, generators=None):
         state.optimizer.zero_grad(set_to_none=True)
-        losses, acc = triplet_losses(state.model, batch, generators)
+        with no_remat_last(state.model, cfg.idro_last_k_layers):
+            losses, acc = triplet_losses(state.model, batch, generators)
         robust, dstate, (gl, gc) = idro_group_pass(
             state.model, losses, batch["groups"], state.extra, cfg)
         idro_backward(losses, batch["groups"], state.extra.h_fun, gc)

@@ -35,9 +35,12 @@ PAYLOAD = "state.pt"
 @dataclasses.dataclass
 class TrainState:
     """What a training run carries from step to step. The model and the
-    optimizer are updated in place; `step` counts the updates taken;
-    `extra` is the DRO kinds' losses.dro.DroState (None for 'nll'), which
-    each of their steps replaces."""
+    optimizer are updated in place; `step` counts the train steps taken,
+    one a micro-batch (the JAX state's step + 1 on every call): with
+    gradient accumulation (optim.MultiSteps) the parameters move on every
+    k-th of them, and the optimizer's schedule count once a k; `extra` is
+    the DRO kinds' losses.dro.DroState (None for 'nll'), which each of
+    their steps replaces, on every micro-batch."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer

@@ -61,6 +61,7 @@ MODULES = [
     "cocodr_tpu_torch.optim",
     "cocodr_tpu_torch.optim.lamb",
     "cocodr_tpu_torch.optim.adamw",
+    "cocodr_tpu_torch.optim.multi_steps",
     "cocodr_tpu_torch.optim.schedules",
     "cocodr_tpu_torch.core",
     "cocodr_tpu_torch.core.configs",

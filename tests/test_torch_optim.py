@@ -26,7 +26,7 @@ from cocodr_tpu_torch.losses import triplet_nll
 from cocodr_tpu_torch.models import convert
 from cocodr_tpu_torch.models.bert import BertConfig
 from cocodr_tpu_torch.models.dual_encoder import MODEL_REGISTRY, DualEncoder
-from cocodr_tpu_torch.optim import AdamW, Lamb, schedules
+from cocodr_tpu_torch.optim import AdamW, Lamb, MultiSteps, schedules
 from cocodr_tpu_torch.pipelines.train_step import (
     TrainStepConfig,
     build_train_step,
@@ -236,8 +236,10 @@ def test_optimizer_config_builds_lamb_and_names_what_waits():
     to the JAX OptimizerConfig's schedule, lr_floor and episode_steps
     passed through); adamw builds the port's AdamW (its steps are held
     against optax.adamw in tests/test_torch_coco.py); gradient
-    accumulation raises with its ROADMAP item, episode-rewarmup without
-    episode_steps with the JAX config's complaint."""
+    accumulation wraps the optimizer in MultiSteps (its steps are held
+    against optax.MultiSteps in tests/test_torch_accum.py);
+    episode-rewarmup without episode_steps raises the JAX config's
+    complaint."""
     p = [torch.nn.Parameter(torch.zeros(2))]
     for kw in (dict(schedule="linear"), dict(schedule="cosine"),
                dict(schedule="episode-decay", lr_floor=0.3),
@@ -264,8 +266,9 @@ def test_optimizer_config_builds_lamb_and_names_what_waits():
             np.testing.assert_allclose(opt.schedule(step), float(ref(step)),
                                        rtol=2e-7, atol=2e-4 * 2.0 ** -23)
     assert isinstance(configs.OptimizerConfig(name="adamw").build(p), AdamW)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        configs.OptimizerConfig(grad_accum_steps=2).build(p)
+    accum = configs.OptimizerConfig(name="adamw", grad_accum_steps=2).build(p)
+    assert isinstance(accum, MultiSteps) and accum.every_k == 2
+    assert isinstance(accum.inner, AdamW)
     with pytest.raises(ValueError):
         configs.OptimizerConfig(name="sgd").build(p)
     with pytest.raises(ValueError, match="episode_steps"):
