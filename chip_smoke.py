@@ -205,9 +205,41 @@ Phases, each printed with its elapsed seconds:
      K5 144); (e) SciFact's shape through prepare_beir_task and
      evaluate_beir_task (K1 144, K2 1, K3 2), ids against the plain exact
      search up to near-ties (near_tie_moves).
+ 14. http (after recipe, over a corpus made as the kernels phase makes
+     its own: 1,048,576 row-normalised random bf16 docs): BERT-base in
+     the default mode behind pipelines/http_serve.py's server, 16 client
+     threads: (a) 128 single-query requests, which must coalesce into
+     fewer batches than requests, their answers against search() of the
+     same texts; (b) 64 requests of 64 queries, one batch each, answers
+     equal to search() of each request's texts up to near-ties, queries/s
+     beside search_stream of the same batches; K1 12, K2 1, K3 3 a batch.
+ 15. ivf (after http): a planted-cluster corpus of 1,048,576 x 768 bf16 (1,024 centres,
+     rows and queries a centre plus noise) made from the seed; the IVF
+     index's build seconds; 1,024 queries at k = 100 by the exact pallas
+     search and by IVF at nprobe 8, 32 and full, queries/s and recall@100
+     against an exact plain search; the IVF searches launch no kernel;
+     full probe equals the exact search up to near-ties; recall at nprobe
+     32 meets IVF_RECALL_32; then RetrievalService in ivf mode (K1 12 a
+     call and nothing else: a flat sweep there fails the counts), its
+     results equal to ivf_topk of the same embeddings, full probe through
+     its index equal to the exact search, ms a batch.
+ 16. cli (after ivf): python -m cocodr_tpu_torch.cli as subprocesses (each writing its
+     launch counts at exit) over a BERT-base checkpoint directory (random
+     weights from the seed, pytorch_model.bin, config.json, a vocab.txt of
+     30,522 entries) and a BEIR task of SciFact's published size (5,183
+     docs, 300 queries): preprocess-beir (the port's WordPiece tokenizer),
+     encode (K1 12 a batch of 512; its .npy equal to encode_cache in this
+     process bit for bit; docs/s), serve --queries (a TREC run equal to
+     the same service's search_stream here), serve --search-method ivf
+     through the stdin REPL, and serve --http (answers equal to search()
+     here), each one's launches checked; then in this process
+     evaluate_beir_task and mine() by search_method 'ivf' at full probe
+     over those records (metrics within 1e-2 of 'pallas''s, the ann
+     file's lines valid, K1 only).
 Every path (the search phase, each serve mode, each encode configuration,
 each training run, each eval task, combined_mrr, each mining round, each
-COCO leg, each variants leg, each recipe leg) runs
+COCO leg, each variants leg, each recipe leg, each HTTP leg, each IVF
+search, each CLI subcommand) runs
 with every kernel's launch count set to 0 just
 before it and read just after, and fails if a kernel of the path never
 launched or a count differs from the path's own. Then one JSON line of per-kernel numbers,
@@ -5309,8 +5341,764 @@ def recipe(args, dev):
     torch.cuda.empty_cache()
 
 
+# --- phases 14-16: the HTTP front end, IVF search, the CLI ------------------
+
+# The IVF phase's corpus: N_DOCS rows around IVF_CENTERS planted centres
+# (unit vectors), each row a centre plus IVF_NOISE x a Gaussian of norm ~1,
+# row-normalised in bf16; its queries are drawn the same way. The noise
+# lets a query's exact top 100 reach into other clusters now and then, so
+# recall at a small nprobe falls below 1 and says something.
+IVF_CENTERS = 1024
+IVF_NOISE = 2.0
+IVF_NPROBES = (8, 32)
+# recall@100 at nprobe 32 must reach this on the card; PERF.md gives the
+# CPU rehearsal it comes from (a quarter of the corpus: 262,144 rows, 256
+# centres and clusters, nprobe 8 for the same share of the clusters)
+IVF_RECALL_32 = 0.95
+HTTP_THREADS = 16
+HTTP_SINGLE = 8  # (a): single-query requests a client thread
+HTTP_ROUNDS = 4  # (b): requests of BATCH queries a client thread
+CLI_WORDS = 20_000  # whole words of the CLI phase's vocab.txt
+CLI_REPL_QUERIES = 16
+CLI_IVF_NPROBE = 2
+
+
+def planted_corpus(gen, dev, n, d, n_centers, noise, chunk=131072):
+    """(corpus [n, d] bf16, centres [n_centers, d] float32): rows around
+    planted centres, row-normalised, drawn on `dev` in chunks."""
+    centres = torch.randn(n_centers, d, generator=gen, device=dev)
+    centres /= centres.norm(dim=1, keepdim=True)
+    corpus = torch.empty((n, d), dtype=torch.bfloat16, device=dev)
+    for s in range(0, n, chunk):
+        m = min(chunk, n - s)
+        a = torch.randint(0, n_centers, (m,), generator=gen, device=dev)
+        x = centres[a] + noise * torch.randn(m, d, generator=gen,
+                                             device=dev) / math.sqrt(d)
+        corpus[s:s + m] = (x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    return corpus, centres
+
+
+def planted_queries(gen, dev, centres, n, noise):
+    d = centres.shape[1]
+    a = torch.randint(0, centres.shape[0], (n,), generator=gen, device=dev)
+    x = centres[a] + noise * torch.randn(n, d, generator=gen,
+                                         device=dev) / math.sqrt(d)
+    return (x / x.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+
+
+def synchronize(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def timed_calls(fn, dev, runs=3):
+    """fn() `runs` times on the host clock, each ended by a synchronize
+    -> (median seconds, last result)."""
+    walls = []
+    for _ in range(runs):
+        synchronize(dev)
+        t = time.perf_counter()
+        out = fn()
+        synchronize(dev)
+        walls.append(time.perf_counter() - t)
+    return statistics.median(walls), out
+
+
+def check_ivf_ids(name, ids, n_docs):
+    """Real rows only (no -1, no pad id), no duplicates in a row."""
+    ids = np.asarray(ids)
+    if ids.min() < 0 or ids.max() >= n_docs or any(
+            len(set(row.tolist())) != ids.shape[1] for row in ids):
+        raise AssertionError(f"{name}: ids out of range or repeated")
+
+
+def ivf_recalls(dev, corpus, q, k, nprobes, seed=0, runs=3):
+    """Build a bf16 IVF index of the corpus and search q at each nprobe
+    and at full probe, beside the exact 'pallas' search, all against an
+    exact plain search -> dict of the readings (build_s, pallas_s, and
+    nprobe -> (seconds, recall@k)). The IVF searches must launch no
+    kernel; full probe must equal the exact search up to near-ties.
+    ivf_rehearsal.py calls this on the CPU."""
+    from cocodr_tpu_torch.ops.ivf import build_ivf_index
+    from cocodr_tpu_torch.parallel.topk import search_topk
+
+    scores, ref_v, ref_i = exact_search(q, corpus, k)
+    tol = 1e-4 * max(1.0, scores.abs().max().item())
+    out = {"tol": tol}
+    out["build_s"], out["index"] = timed_calls(
+        lambda: build_ivf_index(corpus, dtype=torch.bfloat16, device=dev,
+                                seed=seed), dev, runs=1)
+    index = out["index"]
+    zero_counts()
+    out["pallas_s"], (pv, pi) = timed_calls(
+        lambda: search_topk(q, corpus, k, method="pallas", device=dev), dev,
+        runs)
+    read_counts("ivf: exact pallas search", ["K2_dual_sweep", "K3_topk"]
+                if dev.type == "cuda" else [])
+    out["pallas_err"] = check_results(pv, pi, scores, ref_v, tol)
+    for nprobe in tuple(nprobes) + (index.n_clusters,):
+        zero_counts()
+        secs, (v, i) = timed_calls(lambda: search_topk(
+            q, None, k, method="ivf", ivf_index=index, ivf_nprobe=nprobe,
+            device=dev), dev, runs)
+        check_counts(f"ivf nprobe {nprobe}",
+                     read_counts(f"ivf nprobe {nprobe}", []), {})
+        check_ivf_ids(f"ivf nprobe {nprobe}", i, corpus.shape[0])
+        out[nprobe] = (secs, recall(i, ref_i))
+        if nprobe == index.n_clusters:
+            out["full_err"] = check_results(v, i, scores, ref_v, tol)
+    return out
+
+
+def ivf(args, dev):
+    """Phase 15: IVF search over a planted-cluster corpus of N_DOCS x DIM,
+    then RetrievalService in ivf mode. -> the serve path's counts."""
+    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+    from cocodr_tpu_torch.ops.ivf import ivf_topk
+    from cocodr_tpu_torch.pipelines.serve import RetrievalService, ServeConfig
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 14)
+    corpus, centres = planted_corpus(gen, dev, N_DOCS, DIM, IVF_CENTERS,
+                                     IVF_NOISE)
+    q = planted_queries(gen, dev, centres, SEARCH_Q, IVF_NOISE)
+    card = nvidia_smi()
+    r = ivf_recalls(dev, corpus, q, SEARCH_K, IVF_NPROBES, seed=args.seed)
+    index = r.pop("index")
+    pad = float((index.block_ids < 0).float().mean())
+    phase(f"  index of {N_DOCS} x {DIM} bf16 ({IVF_CENTERS} planted "
+          f"centres): built in {r['build_s']:.3f} s, {index.n_clusters} "
+          f"clusters, {index.n_blocks} blocks of {index.block_size} "
+          f"({100 * pad:.1f}% pad rows) [{card}]")
+    exact_qps = SEARCH_Q / r["pallas_s"]
+    phase(f"  exact pallas search_topk: {exact_qps:.1f} queries/s "
+          f"({r['pallas_s'] * 1e3:.3f} ms per {SEARCH_Q}), max score err "
+          f"{r['pallas_err']:.3e} [{card}]")
+    for nprobe in IVF_NPROBES + (index.n_clusters,):
+        secs, rec = r[nprobe]
+        phase(f"  ivf nprobe {nprobe}: {SEARCH_Q / secs:.1f} queries/s "
+              f"({secs * 1e3:.3f} ms per {SEARCH_Q}; exact pallas "
+              f"{exact_qps:.1f}), recall@{SEARCH_K} {rec:.5f} [{card}]")
+    phase(f"  ivf full probe ({index.n_clusters}) equals the exact plain "
+          f"search up to near-ties: max score err {r['full_err']:.3e} "
+          f"(tol {r['tol']:.3e})")
+    rec32 = r[32][1]
+    if not rec32 >= IVF_RECALL_32:
+        raise AssertionError(f"ivf nprobe 32: recall@{SEARCH_K} {rec32} < "
+                             f"{IVF_RECALL_32}")
+    del index, r
+    torch.cuda.empty_cache()
+
+    # RetrievalService in ivf mode: K1 12 a call and no kernel search
+    model = build_dual_encoder(
+        "rdot_nll_condenser", BertConfig.base(dtype=torch.bfloat16),
+        device=dev, generator=torch.Generator().manual_seed(args.seed))
+    t = time.perf_counter()
+    svc = RetrievalService(model, HashTokenizer(), corpus, device=dev,
+                           cfg=ServeConfig(top_k=TOP_K,
+                                           max_query_len=QUERY_LEN,
+                                           max_batch=BATCH, ivf=True))
+    synchronize(dev)
+    build_s = time.perf_counter() - t
+    rng = np.random.default_rng(args.seed)
+    batches = [make_queries(rng, BATCH) for _ in range(3)]
+    single = make_queries(rng, 1)
+    svc.search(make_queries(rng, BATCH))  # warm-up
+    zero_counts()
+    results = list(svc.search_stream(batches)) + [svc.search(single)]
+    layers = model.cfg.bert.num_hidden_layers
+    counts = read_counts("serve ivf", ["K1_ffn_block"]
+                         if dev.type == "cuda" else [])
+    check_counts("serve ivf", counts, {"K1_ffn_block": layers * 4}
+                 if dev.type == "cuda" else {})
+    full = svc.ivf_index.n_clusters
+    errs = []
+    with torch.inference_mode():
+        for texts, (vals, ids) in zip(batches + [single], results):
+            pad = svc._bucket(len(texts)) - len(texts)
+            tok_ids, tok_mask = svc._tokenize(texts + [""] * pad)
+            emb = svc.model.query_emb(torch.from_numpy(tok_ids).to(dev),
+                                      torch.from_numpy(tok_mask).to(dev))
+            # the service's own call: the padded batch, trimmed after
+            want_v, want_i = ivf_topk(emb, svc.ivf_index, TOP_K,
+                                      nprobe=svc.cfg.ivf_nprobe)
+            emb = emb[:len(texts)]
+            want_v = want_v[:len(texts)].cpu().numpy()
+            want_i = want_i[:len(texts)].cpu().numpy()
+            if not (np.array_equal(np.asarray(ids), want_i)
+                    and np.array_equal(vals, want_v)):
+                raise AssertionError("serve ivf: results differ from "
+                                     "ivf_topk of the same embeddings")
+            check_ivf_ids("serve ivf", ids, svc.n_docs)
+            # full probe through the service's index equals exact search
+            fv, fi = ivf_topk(emb, svc.ivf_index, TOP_K, nprobe=full)
+            scores, ref_v, _ = exact_search(emb, corpus, TOP_K)
+            tol = 1e-4 * max(1.0, scores.abs().max().item())
+            errs.append(check_results(fv.cpu().numpy(), fi.cpu().numpy(),
+                                      scores, ref_v, tol))
+            del scores
+    n_timed = 10
+    timed = [make_queries(rng, BATCH) for _ in range(n_timed)]
+    synchronize(dev)
+    t = time.perf_counter()
+    for _ in svc.search_stream(timed):
+        pass
+    synchronize(dev)
+    per_batch = (time.perf_counter() - t) / n_timed
+    tok_ids, tok_mask = svc._tokenize(timed[0])
+    with torch.inference_mode():
+        emb = svc.model.query_emb(torch.from_numpy(tok_ids).to(dev),
+                                  torch.from_numpy(tok_mask).to(dev))
+        search_s, _ = timed_calls(lambda: svc._search(emb, TOP_K), dev, 5)
+    phase(f"  serve ivf (nprobe {svc.cfg.ivf_nprobe} of {full} clusters): "
+          f"index built in {build_s:.3f} s at construction; results equal "
+          f"ivf_topk of the same embeddings; full probe through its index "
+          f"equals the exact plain search (max score err {max(errs):.3e}); "
+          f"search_stream {per_batch * 1e3:.3f} ms/batch of {BATCH} "
+          f"({BATCH / per_batch:.1f} queries/s), the IVF search alone "
+          f"{search_s * 1e3:.3f} ms a batch (host clock) [{card}]")
+    del svc, corpus
+    torch.cuda.empty_cache()
+    return counts
+
+
+def http_request(port, method, path, body=None, timeout=120):
+    """One HTTP request to the local server -> the decoded JSON answer;
+    any status but 200 raises."""
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        c.request(method, path,
+                  body=None if body is None else json.dumps(body),
+                  headers={"Content-Type": "application/json"})
+        r = c.getresponse()
+        out = json.loads(r.read())
+        if r.status != 200:
+            raise AssertionError(f"HTTP {r.status} on {path}: {out}")
+        return out
+    finally:
+        c.close()
+
+
+def run_clients(fn, jobs):
+    """fn(job) for every job on HTTP_THREADS client threads -> (seconds,
+    results in job order); a failed request fails the phase."""
+    import concurrent.futures
+
+    t = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(HTTP_THREADS) as pool:
+        out = list(pool.map(fn, jobs))
+    return time.perf_counter() - t, out
+
+
+def hits_agree(name, hits, vals, ids, tol):
+    """HTTP hits (or a CLI's) against a search's rows (vals [Q, k], ids
+    [Q][k]): scores within tol, an id in one list and not the other only
+    within tol of the k-th score -> the largest score difference."""
+    worst = 0.0
+    for r, row in enumerate(hits):
+        got_i = [h["id"] for h in row]
+        got_v = np.array([h["score"] for h in row], np.float64)
+        want_v = np.asarray(vals[r], np.float64)
+        want_i = [str(d) if not isinstance(d, int) else d for d in ids[r]]
+        if got_v.shape != want_v.shape:
+            raise AssertionError(f"{name}: row {r} has {len(row)} hits")
+        worst = max(worst, float(np.abs(got_v - want_v).max()))
+        if worst > tol:
+            raise AssertionError(f"{name}: scores of row {r} differ by "
+                                 f"{worst} > {tol}")
+        for doc in set(got_i) ^ set(want_i):
+            v = (got_v[got_i.index(doc)] if doc in got_i
+                 else want_v[want_i.index(doc)])
+            if abs(v - want_v[-1]) > tol:
+                raise AssertionError(f"{name}: row {r}: id {doc} moved")
+    return worst
+
+
+def default_serve_counts(layers, calls):
+    """Launches of `calls` default-mode serve calls of a BERT tower."""
+    per = SERVE_MODES["default"][2]
+    out = {name: n * calls for name, n in per.items()}
+    out["K1_ffn_block"] = layers * calls
+    return out
+
+
+def http(args, dev, corpus):
+    """Phase 14: BERT-base behind the HTTP front end in the default mode
+    over `corpus` (make_corpus's), HTTP_THREADS client threads: (a) single-query
+    requests that coalesce, (b) requests of BATCH queries, timed beside
+    search_stream over the same batches."""
+    import threading
+
+    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+    from cocodr_tpu_torch.pipelines.http_serve import make_server
+    from cocodr_tpu_torch.pipelines.serve import RetrievalService, ServeConfig
+
+    model = build_dual_encoder(
+        "rdot_nll_condenser", BertConfig.base(dtype=torch.bfloat16),
+        device=dev, generator=torch.Generator().manual_seed(args.seed))
+    svc = RetrievalService(model, HashTokenizer(), corpus, device=dev,
+                           cfg=ServeConfig(top_k=TOP_K,
+                                           max_query_len=QUERY_LEN,
+                                           max_batch=BATCH))
+    layers = model.cfg.bert.num_hidden_layers
+    del model
+    rng = np.random.default_rng(args.seed + 15)
+    svc.search(make_queries(rng, BATCH))  # warm-up
+    card = nvidia_smi()
+    kernels = (["K1_ffn_block", "K2_dual_sweep", "K3_topk"]
+               if dev.type == "cuda" else [])
+    server, batcher = make_server(svc, port=0, window_s=0.002)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        # (a) single queries from every client coalesce into batches
+        singles = make_queries(rng, HTTP_THREADS * HTTP_SINGLE)
+        b0 = batcher.batches
+        zero_counts()
+        secs_a, hits = run_clients(
+            lambda text: http_request(port, "POST", "/search",
+                                      {"query": text})["hits"], singles)
+        n_a = batcher.batches - b0
+        counts = read_counts("http (a) single queries", kernels)
+        if dev.type == "cuda":
+            check_counts("http (a)", counts,
+                         default_serve_counts(layers, n_a))
+        if not n_a < len(singles):
+            raise AssertionError(f"http (a): {n_a} batches for "
+                                 f"{len(singles)} requests")
+        vals, ids = svc.search(singles)
+        scale = max(1.0, float(np.abs(vals).max()))
+        worst_a = hits_agree("http (a)", hits, vals, ids, 1e-2 * scale)
+        phase(f"  http (a): {len(singles)} single-query requests from "
+              f"{HTTP_THREADS} clients in {n_a} batches, "
+              f"{len(singles) / secs_a:.1f} queries/s; answers agree with "
+              f"search() of all {len(singles)} in one call (other batch "
+              f"shapes) within {worst_a:.3e} (tol 1e-2 x max |score|) "
+              f"[{card}]")
+
+        # (b) one request a batch: answers equal search() of its texts
+        jobs = [make_queries(rng, BATCH)
+                for _ in range(HTTP_THREADS * HTTP_ROUNDS)]
+        b0 = batcher.batches
+        zero_counts()
+        secs_b, hits = run_clients(
+            lambda texts: http_request(port, "POST", "/search",
+                                       {"queries": texts})["hits"], jobs)
+        n_b = batcher.batches - b0
+        counts = read_counts("http (b) batches", kernels)
+        if dev.type == "cuda":
+            check_counts("http (b)", counts,
+                         default_serve_counts(layers, n_b))
+        worst_b = 0.0
+        for texts, got in zip(jobs, hits):
+            vals, ids = svc.search(texts)
+            tol = 1e-4 * max(1.0, float(np.abs(vals).max()))
+            worst_b = max(worst_b, hits_agree("http (b)", got, vals, ids,
+                                              tol))
+        health = http_request(port, "GET", "/healthz")
+        if health["n_docs"] != svc.n_docs:
+            raise AssertionError(f"http: /healthz {health}")
+    finally:
+        server.shutdown()
+        batcher.stop()
+        server.server_close()
+        thread.join(timeout=30)
+    synchronize(dev)
+    t = time.perf_counter()
+    for _ in svc.search_stream(jobs, depth=8):
+        pass
+    synchronize(dev)
+    secs_s = time.perf_counter() - t
+    n_q = len(jobs) * BATCH
+    phase(f"  http (b): {len(jobs)} requests of {BATCH} queries from "
+          f"{HTTP_THREADS} clients in {n_b} batches: {n_q / secs_b:.1f} "
+          f"queries/s over HTTP, search_stream of the same batches "
+          f"{n_q / secs_s:.1f} queries/s; answers equal search() of each "
+          f"request's texts up to near-ties (max score diff "
+          f"{worst_b:.3e}) [{card}]")
+    del svc
+    torch.cuda.empty_cache()
+
+
+# the launcher of a CLI subprocess: runs `python -m cocodr_tpu_torch.cli`
+# (run_module as __main__) and writes the process's kernel launch counts
+# to the file given first, also when the command fails
+CLI_LAUNCHER = '''import importlib, json, runpy, sys
+COUNTERS = {counters!r}
+out = sys.argv[1]
+sys.argv = ["cocodr_tpu_torch.cli"] + sys.argv[2:]
+try:
+    runpy.run_module("cocodr_tpu_torch.cli", run_name="__main__",
+                     alter_sys=True)
+except SystemExit as e:
+    if e.code not in (None, 0):
+        raise
+finally:
+    counts = {{name: getattr(getattr(importlib.import_module(mod), fn), attr)
+              for name, (mod, fn, attr) in COUNTERS.items()}}
+    with open(out, "w") as f:
+        json.dump(counts, f)
+'''
+
+
+class CliRunner:
+    """Runs CLI subcommands in subprocesses from a launcher in `root`."""
+
+    def __init__(self, root):
+        counters = {name: (fn.__module__, fn.__name__, attr)
+                    for name, (fn, attr) in kernel_counters().items()}
+        self.root = root
+        self.launcher = os.path.join(root, "launch_cli.py")
+        with open(self.launcher, "w") as f:
+            f.write(CLI_LAUNCHER.format(counters=counters))
+        self.env = dict(os.environ, PYTHONPATH=str(ROOT))
+        self.n = 0
+
+    def command(self, argv):
+        self.n += 1
+        counts = os.path.join(self.root, f"counts_{self.n}.json")
+        return [sys.executable, self.launcher, counts] + argv, counts
+
+    def run(self, name, argv, stdin=None):
+        """-> (seconds, stdout, launch counts); a failed command raises."""
+        cmd, counts = self.command(argv)
+        t = time.perf_counter()
+        out = subprocess.run(cmd, input=stdin, capture_output=True,
+                             text=True, env=self.env, cwd=ROOT, timeout=300)
+        secs = time.perf_counter() - t
+        if out.returncode != 0:
+            raise AssertionError(f"cli {name}: exit {out.returncode}\n"
+                                 f"{out.stderr[-4000:]}")
+        with open(counts) as f:
+            got = json.load(f)
+        phase(f"  cli {name}: {secs:.2f} s (a subprocess); launches {got}")
+        return secs, out, got
+
+
+def write_cli_checkpoint(args, root):
+    """A BERT-base checkpoint directory as HuggingFace writes one: random
+    weights from the seed (bert.* names, pytorch_model.bin), config.json,
+    tokenizer_config.json and a vocab.txt of BERT's 30,522 entries: the
+    special tokens at their BERT ids, CLI_WORDS whole words w0.., the
+    pieces ##0..##9 (so that w{n} >= CLI_WORDS splits into pieces) and
+    fillers."""
+    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+    from cocodr_tpu_torch.models.hf import state_dict_to_hf
+
+    bert = BertConfig.base()
+    model = build_dual_encoder("rdot_nll_condenser", bert, device="cpu",
+                               generator=torch.Generator().manual_seed(
+                                   args.seed + 16))
+    ckpt = os.path.join(root, "ckpt")
+    os.makedirs(ckpt)
+    torch.save(state_dict_to_hf(model.state_dict(), model.cfg),
+               os.path.join(ckpt, "pytorch_model.bin"))
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump({"model_type": "bert", "vocab_size": bert.vocab_size,
+                   "hidden_size": bert.hidden_size,
+                   "num_hidden_layers": bert.num_hidden_layers,
+                   "num_attention_heads": bert.num_attention_heads,
+                   "intermediate_size": bert.intermediate_size,
+                   "hidden_act": "gelu", "max_position_embeddings": 512,
+                   "type_vocab_size": 2, "layer_norm_eps": 1e-12,
+                   "pad_token_id": 0}, f)
+    with open(os.path.join(ckpt, "tokenizer_config.json"), "w") as f:
+        json.dump({"do_lower_case": True}, f)
+    vocab = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+             + [f"w{i}" for i in range(CLI_WORDS)]
+             + [f"##{i}" for i in range(10)])
+    vocab += [f"x{i}" for i in range(bert.vocab_size - len(vocab))]
+    with open(os.path.join(ckpt, "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab) + "\n")
+    return ckpt
+
+
+def read_trec(path):
+    """qid -> [(doc id, score)] in rank order."""
+    run = {}
+    with open(path) as f:
+        for line in f:
+            qid, q0, did, rank, score, tag = line.split()
+            if q0 != "Q0" or tag != "cocodr_tpu":
+                raise AssertionError(f"bad TREC line {line!r}")
+            run.setdefault(qid, []).append((did, float(score)))
+            if int(rank) != len(run[qid]):
+                raise AssertionError(f"bad rank in {line!r}")
+    return run
+
+
+def cli(args, dev):
+    """Phase 16: the CLI as a user runs it, each subcommand a subprocess
+    (its launch counts written at exit): preprocess-beir of a SciFact-sized
+    BEIR task with the port's WordPiece tokenizer, encode of its corpus
+    from a BERT-base checkpoint directory, serve --queries (a bulk TREC
+    run), serve --search-method ivf (the stdin REPL) and serve --http; each
+    output held against the same work in this process."""
+    from cocodr_tpu_torch import cli as tcli
+    from cocodr_tpu_torch.data.records import TokenCache, load_id_map
+    from cocodr_tpu_torch.data.tokenizer import load_tokenizer
+    from cocodr_tpu_torch.pipelines.encode import (
+        EncodeConfig,
+        Encoder,
+        encode_cache,
+    )
+    from cocodr_tpu_torch.pipelines.serve import RetrievalService, ServeConfig
+
+    card = nvidia_smi()
+    on_card = dev.type == "cuda"
+    common = [] if on_card else ["--cpu-devices", "1"]
+    with tempfile.TemporaryDirectory() as root:
+        ckpt = write_cli_checkpoint(args, root)
+        rng = np.random.default_rng([args.seed, 16])
+        data = write_beir_task(rng, root, "scifact")
+        rec = os.path.join(root, "rec")
+        run = CliRunner(root)
+        secs, _, counts = run.run("preprocess-beir", [
+            "preprocess-beir", "--data-dir", data, "--out", rec,
+            "--tokenizer", ckpt, "--task", "scifact", "--n-workers", "4"])
+        check_counts("cli preprocess-beir", counts, {})
+        passages = TokenCache(os.path.join(rec, "passages"))
+        n_docs = len(passages)
+        phase(f"  cli preprocess-beir: {n_docs} docs at "
+              f"{passages.max_len} tokens, "
+              f"{len(TokenCache(os.path.join(rec, 'queries')))} queries")
+
+        emb_path = os.path.join(root, "corpus.npy")
+        log_dir = os.path.join(root, "log")
+        secs, _, counts = run.run("encode", [
+            "encode", "--checkpoint", ckpt, "--records",
+            os.path.join(rec, "passages"), "--out", emb_path,
+            "--batch-size", "512", "--log-dir", log_dir] + common)
+        model = tcli._load_model(ckpt, "rdot_nll_condenser", dev)
+        layers = model.cfg.bert.num_hidden_layers
+        n_batches = math.ceil(n_docs / 512)
+        if on_card:
+            check_counts("cli encode", counts,
+                         {"K1_ffn_block": layers * n_batches})
+        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+            enc_rate = json.loads(f.readline())["encode/records_per_s"]
+        emb = np.load(emb_path)
+        zero_counts()
+        direct = encode_cache(Encoder(model, device=dev), passages,
+                              EncodeConfig(batch_size=512))
+        counts = read_counts("cli: encode_cache in this process",
+                             ["K1_ffn_block"] if on_card else [])
+        # bit for bit on the card; a CPU rehearsal's two processes sum in
+        # other orders (their thread counts differ)
+        diff = float(np.abs(emb - direct).max())
+        if not diff <= (0.0 if on_card else 1e-5):
+            raise AssertionError(f"cli encode: .npy differs from "
+                                 f"encode_cache by {diff}")
+        phase(f"  cli encode: {n_docs} docs at {passages.max_len} tokens, "
+              f"{enc_rate:.1f} docs/s (the CLI's own clock), "
+              f"{n_batches} batches of 512; the .npy equals encode_cache "
+              f"of the same checkpoint in this process (max |diff| "
+              f"{diff:.3e}) [{card}]")
+
+        tok = load_tokenizer(ckpt)
+        id_map = os.path.join(rec, "passages.docid2offset.pickle")
+        off2id = {v: k for k, v in load_id_map(id_map).items()}
+        doc_ids = [off2id[i] for i in range(n_docs)]
+        queries = []
+        with open(os.path.join(data, "queries.jsonl")) as f:
+            for line in f:
+                j = json.loads(line)
+                queries.append((j["_id"], j["text"]))
+        tsv = os.path.join(root, "queries.tsv")
+        with open(tsv, "w") as f:
+            f.writelines(f"{q}\t{t}\n" for q, t in queries)
+        trec = os.path.join(root, "run.trec")
+        secs, out, counts = run.run("serve --queries", [
+            "serve", "--checkpoint", ckpt, "--emb", emb_path, "--id-map",
+            id_map, "--queries", tsv, "--output", trec] + common)
+        n_calls = math.ceil(len(queries) / BATCH)
+        if on_card:
+            check_counts("cli serve --queries", counts,
+                         default_serve_counts(layers, n_calls))
+        bulk = json.loads(out.stderr.strip().splitlines()[-1])
+        svc = RetrievalService(model, tok, emb, doc_ids=doc_ids, device=dev,
+                               cfg=ServeConfig())
+        texts = [t for _, t in queries]
+        zero_counts()
+        results = list(svc.search_stream(
+            [texts[i:i + BATCH] for i in range(0, len(texts), BATCH)]))
+        read_counts("cli: the same service in this process",
+                    ["K1_ffn_block", "K2_dual_sweep", "K3_topk"]
+                    if on_card else [])
+        got = read_trec(trec)
+        vals = np.concatenate([v for v, _ in results])
+        ids = [row for _, i in results for row in i]
+        hits = [[{"id": d, "score": v} for d, v in got[q]]
+                for q, _ in queries]
+        # the run file's 6 decimals; the CPU rehearsal's processes differ
+        worst = hits_agree("cli serve --queries", hits, vals, ids,
+                           1e-6 if on_card else 1e-4)
+        phase(f"  cli serve --queries: {len(queries)} queries, TREC run "
+              f"equal to RetrievalService.search_stream in this process "
+              f"(max score diff {worst:.3e}: the run's 6 decimals); "
+              f"{bulk['qps']} queries/s (the CLI's own clock) [{card}]")
+
+        repl = [t for _, t in queries[:CLI_REPL_QUERIES]]
+        secs, out, counts = run.run("serve --search-method ivf (REPL)", [
+            "serve", "--checkpoint", ckpt, "--emb", emb_path, "--id-map",
+            id_map, "--search-method", "ivf", "--ivf-nprobe",
+            str(CLI_IVF_NPROBE)] + common, stdin="\n".join(repl) + "\n")
+        if on_card:
+            check_counts("cli serve ivf", counts,
+                         {"K1_ffn_block": layers * len(repl)})
+        lines = [json.loads(x) for x in out.stdout.splitlines()
+                 if x.startswith("{")]
+        if lines[0] != {"ready": True, "n_docs": n_docs}:
+            raise AssertionError(f"cli serve ivf: {lines[0]}")
+        ivf_svc = RetrievalService(model, tok, emb, doc_ids=doc_ids,
+                                   device=dev, cfg=ServeConfig(
+                                       ivf=True, ivf_nprobe=CLI_IVF_NPROBE))
+        worst = 0.0
+        for text, line in zip(repl, lines[1:]):
+            vals, ids = ivf_svc.search([text])
+            tol = 1e-4 * max(1.0, float(np.abs(vals).max()))
+            worst = max(worst, hits_agree("cli serve ivf", [line["hits"]],
+                                          vals, ids, tol))
+        if len(lines) != len(repl) + 1:
+            raise AssertionError(f"cli serve ivf: {len(lines)} lines")
+        phase(f"  cli serve --search-method ivf: {len(repl)} REPL queries "
+              f"({ivf_svc.ivf_index.n_clusters} clusters, nprobe "
+              f"{CLI_IVF_NPROBE}) answer as the same IVF service in this "
+              f"process (max score diff {worst:.3e})")
+        del ivf_svc
+
+        cli_http(run, ckpt, emb_path, id_map, common, svc, texts, layers,
+                 on_card, card)
+        del svc
+        ivf_eval_and_mine(dev, model, data, rec, tok, root, on_card, card)
+        del model
+    torch.cuda.empty_cache()
+
+
+def ivf_eval_and_mine(dev, model, data, rec, tok, root, on_card, card):
+    """evaluate_beir_task and mine() by search_method 'ivf' over the cli
+    phase's records and model, at full probe (ivf_nprobe past the
+    records' clusters): the eval's metrics within near-tie distance of
+    the 'pallas' eval's, the ann file's lines valid, time_ivf_build
+    reported, and no kernel search launched (K1 only, for the encodes)."""
+    from cocodr_tpu_torch.data.records import TokenCache
+    from cocodr_tpu_torch.pipelines import ance
+    from cocodr_tpu_torch.pipelines import eval_beir as eb
+
+    layers = model.cfg.bert.num_hidden_layers
+    kernels = ["K1_ffn_block"] if on_card else []
+    cfg = eb.BeirEvalConfig.for_task("scifact", search_method="ivf",
+                                     ivf_nprobe=1000)
+    paths = eb.prepare_beir_task(data, rec, tok, cfg)  # the CLI's records
+    corpus_path, query_path, d2o, q2o, qrels = paths
+    n_docs, n_q = len(d2o), len(q2o)
+    batches = math.ceil(n_docs / cfg.batch_size) + math.ceil(
+        n_q / cfg.batch_size)
+    zero_counts()
+    got = eb.evaluate_beir_task(model, *paths, cfg, device=dev)
+    counts = read_counts("eval scifact by ivf", kernels)
+    if on_card:
+        check_counts("eval by ivf", counts,
+                     {"K1_ffn_block": layers * batches})
+    want = eb.evaluate_beir_task(model, *paths, dataclasses.replace(
+        cfg, search_method="pallas"), device=dev)
+    diff = max(abs(got[m] - want[m]) for m in want)
+    # near-ties at the k-th score move the metrics by ~1e-3 (the eval
+    # phase's card-against-plain reading: 1.67e-3); a wrong search by far
+    if not diff <= 1e-2:
+        raise AssertionError(f"eval by ivf: metrics {got} against pallas "
+                             f"{want}")
+    phase(f"  eval scifact by ivf at full probe: ndcg@10 "
+          f"{got['ndcg_cut_10']:.4f}, recall@1000 {got['recall_1000']:.4f}; "
+          f"'pallas' {want['ndcg_cut_10']:.4f}, "
+          f"{want['recall_1000']:.4f} (max |diff| {diff:.2e}) [{card}]")
+
+    qrels_off = {q2o[q]: {d2o[d]: r for d, r in rel.items()}
+                 for q, rel in qrels.items()}
+    positives = {q: min(rel) for q, rel in qrels_off.items()}
+    caches = TokenCache(corpus_path), TokenCache(query_path)
+    mcfg = ance.MineConfig(search_method="ivf", ivf_nprobe=1000,
+                           batch_size=cfg.batch_size)
+    out = os.path.join(root, "mine_ivf")
+    zero_counts()
+    m = ance.mine(model, None, caches[0], caches[1], positives, caches[1],
+                  qrels_off, out, 0, mcfg, device=dev)
+    counts = read_counts("mine by ivf", kernels)
+    if on_card:
+        check_counts("mine by ivf", counts, {"K1_ffn_block": layers * (
+            math.ceil(n_docs / mcfg.batch_size) + 2)})
+    lines = check_ann_file(ance.ann_data_path(out, 0), n_docs, positives, 1,
+                           mcfg.negative_sample // mcfg.n_splits)
+    phase(f"  mine by ivf at full probe ({n_docs} passages, {n_q} train "
+          f"and dev queries): time (s) {timing_line(m)}; {lines} ann lines "
+          f"of real, distinct negatives [{card}]")
+
+
+def cli_http(run, ckpt, emb_path, id_map, common, svc, texts, layers,
+             on_card, card):
+    """serve --http in a subprocess: the ready line, two requests of 32
+    queries and one of one, /healthz, then SIGINT; the answers held
+    against `svc` (the same service in this process)."""
+    import signal
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd, counts_path = run.command([
+        "serve", "--checkpoint", ckpt, "--emb", emb_path, "--id-map",
+        id_map, "--http", f"127.0.0.1:{port}"] + common)
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=run.env,
+                            cwd=ROOT)
+    try:
+        ready = json.loads(proc.stdout.readline())
+        up_s = time.perf_counter() - t
+        if not ready.get("ready"):
+            raise AssertionError(f"cli serve --http: {ready}")
+        groups = [texts[:32], texts[32:64], texts[64:65]]
+        worst = 0.0
+        for group in groups:
+            hits = http_request(port, "POST", "/search",
+                                {"queries": group})["hits"]
+            vals, ids = svc.search(group)
+            tol = 1e-4 * max(1.0, float(np.abs(vals).max()))
+            worst = max(worst, hits_agree("cli serve --http", hits, vals,
+                                          ids, tol))
+        health = http_request(port, "GET", "/healthz")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            _, err = proc.communicate(timeout=60)
+        finally:
+            proc.kill()
+    if proc.returncode != 0:
+        raise AssertionError(f"cli serve --http: exit {proc.returncode}\n"
+                             f"{err[-4000:]}")
+    with open(counts_path) as f:
+        counts = json.load(f)
+    calls = health["batches"] + 1  # the warm-up search before ready
+    phase(f"  cli serve --http: ready after {up_s:.2f} s; "
+          f"{health['requests']} queries in {health['batches']} batches; "
+          f"launches {counts}")
+    if on_card:
+        check_counts("cli serve --http", counts,
+                     default_serve_counts(layers, calls))
+    phase(f"  cli serve --http: answers equal RetrievalService.search in "
+          f"this process up to near-ties (max score diff {worst:.3e}) "
+          f"[{card}]")
+
+
 PHASES = ["kernels", "search", "serve", "encode", "train", "eval",
-          "ance-train", "ance-mine", "coco", "variants", "recipe"]
+          "ance-train", "ance-mine", "coco", "variants", "recipe", "http",
+          "ivf", "cli"]
 
 
 def main() -> None:
@@ -5380,11 +6168,17 @@ def main() -> None:
     for name, fn in (("encode", encode), ("train", train),
                      ("eval", evaluate), ("ance-train", ance_train),
                      ("ance-mine", ance_mine), ("coco", coco),
-                     ("variants", variants), ("recipe", recipe)):
+                     ("variants", variants), ("recipe", recipe),
+                     ("http", http), ("ivf", ivf), ("cli", cli)):
         if name not in run:
             continue
         phase(name)
-        out = fn(args, dev, k5["ms"]) if name == "train" else fn(args, dev)
+        if name == "train":
+            out = fn(args, dev, k5["ms"])
+        elif name == "http":
+            out = fn(args, dev, make_corpus(gen, dev))
+        else:
+            out = fn(args, dev)
         if name == "encode":
             encode_counts = out
         elif name == "train":

@@ -15,33 +15,19 @@ plain version on the CPU:
 - the per-cluster sums are a one-hot product, onehot(ids)^T @ x ([C, N] x
   [N, D]), where `index_add_`/`scatter_add_` would sum by atomics on the
   card, in another order every run;
-- both products run in float32 with TF32 off (saved, cleared and restored
+- both products run in float32 with TF32 off (`_device.tf32(False)`
   around each call): the assignment's x2 - 2xc + c2 cancels, and TF32's
   10-bit mantissa moves points near a boundary.
 """
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cocodr_tpu_torch.ops._device import resolve_device
-
-
-def _float32_products(fn):
-    """Run fn with TF32 off for float32 matmuls, whatever the caller set."""
-    @functools.wraps(fn)
-    def wrapped(*args, **kwargs):
-        saved = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = saved
-    return wrapped
+from cocodr_tpu_torch.ops._device import resolve_device, tf32
 
 
 def _assign(x, centroids):
@@ -74,7 +60,7 @@ def _lloyd_step(x, centroids):
     return new_c, d2.sum()
 
 
-@_float32_products
+@tf32(False)
 def _kmeans_single(x, init_centroids, n_clusters: int, n_iter: int):
     """n_iter Lloyd steps from init_centroids -> (centroids [C, D], ids
     [N], inertia of the final assignment, a 0-d tensor)."""
@@ -96,7 +82,7 @@ def init_indices(n: int, n_clusters: int, seed: int) -> np.ndarray:
     return np.random.RandomState(seed).choice(n, n_clusters, replace=False)
 
 
-@_float32_products
+@tf32(False)
 def kmeans(x, n_clusters: int, n_iter: int = 100, n_redo: int = 1,
            seed: int = 0, device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     """k-means of x [N, D] (numpy or a tensor) on `device` (the card unless
@@ -117,7 +103,7 @@ def kmeans(x, n_clusters: int, n_iter: int = 100, n_redo: int = 1,
     return best[0], best[1]
 
 
-@_float32_products
+@tf32(False)
 def assign_clusters(x, centroids):
     """Nearest-centroid assignment [N] int64 (the miner's index.search over
     the centroids), on the centroids' device."""

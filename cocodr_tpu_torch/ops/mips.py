@@ -135,6 +135,8 @@ N_REAL_METHODS = ("pallas", "fast")
 def resolve_search_method(method: str, exact_fp32: bool = False) -> str:
     """Validate; 'naive' under exact_fp32; 'auto' -> 'pallas' (the exact
     hierarchical kernel search) on every device."""
+    # 'ivf' is refused here: it searches an index, not a flat corpus, and
+    # its callers (parallel/topk.py, pipelines/ance.py) branch before this
     if method not in SEARCH_METHODS:
         raise ValueError(
             f"method must be one of {SEARCH_METHODS}, got {method!r}"

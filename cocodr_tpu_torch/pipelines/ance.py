@@ -22,9 +22,11 @@ are parallel/topk.py::search_topk and ops/kmeans.py on the device.
 model's corpus is one row a real chunk (`encode_cache_multivector`, its
 emb cache `corpus_{ckpt}_mv.npy` with the row -> document map beside it
 in `.rows.npy`); the searches run over the rows, and their ids map back to
-documents before the dev metrics (deduped) and the negatives. Not ported
-yet, each raising NotImplementedError naming its ROADMAP.md Queue 1 item:
-`search_method="ivf"` (item 7), a mesh and `device_put` (item 11).
+documents before the dev metrics (deduped) and the negatives. With
+`search_method="ivf"` one IVF index a round, built from the placed,
+unpadded rows, serves both searches. Not ported yet, each raising
+NotImplementedError naming its ROADMAP.md Queue 1 item: a mesh and
+`device_put` (item 11).
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ from cocodr_tpu_torch.data.streams import (
 from cocodr_tpu_torch.evals.metrics import evaluate_run, run_from_topk
 from cocodr_tpu_torch.losses.dro import DroState, dro_state_summary
 from cocodr_tpu_torch.ops._device import resolve_device
+from cocodr_tpu_torch.ops.ivf import build_ivf_index
 from cocodr_tpu_torch.ops.kmeans import kmeans
 from cocodr_tpu_torch.ops.mips import N_REAL_METHODS, resolve_search_method
 from cocodr_tpu_torch.parallel.topk import search_topk
@@ -91,11 +94,10 @@ class MineConfig:
     exact_fp32: bool = False  # float32 sweep (FAISS-bit parity)
     # a method of ops/mips.py for the dev and train searches: 'auto'
     # (= 'pallas', the exact kernel search), 'pallas', 'exact2', 'fast'
-    # (rescore-free block argmax), 'blockmax', 'refined', 'naive'; 'ivf'
-    # raises unless exact_fp32 (ROADMAP.md Queue 1 item 7). Ignored with
-    # exact_fp32.
+    # (rescore-free block argmax), 'blockmax', 'refined', 'naive', or
+    # 'ivf' (ops/ivf.py, clustered approximate). Ignored with exact_fp32.
     search_method: str = "auto"
-    ivf_nprobe: int = 32  # inert until item 7; kept so configs carry over
+    ivf_nprobe: int = 32  # clusters probed a query with 'ivf'
     # length-bucketed corpus encode: ascending widths, the last >= the
     # cache's max_len (e.g. (64, 128)); () = single-width encode
     length_buckets: tuple = ()
@@ -244,16 +246,17 @@ def place_corpus(corpus_emb, method: str = "auto", exact_fp32: bool = False,
     n_real (ops/mips.py::N_REAL_METHODS: 'pallas', 'fast', and 'auto',
     which resolves to 'pallas') the rows are replicate-padded to a
     multiple of CORPUS_ROW_MULTIPLE by copies of the last row and n_real is
-    N, so the search pads nothing per call; the other methods get the N
-    rows unpadded and n_real 0 (each pads per call as it must: a padded
-    corpus would let rows >= N into their results). The rows are cast in
-    steps of _PLACE_ROWS into one preallocated tensor: no float32 copy of
-    the whole corpus on the device, no bf16 copy of it on the host. A
-    tensor already on the device in the right dtype and row count is used
-    as it is."""
+    N, so the search pads nothing per call; the other methods, 'ivf'
+    among them, get the N rows unpadded and n_real 0 (each pads per call
+    as it must: a padded corpus would let rows >= N into their results,
+    and an IVF index built from it would index the pad rows). The rows
+    are cast in steps of _PLACE_ROWS into one preallocated tensor: no
+    float32 copy of the whole corpus on the device, no bf16 copy of it on
+    the host. A tensor already on the device in the right dtype and row
+    count is used as it is."""
     dev = resolve_device(device)
     dtype = torch.float32 if exact_fp32 else torch.bfloat16
-    pad_rows = (not exact_fp32
+    pad_rows = (not exact_fp32 and method != "ivf"
                 and resolve_search_method(method) in N_REAL_METHODS)
     src = torch.as_tensor(corpus_emb)  # a numpy array's memory, no copy
     n, d = src.shape
@@ -290,8 +293,9 @@ def mine(
 ) -> Dict[str, float]:
     """One mining round on `device` (the card unless the caller passes
     device="cpu") -> the dev metrics it logged, plus a `time_*` host-clock
-    breakdown of its phases (corpus_encode, corpus_to_device, dev_eval,
-    train_encode, train_search, negatives, cluster, write) and time_total.
+    breakdown of its phases (corpus_encode, corpus_to_device, ivf_build
+    with search_method 'ivf', dev_eval, train_encode, train_search,
+    negatives, cluster, write) and time_total.
 
     model: a models.dual_encoder.DualEncoder; params: a state dict loaded
     into a copy of it, or None for the model's own weights (the caller's
@@ -313,11 +317,6 @@ def mine(
         raise NotImplementedError(
             "mining over a mesh is not ported yet: ROADMAP.md Queue 1 "
             "item 11 (parallel/*)"
-        )
-    if cfg.search_method == "ivf" and not cfg.exact_fp32:
-        raise NotImplementedError(
-            "search_method='ivf' is not ported yet: ROADMAP.md Queue 1 "
-            "item 7 (ops/ivf.py)"
         )
     dev = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
@@ -374,12 +373,18 @@ def mine(
                                   cfg.exact_fp32, dev)
     n_docs = n_real or corpus.shape[0]
     _mark("corpus_to_device")
+    ivf_index = None
+    if cfg.search_method == "ivf" and not cfg.exact_fp32:
+        # one index a round for both searches, from the unpadded rows
+        ivf_index = build_ivf_index(corpus, dtype=torch.bfloat16, device=dev)
+        _mark("ivf_build")
 
     def search(queries, k):
         """-> top ids as documents (a multi-chunk corpus's rows mapped)."""
         _, top = search_topk(
             queries, corpus, k, q_chunk=cfg.q_chunk, tile=cfg.mips_tile,
             exact_fp32=cfg.exact_fp32, method=cfg.search_method,
+            ivf_index=ivf_index, ivf_nprobe=cfg.ivf_nprobe,
             n_real=n_real, device=dev)
         if row2doc is None:
             return top

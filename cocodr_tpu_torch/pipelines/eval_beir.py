@@ -16,9 +16,8 @@ evaluate_beir.py:132-134).
 
 The functions take the port's model module where the JAX ones take
 (model, params), and read records with data.records.TokenCache (the JAX
-package's native reader only adds speed). Not ported yet, each raising
-NotImplementedError: `search_method="ivf"` (ROADMAP.md Queue 1 item 7)
-and a mesh (item 11).
+package's native reader only adds speed). A mesh is not ported yet and
+raises NotImplementedError (ROADMAP.md Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -66,8 +65,10 @@ class BeirEvalConfig:
     length_buckets: tuple = ()  # bucketed corpus encode
     # a method of ops/mips.py: 'auto' (= 'pallas', the exact kernel
     # search), 'pallas', 'exact2', 'fast', 'blockmax', 'refined', 'naive';
-    # 'ivf' raises (ROADMAP.md Queue 1 item 7, which brings ivf_nprobe)
+    # or 'ivf' (ops/ivf.py, clustered approximate; recall set by
+    # ivf_nprobe)
     search_method: str = "auto"
+    ivf_nprobe: int = 32
 
     @classmethod
     def for_task(cls, task: str, **kw) -> "BeirEvalConfig":
@@ -113,11 +114,6 @@ def evaluate_beir_task(model, corpus_path: str, query_path: str,
     models.dual_encoder.DualEncoder, left as it is: the encoders work on
     their own copies), search the top cfg.top_k documents of every query
     on `device` and score the run -> evaluate_run's metrics."""
-    if cfg.search_method == "ivf":
-        raise NotImplementedError(
-            "search_method='ivf' is not ported yet: ROADMAP.md Queue 1 "
-            "item 7 (ops/ivf.py)"
-        )
     dev = resolve_device(device)
     corpus_cache = TokenCache(corpus_path)
     query_cache = TokenCache(query_path)
@@ -146,7 +142,7 @@ def evaluate_beir_task(model, corpus_path: str, query_path: str,
     _, top_ids = search_topk(
         query_emb, corpus_emb, k, mesh=mesh, q_chunk=cfg.q_chunk,
         tile=cfg.mips_tile, exact_fp32=cfg.exact_fp32,
-        method=cfg.search_method, device=dev,
+        method=cfg.search_method, ivf_nprobe=cfg.ivf_nprobe, device=dev,
     )
     if row2doc is not None:
         top_ids = np.where(top_ids >= 0, row2doc[top_ids], -1)

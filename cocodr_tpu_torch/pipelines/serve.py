@@ -6,6 +6,11 @@ the corpus, then map row ids to external doc ids. The search mode follows
 `ServeConfig`, with the JAX package's precedence:
   exact_fp32     float32 corpus, sort-per-tile search with float32
                  multiplies (`ops.mips.mips_topk`);
+  ivf            the corpus clustered into an IVF index at construction
+                 (`ops.ivf.build_ivf_index`, bf16 blocks; no flat corpus
+                 is kept), approximate search of the `ivf_nprobe` best
+                 clusters (`ops.ivf.ivf_topk`: plain torch, as the JAX
+                 package's is XLA with no Pallas kernel);
   quantize_int8  int8 corpus quantized at construction (half the bf16
                  memory), block-argmax search over it (K6 + K3,
                  `ops.mips_int8.mips_topk_int8`);
@@ -17,14 +22,16 @@ the corpus, then map row ids to external doc ids. The search mode follows
 Query batches are padded to power-of-two buckets, as in the JAX package,
 so a one-query call encodes 8 rows and not max_batch.
 
-Except for exact_fp32, the corpus is replicate-padded once, at
+Except for exact_fp32 and ivf, the corpus is replicate-padded once, at
 construction, to the search's tile multiple, and the search is told the
 real row count (`n_real`); the JAX service lets each search pad its own
 copy. Results are the same.
 
 PyTorch launches asynchronously: `dispatch` returns while the card works,
 and `collect` / `collect_many` wait by copying the [batch, k] results to
-the host, so `search_stream` keeps `depth` batches in flight.
+the host, so `search_stream` keeps `depth` batches in flight. The IVF
+search reads its probe table on the host, so its `dispatch` waits for the
+encode, and `search_stream` partly serializes, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ import numpy as np
 import torch
 
 from cocodr_tpu_torch.ops._device import resolve_device
+from cocodr_tpu_torch.ops.ivf import build_ivf_index, ivf_topk
 from cocodr_tpu_torch.ops.mips import mips_topk
 from cocodr_tpu_torch.ops.mips_hier import (
     _pad_replicate,
@@ -59,8 +67,13 @@ class ServeConfig:
     fast_search: bool = False
     # int8 corpus and search; ignored with exact_fp32, wins over fast_search
     quantize_int8: bool = False
-    # IVF search (ops/ivf.py): not ported, raises unless exact_fp32
+    # IVF search (ops/ivf.py): only the probed clusters' blocks are read
+    # a query, recall traded for time by ivf_nprobe; ignored with
+    # exact_fp32, wins over quantize_int8 and fast_search
     ivf: bool = False
+    ivf_nprobe: int = 32
+    ivf_clusters: Optional[int] = None  # None: N / (2 * ivf_block_size)
+    ivf_block_size: int = 512
 
 
 class RetrievalService:
@@ -84,11 +97,6 @@ class RetrievalService:
         return_tensors="np") -> {"input_ids", "attention_mask"};
         corpus_emb: [N, D] numpy array or tensor (a tensor already on the
         device is used without a host round trip)."""
-        if cfg.ivf and not cfg.exact_fp32:
-            raise NotImplementedError(
-                "ServeConfig.ivf is not ported yet: ROADMAP.md Queue 1 "
-                "item 7 (ops/ivf.py)"
-            )
         if mesh is not None:
             raise NotImplementedError(
                 "sharded serving is not ported yet: ROADMAP.md Queue 1 "
@@ -101,8 +109,15 @@ class RetrievalService:
         corpus = torch.as_tensor(corpus_emb)
         self.n_docs = int(corpus.shape[0])
         self.dim_scale = None
+        self.ivf_index = None
         if cfg.exact_fp32:
             self.corpus = corpus.to(self.device, torch.float32).contiguous()
+        elif cfg.ivf:
+            self.ivf_index = build_ivf_index(
+                corpus, n_clusters=cfg.ivf_clusters,
+                block_size=cfg.ivf_block_size, dtype=torch.bfloat16,
+                device=self.device)
+            self.corpus = None
         elif cfg.quantize_int8:
             c_i8, self.dim_scale = quantize_corpus_int8(corpus.to(self.device))
             self.corpus = _pad_replicate(c_i8, SEARCH_TILE).contiguous()
@@ -154,6 +169,8 @@ class RetrievalService:
         cfg = self.cfg
         if cfg.exact_fp32:
             return mips_topk(emb, self.corpus, k, exact_fp32=True)
+        if self.ivf_index is not None:
+            return ivf_topk(emb, self.ivf_index, k, nprobe=cfg.ivf_nprobe)
         if cfg.quantize_int8:
             return mips_topk_int8(emb, self.corpus, self.dim_scale, k,
                                   tile=SEARCH_TILE, n_real=self.n_docs)

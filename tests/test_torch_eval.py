@@ -191,16 +191,24 @@ def test_eval_beir_idempotent_prepare_and_buckets(tmp_path, tokenizer):
 
 
 def test_eval_beir_names_what_waits(tmp_path, tokenizer):
-    """ivf (item 7) raises, naming its item. Multi-chunk models (item 3)
+    """ivf, which raised here until ops/ivf.py was ported, evaluates: at
+    full probe its metrics equal the exact 'pallas' search's (1e-6; the
+    weights' std 0.2 keeps scores apart). Multi-chunk models (item 3)
     now evaluate: over records wider than chunk_len the corpus is one row
     a chunk, deduped to documents (held against the JAX eval in
     tests/test_torch_multichunk.py); a corpus of one chunk's width
     evaluates as single vectors, equal to rdot_nll on the same weights."""
     data = write_task(tmp_path, n_docs=10)
     _, _, model = models()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        teb.eval_beir(model, data, str(tmp_path / "w"), tokenizer,
-                      device="cpu", search_method="ivf")
+    kw = dict(device="cpu", batch_size=8, top_k=10, q_chunk=4,
+              query_len=8, doc_len=12)
+    ivf = teb.eval_beir(model, data, str(tmp_path / "w"), tokenizer,
+                        search_method="ivf", ivf_nprobe=1000, **kw)
+    flat = teb.eval_beir(model, data, str(tmp_path / "w"), tokenizer,
+                         search_method="pallas", **kw)
+    assert ivf.keys() == flat.keys()
+    for k in flat:
+        assert ivf[k] == pytest.approx(flat[k], **TOL), k
     _, _, plain = models("rdot_nll")
     chunked = DualEncoder(MODEL_REGISTRY["rdot_nll_multi_chunk"](
         BertConfig.tiny(), base_len=8, head_dim=16))

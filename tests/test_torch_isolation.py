@@ -23,6 +23,7 @@ MODULES = [
     "cocodr_tpu_torch.ops.attention",
     "cocodr_tpu_torch.ops.ffn",
     "cocodr_tpu_torch.ops.int8_matmul",
+    "cocodr_tpu_torch.ops.ivf",
     "cocodr_tpu_torch.ops.kmeans",
     "cocodr_tpu_torch.ops.mips",
     "cocodr_tpu_torch.ops.mips_blockmax",
@@ -43,6 +44,8 @@ MODULES = [
     "cocodr_tpu_torch.pipelines.eval_beir",
     "cocodr_tpu_torch.pipelines.ance",
     "cocodr_tpu_torch.pipelines.coco",
+    "cocodr_tpu_torch.pipelines.http_serve",
+    "cocodr_tpu_torch.cli",
     "cocodr_tpu_torch.evals",
     "cocodr_tpu_torch.evals.metrics",
     "cocodr_tpu_torch.evals.msmarco",
@@ -52,6 +55,7 @@ MODULES = [
     "cocodr_tpu_torch.data.preprocess",
     "cocodr_tpu_torch.data.records",
     "cocodr_tpu_torch.data.streams",
+    "cocodr_tpu_torch.data.tokenizer",
     "cocodr_tpu_torch.data.coco_collator",
     "cocodr_tpu_torch.data.coco_spans",
     "cocodr_tpu_torch.losses",

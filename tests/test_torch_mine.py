@@ -302,14 +302,15 @@ def test_mine_emb_cache_pruning(tmp_path):
 @pytest.mark.parametrize("method,exact_fp32", [
     ("auto", False), ("pallas", False), ("fast", False), ("exact2", False),
     ("blockmax", False), ("refined", False), ("naive", False),
-    ("pallas", True)])
+    ("pallas", True), ("ivf", False)])
 def test_mine_places_the_corpus_once(tmp_path, monkeypatch, method,
                                      exact_fp32):
     """Both searches of a round get one tensor: bf16 (float32 with
     exact_fp32), replicate-padded to a multiple of 2,048 rows with n_real =
     the real count for the methods that honour n_real ('auto' = 'pallas',
-    'fast'), unpadded with n_real 0 for the others; no negative is a pad
-    row."""
+    'fast'), unpadded with n_real 0 for the others ('ivf' builds its
+    index from those unpadded rows, and both searches get that one
+    index); no negative is a pad row."""
     paths = dataset(tmp_path)
     _, _, model = models()
     qc, pc = caches(paths, "port")
@@ -318,7 +319,10 @@ def test_mine_places_the_corpus_once(tmp_path, monkeypatch, method,
 
     def spy(queries, corpus, k, **kw):
         seen.append((corpus, kw["n_real"]))
+        indexes.append(kw["ivf_index"])
         return real(queries, corpus, k, **kw)
+
+    indexes = []
 
     monkeypatch.setattr(tance, "search_topk", spy)
     out = str(tmp_path / "ann")
@@ -338,9 +342,40 @@ def test_mine_places_the_corpus_once(tmp_path, monkeypatch, method,
                                dev_c[n_docs:]))
     else:
         assert dev_c.shape[0] == n_docs and dev_n == 0
+    if method == "ivf":
+        assert indexes[0] is indexes[1] and indexes[0].n_docs == n_docs
+        real_ids = indexes[0].block_ids[indexes[0].block_ids >= 0]
+        assert sorted(real_ids.tolist()) == list(range(n_docs))
+    else:
+        assert indexes == [None, None]
     for line in open(tance.ann_data_path(out, 0)):
         _, pos, negs, _, _ = tstreams.parse_ann_line(line)
         assert negs and all(0 <= p < n_docs and p != pos for p in negs)
+
+
+def test_mine_ivf_at_full_probe_equals_an_exact_mine(tmp_path):
+    """One round by 'ivf' at full probe writes the ann file of the exact
+    search of the same bf16 operands ('pallas') byte for byte, with the
+    same dev metrics (1e-6); the weights' std 0.2 keeps scores apart."""
+    paths = dataset(tmp_path, n_queries=24)
+    _, _, model = models()
+    qc, pc = caches(paths, "port")
+    got = {}
+    for method in ("ivf", "pallas"):
+        out = str(tmp_path / method)
+        got[method] = tance.mine(
+            model, None, pc, qc, paths[2], qc, paths[3], out, 0,
+            tance.MineConfig(**mine_cfg(exact_fp32=False,
+                                        search_method=method,
+                                        ivf_nprobe=1000)),
+            device="cpu")
+    assert (read(tance.ann_data_path(str(tmp_path / "ivf"), 0))
+            == read(tance.ann_data_path(str(tmp_path / "pallas"), 0)))
+    assert "time_ivf_build" in got["ivf"]
+    assert "time_ivf_build" not in got["pallas"]
+    for k, v in got["pallas"].items():
+        if not k.startswith("time_"):
+            assert got["ivf"][k] == pytest.approx(v, **TOL), k
 
 
 def test_place_corpus_uses_a_placed_tensor_in_place():

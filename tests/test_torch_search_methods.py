@@ -225,8 +225,12 @@ def test_search_topk_raises_where_not_ported(search_data, monkeypatch):
     q, c, _, _ = search_data
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         search_topk(q, c, 5, mesh=_Mesh(2), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        search_topk(q, c, 5, method="ivf", device="cpu")
+    # ivf, which raised here until ops/ivf.py was ported, searches: at
+    # full probe it equals the flat search of the same bf16 operands
+    vi, ii = search_topk(q, c, 5, method="ivf", ivf_nprobe=10_000,
+                         device="cpu")
+    vf, i_f = search_topk(q, c, 5, method="pallas", device="cpu")
+    _same_topk(vi, ii, vf, i_f, tol=1e-5)
     v, _ = search_topk(q, c, 5, mesh=_Mesh(1), device="cpu")
     assert v.shape == (SEARCH_Q, 5)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -137,17 +137,31 @@ def test_dispatch_collect_many_and_row_ids(services):
 
 
 @pytest.mark.parametrize("mode", ["ivf", "mesh"])
-def test_modes_not_ported_raise(mode):
-    cfg = ServeConfig()
-    kw = {}
+def test_modes_not_ported_raise(tower, mode):
+    """A mesh still raises, naming its ROADMAP.md item. ivf, which raised
+    here until ops/ivf.py was ported, now serves: at full probe its ids
+    equal the JAX default service's (an exact search of bf16 operands) up
+    to near-ties, tolerance 1e-3 as in test_search_matches_jax_service,
+    with no flat corpus held."""
     if mode == "mesh":
-        kw["mesh"] = object()
-    else:
-        setattr(cfg, mode, True)
-    model = DualEncoder(MODEL_REGISTRY["rdot_nll_condenser"](BertConfig.tiny()))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        RetrievalService(model, tokenizer, np.zeros((4, 32), np.float32),
-                         cfg=cfg, device="cpu", **kw)
+        model = DualEncoder(
+            MODEL_REGISTRY["rdot_nll_condenser"](BertConfig.tiny()))
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md Queue 1 item 11"):
+            RetrievalService(model, tokenizer, np.zeros((4, 32), np.float32),
+                             cfg=ServeConfig(), device="cpu",
+                             mesh=object())
+        return
+    jmodel, params, _, corpus = tower
+    jsvc = JaxService(jmodel, params, tokenizer, corpus, doc_ids=DOC_IDS,
+                      cfg=JaxServeConfig(top_k=5, max_query_len=8,
+                                         max_batch=8))
+    svc = _port_service(tower, ivf=True, ivf_nprobe=1000, ivf_clusters=4,
+                        ivf_block_size=32)
+    assert svc.corpus is None and svc.ivf_index.n_docs == 300
+    jv, ji = jsvc.search(QUERIES)
+    tv, ti = svc.search(QUERIES)
+    _same_ranking(tv, ti, jv, ji, tol=1e-3)
 
 
 def _jax_query_emb(tower, texts):
