@@ -54,19 +54,19 @@ Phases, each printed with its elapsed seconds:
      and one single query through search, then timed batches; ids checked
      against an exact plain search (exact modes) or their recall@10
      measured (approximate modes);
-  6. encode: 32,768 random records of up to 128 tokens written with the
+  6. encode: 16,384 random records of up to 128 tokens written with the
      port's RecordWriter, encoded by encode_cache (body tower, batch 256)
      in five configurations: (a) bert-base bf16, (b) the same with length
      buckets (32, 64, 128), (c) attention_impl="fused" (K8), (d)
-     matmul_int8 (K7), (e) bert-large (24 layers) on the first 8,192
+     matmul_int8 (K7), (e) bert-large (24 layers) on the first 4,096
      records; docs/s, card span and the host's enqueue time of each; the
      first records of (a), (c), (d) and (e) re-encoded on the CPU through
      the plain versions, and (b), (c), (d) held against (a) by cosine;
   7. train: BM25-warmup training of BERT-base (rdot_nll_condenser, random
      weights from the seed, bf16 compute, batch 64 of 128-token triples of
      hashed words) through run_warmup: with dropout 0.1, every FFN runs K5
-     (36 per step); 20 steps saving at 10 and 20, then a second run_warmup
-     that resumes from checkpoint-20 to step 25; triplets/s, the card's
+     (36 per step); 10 steps saving at 5 and 10, then a second run_warmup
+     that resumes from checkpoint-10 to step 13; triplets/s, the card's
      forward, backward and optimizer ms per step beside the host's time
      to issue them, K5's share of the forward, the card's busy share of
      one profiled step, peak memory and the step's bound; then 5 steps
@@ -84,9 +84,9 @@ Phases, each printed with its elapsed seconds:
      of tokenize, encode, search and score, docs/s and the launches; the
      ids against an exact plain search of the same embeddings up to
      near-ties, the metrics against that search's (the card's row taken
-     only where a relevant id moved by a near-tie), the first 256 FiQA docs
+     only where a relevant id moved by a near-tie), the first 32 FiQA docs
      and queries re-encoded on the CPU through the plain versions (cosine
-     >= 0.999); then combined_mrr over the FiQA records with a
+     >= 0.999); then combined_mrr over the SciFact records with a
      top1000.dev-style candidate file; the model's parameters bit-equal
      and float32 after it all;
   9. ance-train: AnceStageConfig.base()'s model and optimizer (BERT-base,
@@ -105,8 +105,8 @@ Phases, each printed with its elapsed seconds:
  10. ance-mine: hard-negative mining with AnceStageConfig.base()'s model
      (bf16 compute, random weights from the seed, eval batch 512, top 200
      candidates, 30 negatives in 5 splits, k-means into 50 groups, 500
-     steps x 5 restarts): (a) two ance_rounds over 32,768 passages
-     (16-128 tokens) and 8,192 train and 1,024 dev queries (4-23 tokens,
+     steps x 5 restarts): (a) two ance_rounds over 16,384 passages
+     (16-128 tokens) and 4,096 train and 1,024 dev queries (4-23 tokens,
      one positive each in offset-space qrels), each mining then taking 3
      iDRO steps (G 50, K 3, dropout 0.1); round 1 must mine with the
      weights after round 0's steps; (b) the async pair over those records:
@@ -114,7 +114,7 @@ Phases, each printed with its elapsed seconds:
      second mine_loop that must mine from checkpoint-2, whose weights the
      loader must return equal to the state's; (c) mine() over MS MARCO's
      8,841,823 passages (row-normalised random rows from the seed, a host
-     float32 array), 6,980 dev and 131,072 train queries: the corpus must
+     float32 array), 6,980 dev and 32,768 train queries: the corpus must
      reach the card once as one bf16 tensor padded to 8,843,264 rows
      (memory_allocated grows by it within 64 MiB), both searches must get
      that tensor with n_real 8,841,823, and the peak over mine() less the
@@ -123,7 +123,8 @@ Phases, each printed with its elapsed seconds:
      line that are real rows and not the positive, groups in [0, 50); the
      train search's ids equal an exact plain search up to near-ties; the
      card's k-means walks step by step against the CPU's plain float32
-     step (kmeans_walk); mine()'s time_* breakdown, docs/s of the corpus
+     step (kmeans_walk: 100, 50 and 5 steps in (a), (b) and (c));
+     mine()'s time_* breakdown, docs/s of the corpus
      encode, q/s of the train search at 8.8M docs and the peak memory;
  11. coco: COCO pretraining at CocoStageConfig.base() (BERT-base, bf16
      compute, float32 parameters, random weights from the seed; c_head of 2
@@ -133,9 +134,9 @@ Phases, each printed with its elapsed seconds:
      from random-word documents, whole-word masks by a WordPiece-style
      stand-in tokenizer, batches of 200 docs = 400 spans x 128 tokens:
      (a) the direct step with dropout 0.1 through run_coco_pretrain (K5 14
-     a step), 10 steps saving at 5 and 10, then a fresh state that loads
-     checkpoint-5 and resumes through span_batches(start_batch=5) to step
-     10 saving through AsyncSaver: the same batches bit for bit, the
+     a step), 6 steps saving at 3 and 6, then a fresh state that loads
+     checkpoint-3 and resumes through span_batches(start_batch=3) to step
+     6 saving through AsyncSaver: the same batches bit for bit, the
      losses and parameters within bounds (the card's backward is not
      bitwise deterministic), the async checkpoint loading back equal;
      spans/s, the
@@ -151,7 +152,7 @@ Phases, each printed with its elapsed seconds:
      the plain versions in float32, by compare_step's bounds, a step with
      the c_head fed from hidden_states[5] planted must fail them;
  12. variants: the model variants, random weights from the seed, bf16
-     compute. A BEIR-shaped task of 4,096 random-word documents of
+     compute. A BEIR-shaped task of 2,048 random-word documents of
      128-2,048 tokens and 512 queries tokenized by prepare_beir_task
      (records of 2,048 = 4 chunks of 512). (a) rdot_nll_multi_chunk on
      RoBERTa-base through encode_cache_multivector, 64 documents a batch,
@@ -201,7 +202,7 @@ Phases, each printed with its elapsed seconds:
      and on the CPU in float32: the accumulated gradient by compare_step's
      bounds and its norm; (d) one ance_round of dro-greedy at
      AnceStageConfig.base() (2 micro-batches an update, remat '') over
-     32,768 passages, 2,048 train and 256 dev queries (K1 828, K2 2, K3,
+     16,384 passages, 2,048 train and 256 dev queries (K1, K2 2, K3,
      K5 144); (e) SciFact's shape through prepare_beir_task and
      evaluate_beir_task (K1 144, K2 1, K3 2), ids against the plain exact
      search up to near-ties (near_tie_moves).
@@ -236,10 +237,38 @@ Phases, each printed with its elapsed seconds:
      evaluate_beir_task and mine() by search_method 'ivf' at full probe
      over those records (metrics within 1e-2 of 'pallas''s, the ann
      file's lines valid, K1 only).
+ 17. cli-recipe (after cli): the four COCO-DR stages as a user types them
+     (docs/commands.md) through cocodr_tpu_torch.cli, each subcommand in
+     this process through cli.main (the async pair as two processes), at
+     BERT-base width from the cli phase's checkpoint directory (written
+     again from the seed, with its MLM head) and SciFact-sized task:
+     preprocess-coco; coco --preset coco-base to step 6 (K5 14 a step)
+     and a second call resumed from a copy of its checkpoint-4 with
+     --async-checkpoint, whose losses and checkpoint-6 equal the
+     uninterrupted run's bit for bit; export-hf --from-orbax, its
+     tensors equal the state's; preprocess-msmarco of an MS MARCO-shaped
+     TSV collection from the seed (16,384 passages, 4,096 train and 512
+     dev queries); warmup from the COCO export (batch 64, 6 steps, the
+     dev eval every 3 through combined_mrr, --async-checkpoint: K5 36 a
+     step, K1, K2 1 and K3 an eval), its losses, evals and checkpoint
+     equal run_warmup's in this process bit for bit; export-hf of the
+     warmup checkpoint; ance --loss-kind idro, 2 rounds of 3 steps (K1
+     a mining encode batch, K2 and K3 by the recorded searches, K5 36 a
+     step), round 1 mined from step-3, then ance --int8-encode resuming
+     to round 2 (K7 for its encodes); ance-mine and ance-train as two
+     concurrent processes on a fresh --ckpt-dir, the second ann file from
+     checkpoint-2; export-hf of the ANCE checkpoint, eval-beir (K1 12 a
+     batch, K2 1, K3) equal to eval_beir in this process, parity PASS at
+     that nDCG and exit code 1 at a planted one; convert-hf and presets.
+     Each stage's seconds, and the CLI's own spans/s, triplets/s and
+     docs/s.
+Each phase's seconds print on a line of their own as it ends
+(`phase seconds NAME: S`), and all of them together before the kernel
+summary.
 Every path (the search phase, each serve mode, each encode configuration,
 each training run, each eval task, combined_mrr, each mining round, each
 COCO leg, each variants leg, each recipe leg, each HTTP leg, each IVF
-search, each CLI subcommand) runs
+search, each CLI subcommand, each cli-recipe call) runs
 with every kernel's launch count set to 0 just
 before it and read just after, and fails if a kernel of the path never
 launched or a count differs from the path's own. Then one JSON line of per-kernel numbers,
@@ -290,11 +319,11 @@ QUERY_LEN = 64
 TOP_K = 10
 SEARCH_Q = 1024  # the mining / evaluation query chunk
 SEARCH_K = 100
-ENC_DOCS = 32768  # records of the encode phase
+ENC_DOCS = 16384  # records of the encode phase
 ENC_LEN = 128  # their max_len
 ENC_BATCH = 256  # the JAX bench's encode batch
 ENC_TOKENS = ENC_BATCH * ENC_LEN  # T of the FFN kernels on the encode path
-LARGE_DOCS = 8192  # bert-large encodes the first records only
+LARGE_DOCS = 4096  # bert-large encodes the first records only
 # Limits on the share of outputs where a kernel and its plain version differ
 # at all (check_ffn and check_k8 give the readings they separate).
 K1_MAX_SHARE = 0.05
@@ -304,7 +333,7 @@ K8_MAX_SHARE = 0.01
 TRAIN_BATCH = 64  # triples per step (the warmup preset's large batch)
 TRAIN_LEN = 128  # max_seq_len of every tower
 TRAIN_T = TRAIN_BATCH * TRAIN_LEN  # T of K5 (one tower's FFN)
-TRAIN_STEPS, TRAIN_SAVE, TRAIN_RESUME = 20, 10, 25
+TRAIN_STEPS, TRAIN_SAVE, TRAIN_RESUME = 10, 5, 13
 NODROP_STEPS = 5
 # COCO (CocoStageConfig.base()): 200 docs = 400 spans of 128 tokens a step,
 # the grad cache's chunks of 100 spans
@@ -314,7 +343,7 @@ CMP_BATCH = 8  # the card-against-CPU step, at full depth
 # the model variants (phase 12): documents of up to 4 chunks of 512 tokens
 # (rdot_nll_multi_chunk on RoBERTa-base, LayerNorm eps 1e-5), encoded 64
 # documents a batch; multi-chunk training at 8 triplets a step
-VAR_DOCS, VAR_DOC_LEN, VAR_CHUNK, VAR_BATCH = 4096, 2048, 512, 64
+VAR_DOCS, VAR_DOC_LEN, VAR_CHUNK, VAR_BATCH = 2048, 2048, 512, 64
 VAR_T = VAR_BATCH * VAR_DOC_LEN  # T of K1 in a multi-chunk encode batch
 ROBERTA_EPS = 1e-5
 MC_TRAIN_BATCH = 8
@@ -336,6 +365,32 @@ CMP_TENSOR_COSINE = 0.8
 
 def phase(msg: str) -> None:
     print(f"[{time.perf_counter() - T0:8.2f}s] {msg}", flush=True)
+
+
+class PhaseClock:
+    """Each phase's seconds on the host clock, printed on a line of its own
+    when the phase ends (`phase seconds NAME: S`) and all together by
+    summary()."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._name, self._t = None, None
+
+    def start(self, name, msg=None):
+        self.stop()
+        phase(msg or name)
+        self._name, self._t = name, time.perf_counter()
+
+    def stop(self):
+        if self._name is not None:
+            secs = time.perf_counter() - self._t
+            self.seconds[self._name] = secs
+            phase(f"phase seconds {self._name}: {secs:.2f}")
+            self._name = None
+
+    def summary(self):
+        self.stop()
+        return ", ".join(f"{k} {v:.2f}" for k, v in self.seconds.items())
 
 
 def nvidia_smi() -> str:
@@ -1368,6 +1423,507 @@ def check_results(vals, ids, scores, ref_v, tol):
     return err
 
 
+# --- cli-recipe: the four COCO-DR stages through the port's CLI ------------
+
+# an MS MARCO-shaped collection written from the seed: passages of 20-80
+# words, train queries (one positive each) and dev queries of 3-9 of their
+# positive's words
+CLI_MARCO = dict(passages=16_384, train=4_096, dev=512)
+CLI_COCO_STOP = 4  # the resumed coco call starts from this checkpoint
+CLI_COCO_STEPS = 6
+CLI_WARMUP_STEPS, CLI_WARMUP_EVAL = 6, 3
+CLI_ANCE_STEPS, CLI_PAIR_STEPS = 3, 2
+
+
+class CocoSteps:
+    """While in a `with` block, every COCO step the CLI builds records its
+    (step, loss) in `losses`."""
+
+    def __init__(self):
+        from cocodr_tpu_torch.pipelines import coco
+
+        self.coco, self.build = coco, coco.build_coco_train_step
+        self.losses = []
+
+    def __enter__(self):
+        def build(cfg):
+            step = self.build(cfg)
+
+            def recorded(state, batch, seed=None):
+                out = step(state, batch, seed)
+                self.losses.append((state.step, out["loss"].item()))
+                return out
+
+            return recorded
+
+        self.coco.build_coco_train_step = build
+        return self
+
+    def __exit__(self, *exc):
+        self.coco.build_coco_train_step = self.build
+
+
+class InProcessCli:
+    """cli.main(argv) in this process, its stdout captured and its launch
+    counts zeroed just before and read just after."""
+
+    def __init__(self, on_card, card):
+        from cocodr_tpu_torch import cli as tcli
+
+        self.main, self.on_card, self.card = tcli.main, on_card, card
+        self.seconds = {}
+
+    def run(self, name, argv, expect=None, exit_code=0):
+        """-> (stdout, counts); expect(counts) -> the path's counts (None:
+        no kernel); a SystemExit other than exit_code raises."""
+        import contextlib
+        import io
+
+        buf = io.StringIO()
+        zero_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            try:
+                self.main(argv)
+                code = 0
+            except SystemExit as e:
+                code = e.code
+        secs = time.perf_counter() - t
+        self.seconds[name] = self.seconds.get(name, 0.0) + secs
+        if code != exit_code:
+            raise AssertionError(f"cli-recipe {name}: exit {code}\n"
+                                 f"{buf.getvalue()[-4000:]}")
+        counts = self.counts(name, expect)
+        phase(f"  cli-recipe {name}: {secs:.2f} s in this process")
+        return buf.getvalue(), counts
+
+    def counts(self, name, expect):
+        counts = read_counts(f"cli-recipe {name}", [])
+        if self.on_card:
+            want = expect(counts) if expect else {}
+            missing = [k for k, v in want.items() if not v]
+            if missing:
+                raise AssertionError(f"{name}: {missing} never launched")
+            check_counts(f"cli-recipe {name}", counts, want)
+        return counts
+
+
+def json_out(text):
+    return [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+
+
+def payload_model(ckpt_dir):
+    from cocodr_tpu_torch.utils.train_state import PAYLOAD, latest_checkpoint
+
+    path = latest_checkpoint(ckpt_dir)
+    return path, torch.load(os.path.join(path, PAYLOAD), map_location="cpu",
+                            weights_only=True, mmap=True)["model"]
+
+
+def same_tensors(name, got, want, rename=lambda k: k):
+    """Every tensor of `want` equal in `got` under rename(key)."""
+    differ = [k for k, v in want.items()
+              if not torch.equal(got[rename(k)].cpu(), v.cpu())]
+    if differ:
+        raise AssertionError(f"cli-recipe {name}: {differ[:5]} differ")
+    return len(want)
+
+
+def write_cli_marco(args, root):
+    """CLI_MARCO's collection.tsv, queries.{train,dev}.tsv, qrels.{train,
+    dev}.tsv (TREC) and triples.tsv (a train query, its positive passage
+    and a random other passage a line) from the seed -> the directory."""
+    rng = np.random.default_rng([args.seed, 18])
+    d = os.path.join(root, "marco_tsv")
+    os.makedirs(d)
+    n = CLI_MARCO["passages"]
+    vocab = np.array([f"w{i}" for i in range(EVAL_VOCAB)])
+    lens = rng.integers(20, 81, n)
+    words = rng.integers(0, EVAL_VOCAB, int(lens.sum()))
+    starts = np.concatenate([[0], np.cumsum(lens)])
+    texts = [" ".join(vocab[words[starts[i]:starts[i + 1]]])
+             for i in range(n)]
+    pids = rng.permutation(10 * n)[:n] + 1
+    with open(os.path.join(d, "collection.tsv"), "w") as f:
+        f.writelines(f"{p}\t{t}\n" for p, t in zip(pids, texts))
+    triples = []
+    for split, base in (("train", 1_000_000), ("dev", 2_000_000)):
+        pos = rng.integers(0, n, CLI_MARCO[split])
+        with open(os.path.join(d, f"queries.{split}.tsv"), "w") as fq, \
+                open(os.path.join(d, f"qrels.{split}.tsv"), "w") as fr:
+            for j, p in enumerate(pos):
+                src = words[starts[p]:starts[p + 1]]
+                q = " ".join(vocab[rng.choice(src, rng.integers(3, 10),
+                                              replace=False)])
+                fq.write(f"{base + j}\t{q}\n")
+                fr.write(f"{base + j}\t0\t{pids[p]}\t1\n")
+                if split == "train":
+                    neg = (p + rng.integers(1, n)) % n
+                    triples.append(f"{q}\t{texts[p]}\t{texts[neg]}\n")
+    with open(os.path.join(d, "triples.tsv"), "w") as f:
+        f.writelines(triples)
+    return d
+
+
+def cli_recipe(args, dev):
+    """Phase 17: the four COCO-DR stages as a user types them
+    (docs/commands.md) through `cocodr_tpu_torch.cli`, at BERT-base width
+    from the cli phase's checkpoint directory, each subcommand in this
+    process through cli.main (the async pair as two processes), with the
+    launch counts read around each call."""
+    from cocodr_tpu_torch.core.configs import WarmupStageConfig
+    from cocodr_tpu_torch.data.records import TokenCache, load_qrels
+    from cocodr_tpu_torch.data.tokenizer import load_tokenizer
+    from cocodr_tpu_torch.evals.mrr_eval import combined_mrr
+    from cocodr_tpu_torch.pipelines.eval_beir import eval_beir
+    from cocodr_tpu_torch.pipelines.train_step import (
+        TrainStepConfig,
+        build_train_step,
+    )
+    from cocodr_tpu_torch.pipelines.warmup import WarmupConfig, run_warmup
+    from cocodr_tpu_torch.utils.train_state import TrainState
+
+    card = nvidia_smi()
+    on_card = dev.type == "cuda"
+    common = [] if on_card else ["--cpu-devices", "1"]
+    cli = InProcessCli(on_card, card)
+    stage_s = {}
+    with tempfile.TemporaryDirectory() as root:
+        t = time.perf_counter()
+        ckpt = write_cli_checkpoint(args, root)
+        data = write_beir_task(np.random.default_rng([args.seed, 16]), root,
+                               "scifact")
+        marco_tsv = write_cli_marco(args, root)
+        with open(os.path.join(ckpt, "config.json")) as f:
+            layers = json.load(f)["num_hidden_layers"]
+        stage_s["data"] = time.perf_counter() - t
+
+        # 1. preprocess-coco; coco to step 6, and a second call resumed
+        # from (a copy of) its checkpoint-4
+        t = time.perf_counter()
+        spans = os.path.join(root, "spans")
+        out, _ = cli.run("preprocess-coco", [
+            "preprocess-coco", "--data-dirs", data, "--out", spans,
+            "--tokenizer", ckpt])
+        coco_line = out.strip().splitlines()[-1]
+        heads = 2  # coco-base's c_head
+
+        def coco_counts(steps):
+            return lambda c: {"K5_ffn": (layers + heads) * steps}
+
+        coco = ["coco", "--train-dir", spans, "--checkpoint", ckpt,
+                "--preset", "coco-base", "--max-steps", str(CLI_COCO_STEPS),
+                "--save-steps", str(CLI_COCO_STOP), "--seed",
+                str(args.seed), "--log-every", "1"] + common
+        ck_whole = os.path.join(root, "coco_ck_whole")
+        ck_a = os.path.join(root, "coco_ck")
+        with CocoSteps() as rec:
+            cli.run("coco", coco + ["--ckpt-dir", ck_whole],
+                    coco_counts(CLI_COCO_STEPS))
+            whole = rec.losses
+            rec.losses = []
+            shutil.copytree(os.path.join(ck_whole,
+                                         f"checkpoint-{CLI_COCO_STOP}"),
+                            os.path.join(ck_a, f"checkpoint-{CLI_COCO_STOP}"))
+            out, _ = cli.run("coco (resumed)", coco + [
+                "--ckpt-dir", ck_a, "--async-checkpoint"],
+                coco_counts(CLI_COCO_STEPS - CLI_COCO_STOP))
+            resumed = rec.losses
+        if "resumed from" not in out or resumed != whole[CLI_COCO_STOP:]:
+            raise AssertionError(f"cli-recipe coco: resumed losses "
+                                 f"{resumed} != {whole}")
+        path_a, sd_a = payload_model(ck_a)
+        _, sd_b = payload_model(ck_whole)
+        n = same_tensors("coco resume", sd_a, sd_b)
+        phase(f"  cli-recipe coco: {coco_line}; {CLI_COCO_STEPS} steps "
+              f"(losses {', '.join(f'{x:.4f}' for _, x in whole)}), then "
+              f"a call resumed from checkpoint-{CLI_COCO_STOP} with "
+              f"--async-checkpoint: its losses and the {n} tensors of its "
+              f"checkpoint-{CLI_COCO_STEPS} equal the uninterrupted run's "
+              f"bit for bit [{card}]")
+        coco_log = [r for r in json_out(out) if "spans_per_s" in r]
+        stage_s["coco"] = time.perf_counter() - t
+
+        # 2. export-hf --from-orbax: the backbone and MLM head
+        t = time.perf_counter()
+        coco_export = os.path.join(root, "coco_export")
+        cli.run("export-hf --from-orbax", [
+            "export-hf", "--from-orbax", "--checkpoint", ck_a, "--config",
+            ckpt, "--out", coco_export])
+        exported = torch.load(os.path.join(coco_export, "pytorch_model.bin"),
+                              weights_only=True)
+        n = same_tensors("export-hf --from-orbax", exported,
+                         {k: v for k, v in sd_a.items()
+                          if not k.startswith("c_head.")},
+                         lambda k: k[len("bert."):] if k.startswith(
+                             "bert.") else k)
+        n_head = same_tensors("export-hf model.pt", torch.load(
+            os.path.join(coco_export, "model.pt"), weights_only=True),
+            {k: v for k, v in sd_a.items() if k.startswith("c_head.")})
+        phase(f"  cli-recipe export-hf --from-orbax {path_a}: {n} backbone "
+              f"and MLM tensors and {n_head} c_head tensors equal the "
+              f"state's bit for bit")
+        del exported, sd_a, sd_b
+        stage_s["export coco"] = time.perf_counter() - t
+
+        # 3. preprocess-msmarco
+        t = time.perf_counter()
+        marco = os.path.join(root, "marco")
+        cli.run("preprocess-msmarco", [
+            "preprocess-msmarco", "--collection",
+            os.path.join(marco_tsv, "collection.tsv"),
+            "--train-queries", os.path.join(marco_tsv, "queries.train.tsv"),
+            "--train-qrels", os.path.join(marco_tsv, "qrels.train.tsv"),
+            "--dev-queries", os.path.join(marco_tsv, "queries.dev.tsv"),
+            "--dev-qrels", os.path.join(marco_tsv, "qrels.dev.tsv"),
+            "--out", marco, "--tokenizer", ckpt, "--n-workers", "8"])
+        sizes = {n: len(TokenCache(os.path.join(marco, n)))
+                 for n in ("passages", "train-query", "dev-query")}
+        if list(sizes.values()) != list(CLI_MARCO.values()):
+            raise AssertionError(f"cli-recipe preprocess-msmarco: {sizes}")
+        stage_s["preprocess-msmarco"] = time.perf_counter() - t
+        phase(f"  cli-recipe preprocess-msmarco: {sizes} in "
+              f"{stage_s['preprocess-msmarco']:.2f} s")
+
+        # 4. warmup from the COCO export, against run_warmup here
+        t = time.perf_counter()
+        n_p, n_dq = CLI_MARCO["passages"], CLI_MARCO["dev"]
+        evals = CLI_WARMUP_STEPS // CLI_WARMUP_EVAL
+
+        def warmup_counts(c):
+            return {"K5_ffn": 3 * layers * CLI_WARMUP_STEPS,
+                    "K1_ffn_block": evals * layers * (
+                        math.ceil(n_p / 512) + math.ceil(n_dq / 512)),
+                    "K2_dual_sweep": evals, "K3_topk": c["K3_topk"]}
+
+        triples = os.path.join(marco_tsv, "triples.tsv")
+        wck = os.path.join(root, "warmup_ck")
+        out, _ = cli.run("warmup", [
+            "warmup", "--triples", triples, "--checkpoint", coco_export,
+            "--tokenizer", ckpt, "--ckpt-dir", wck, "--batch-size", "64",
+            "--max-steps", str(CLI_WARMUP_STEPS), "--eval-data-dir", marco,
+            "--eval-every", str(CLI_WARMUP_EVAL), "--async-checkpoint",
+            "--log-every", "1", "--seed", str(args.seed)] + common,
+            warmup_counts)
+        got = json_out(out)
+        stage = WarmupStageConfig.base()
+        model = tcli_load(coco_export, stage.model_type, dev)
+        state = TrainState(model, stage.optimizer.build(model.parameters()))
+        qc = TokenCache(os.path.join(marco, "dev-query"))
+        pc = TokenCache(os.path.join(marco, "passages"))
+        qrels = {q: list(r) for q, r in load_qrels(
+            os.path.join(marco, "dev-qrel.tsv")).items()}
+        want = []
+        zero_counts()
+        run_warmup(
+            state, build_train_step(TrainStepConfig(loss_kind="nll")),
+            triples, load_tokenizer(ckpt),
+            WarmupConfig(max_seq_len=stage.max_seq_len, batch_size=64,
+                         num_epochs=stage.num_epochs,
+                         save_steps=stage.save_steps,
+                         max_steps=CLI_WARMUP_STEPS,
+                         eval_every_steps=CLI_WARMUP_EVAL, log_every=1),
+            os.path.join(root, "warmup_direct"),
+            eval_fn=lambda s: want.append({"step": s.step, **combined_mrr(
+                s.model, qc, pc, qrels, device=dev)}),
+            log_fn=lambda s, m: want.append({"step": s, **m}),
+            dropout_seed=args.seed)
+        cli.counts("run_warmup in this process", warmup_counts)
+        rates = [r.pop("triplets_per_s") for r in got if "loss" in r]
+        if got != want:
+            raise AssertionError(f"cli-recipe warmup: {got} != {want}")
+        path_w, sd_w = payload_model(wck)
+        n = same_tensors("warmup", sd_w, state.model.state_dict())
+        phase(f"  cli-recipe warmup: {CLI_WARMUP_STEPS} steps of 64 "
+              f"triplets (dropout, LAMB of warmup-base), "
+              f"{statistics.median(rates[1:]):.1f} triplets/s (the CLI's "
+              f"log, median), dev MRR@10 "
+              f"{[r['MRR @10'] for r in got if 'MRR @10' in r]}; losses, "
+              f"evals and the {n} tensors of {os.path.basename(path_w)} "
+              f"equal run_warmup in this process bit for bit [{card}]")
+        del model, state, sd_w
+        torch.cuda.empty_cache()
+        stage_s["warmup"] = time.perf_counter() - t
+
+        # 5. export-hf of the warmup checkpoint, ance (idro), ance --int8
+        t = time.perf_counter()
+        warmup_export = os.path.join(root, "warmup_export")
+        cli.run("export-hf (warmup)", [
+            "export-hf", "--checkpoint", wck, "--config", ckpt, "--out",
+            warmup_export])
+        ack = os.path.join(root, "ance_ck")
+        ance_argv = ["ance", "--data-dir", marco, "--checkpoint",
+                     warmup_export, "--ckpt-dir", ack, "--loss-kind",
+                     "idro", "--steps-per-round", str(CLI_ANCE_STEPS),
+                     "--batch-size", "64", "--seed", str(args.seed)] + common
+        encoded = tuple(CLI_MARCO.values())
+        eval_batch = argparse.Namespace(batch_size=512)  # ance-base's
+        round_counts = []
+        with MineRecorder() as mrec:
+            def ance_counts(int8, rounds):
+                def expect(c):
+                    # K1 (K7) one a layer and encoded batch a round; K2
+                    # and K3 by the recorded searches of every round
+                    e = mine_expected(mrec, eval_batch, layers, encoded)
+                    e["K1_ffn_block"] *= rounds
+                    if int8:
+                        e["K7_ffn_block_int8"] = e.pop("K1_ffn_block")
+                    e["K5_ffn"] = 3 * layers * CLI_ANCE_STEPS * rounds
+                    round_counts.append(e)
+                    return e
+                return expect
+
+            out, _ = cli.run("ance (idro, 2 rounds)", ance_argv + [
+                "--rounds", "2"], ance_counts(False, 2))
+            recs = [r for r in json_out(out) if "round" in r]
+            names = ann_checkpoints(ack)
+            if names != ["step-0", f"step-{CLI_ANCE_STEPS}"]:
+                raise AssertionError(f"cli-recipe ance mined from {names}")
+            mrec.reset()
+            out, _ = cli.run("ance --int8-encode (round 2)", ance_argv + [
+                "--rounds", "3", "--int8-encode"], ance_counts(True, 1))
+            recs += [r for r in json_out(out) if "round" in r]
+        if [r["round"] for r in recs] != [0, 1, 2] or not all(
+                r["steps"] == CLI_ANCE_STEPS for r in recs):
+            raise AssertionError(f"cli-recipe ance rounds {recs}")
+        phase(f"  cli-recipe ance: rounds 0-1 idro, round 1 mined "
+              f"{names[1]} (round 0's weights after its steps); round 2 "
+              f"resumed with --int8-encode (K7 on its encodes); seconds a "
+              f"round {[round(r['seconds'], 2) for r in recs]}; dev "
+              f"nDCG@10 {[round(r['ndcg_cut_10'], 4) for r in recs]} "
+              f"[{card}]")
+        stage_s["ance"] = time.perf_counter() - t
+
+        # 6. the async pair, two processes on a fresh --ckpt-dir
+        t = time.perf_counter()
+        pair_ck = os.path.join(root, "pair_ck")
+        runner = CliRunner(root)
+        pair = ["--data-dir", marco, "--checkpoint", warmup_export,
+                "--ckpt-dir", pair_ck, "--rounds", "2", "--poll-secs", "1",
+                "--batch-size", "64", "--seed", str(args.seed)] + common
+        procs = []
+        for name, extra in (("ance-mine", []), ("ance-train", [
+                "--steps-per-round", str(CLI_PAIR_STEPS)])):
+            cmd, counts_path = runner.command([name] + pair + extra)
+            procs.append((name, counts_path, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, env=runner.env, cwd=ROOT)))
+        pair_counts = {}
+        for name, counts_path, proc in procs:
+            text, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"cli-recipe {name}: exit "
+                                     f"{proc.returncode}\n{text[-4000:]}")
+            with open(counts_path) as f:
+                pair_counts[name] = json.load(f)
+            phase(f"  cli-recipe {name} (a process) launches "
+                  f"{pair_counts[name]}")
+        if on_card:  # the miner's two rounds mine as the idro call's two
+            check_counts("cli-recipe ance-mine", pair_counts["ance-mine"],
+                         {k: v for k, v in round_counts[0].items()
+                          if k != "K5_ffn"})
+            check_counts("cli-recipe ance-train", pair_counts["ance-train"],
+                         {"K5_ffn": 3 * layers * CLI_PAIR_STEPS * 2})
+        names = ann_checkpoints(pair_ck)
+        if names != ["initial", f"checkpoint-{CLI_PAIR_STEPS}"]:
+            raise AssertionError(f"cli-recipe async pair mined {names}")
+        stage_s["ance-mine + ance-train"] = time.perf_counter() - t
+        phase(f"  cli-recipe async pair: ann files from {names}, "
+              f"{stage_s['ance-mine + ance-train']:.2f} s for both "
+              f"processes")
+
+        # 7. export-hf of the ANCE checkpoint, eval-beir, parity
+        t = time.perf_counter()
+        ance_export = os.path.join(root, "ance_export")
+        cli.run("export-hf (ance)", [
+            "export-hf", "--checkpoint", ack, "--config", ckpt, "--out",
+            ance_export])
+        n_docs = BEIR_SHAPES["scifact"]["docs"]
+        n_q = BEIR_SHAPES["scifact"]["queries"]
+
+        def eval_counts(c):
+            return {"K1_ffn_block": layers * (math.ceil(n_docs / 512)
+                                              + math.ceil(n_q / 512)),
+                    "K2_dual_sweep": 1, "K3_topk": c["K3_topk"]}
+
+        work = os.path.join(root, "eval", "scifact")
+        out, _ = cli.run("eval-beir", [
+            "eval-beir", "--data-dir", data, "--work-dir", work,
+            "--checkpoint", ance_export, "--tokenizer", ckpt,
+            "--task", "scifact"] + common, eval_counts)
+        metrics = json.loads(out[out.index("{"):])
+        model = tcli_load(ance_export, "rdot_nll_condenser", dev)
+        zero_counts()
+        direct = eval_beir(model, data, work, load_tokenizer(ckpt),
+                           task="scifact", device=dev)
+        cli.counts("eval_beir in this process", eval_counts)
+        del model
+        if metrics != direct:
+            raise AssertionError(f"cli-recipe eval-beir: {metrics} != "
+                                 f"{direct}")
+        ndcg = metrics["ndcg_cut_10"]
+        parity = ["parity", "--checkpoint", ance_export, "--beir-dir", data,
+                  "--work-dir", os.path.dirname(work), "--tokenizer",
+                  ckpt] + common
+        out, _ = cli.run("parity", parity + ["--expect-ndcg", str(ndcg)],
+                         eval_counts)
+        if json_out(out)[-1]["parity"] != "PASS":
+            raise AssertionError(f"cli-recipe parity: {out[-2000:]}")
+        out, _ = cli.run("parity (planted)", parity + [
+            "--expect-ndcg", str(ndcg + 0.5)], eval_counts, exit_code=1)
+        if json_out(out)[-1]["parity"] != "FAIL":
+            raise AssertionError(f"cli-recipe parity planted: {out[-2000:]}")
+        phase(f"  cli-recipe eval-beir: nDCG@10 {ndcg:.4f}, recall@1000 "
+              f"{metrics['recall_1000']:.4f}, equal to eval_beir in this "
+              f"process; parity PASS at it, exit 1 at {ndcg + 0.5:.4f} "
+              f"[{card}]")
+        stage_s["eval"] = time.perf_counter() - t
+
+        # 8. convert-hf and presets
+        t = time.perf_counter()
+        out, _ = cli.run("convert-hf", ["convert-hf", "--hf-dir",
+                                        ance_export])
+        n = sum(v.numel() for v in torch.load(os.path.join(
+            ance_export, "pytorch_model.bin"), weights_only=True).values())
+        with open(os.path.join(ance_export, "config.json")) as f:
+            hidden = json.load(f)["hidden_size"]
+        want_line = (f"converted {ance_export}: {n / 1e6:.1f}M params, "
+                     f"{layers} layers, hidden {hidden}")
+        if out.strip() != want_line:
+            raise AssertionError(f"cli-recipe convert-hf: {out!r} != "
+                                 f"{want_line!r}")
+        out, _ = cli.run("presets", ["presets"])
+        names = [x[3:-3] for x in out.splitlines() if x.startswith("== ")]
+        if names != ["coco-base", "coco-large", "warmup-base",
+                     "warmup-large", "ance-base", "ance-large"]:
+            raise AssertionError(f"cli-recipe presets: {names}")
+        stage_s["convert-hf + presets"] = time.perf_counter() - t
+    phase(f"  cli-recipe coco: {coco_log[-1]['spans_per_s']:.1f} spans/s "
+          f"(the CLI's log, the resumed run's last step) [{card}]")
+    phase("  cli-recipe seconds by stage: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in stage_s.items()) + f" [{card}]")
+    torch.cuda.empty_cache()
+
+
+def ann_checkpoints(ckpt_dir):
+    """The checkpoint names the ann_ndcg_{n} files of ckpt_dir record."""
+    from cocodr_tpu_torch.pipelines import ance
+
+    out = []
+    for n in range(ance.get_latest_ann_data(os.path.join(
+            ckpt_dir, "ann_data"))[0] + 1):
+        with open(ance.ann_ndcg_path(os.path.join(ckpt_dir, "ann_data"),
+                                     n)) as f:
+            out.append(json.load(f)["checkpoint"])
+    return out
+
+
+def tcli_load(path, model_type, dev):
+    from cocodr_tpu_torch import cli as tcli
+
+    return tcli._load_model(path, model_type, dev)
+
+
 def kernel_counters():
     """name -> (wrapper, attribute) of every kernel's launch count."""
     from cocodr_tpu_torch.ops import (
@@ -1691,8 +2247,8 @@ ENCODE_CONFIGS = {
     "d_matmul_int8": ({"matmul_int8": True}, (), ENC_DOCS),
     "e_bert_large": ({"large": True}, (), LARGE_DOCS),
 }
-CPU_DOCS = {"a_default": 16, "c_fused_attention": 16, "d_matmul_int8": 16,
-            "e_bert_large": 4}
+CPU_DOCS = {"a_default": 4, "c_fused_attention": 4, "d_matmul_int8": 4,
+            "e_bert_large": 2}
 # min per-row cosine, card against the plain versions on the CPU: bf16
 # activations rounded at other points after float32 sums in other orders
 CPU_COSINE = 0.999
@@ -2131,8 +2687,8 @@ def train(args, dev, k5_ms):
         del state
         torch.cuda.empty_cache()
 
-        # resume: a fresh model takes checkpoint-20 and skips 20 batches
-        # before tokenizing them
+        # resume: a fresh model takes checkpoint-TRAIN_STEPS and skips its
+        # batches before tokenizing them
         zero_counts()
         state, rec2, tok = warmup_run(args, dev, path, ckpt, bert,
                                       TRAIN_RESUME, resume=True, dropout=True)
@@ -2141,7 +2697,7 @@ def train(args, dev, k5_ms):
             "K5_ffn": 3 * layers * (TRAIN_RESUME - TRAIN_STEPS)})
         losses += check_steps("train (resume)", rec2, TRAIN_STEPS + 1,
                               TRAIN_RESUME, {"K5_ffn": 3 * layers})
-        # the tokenizer ran only for the batches after step 20 (3 calls a
+        # the tokenizer ran only for the batches after TRAIN_STEPS (3 calls a
         # batch, and up to 3 batches prefetched past the last step)
         if tok.calls > 3 * (TRAIN_RESUME - TRAIN_STEPS + 3):
             raise AssertionError(f"resume tokenized {tok.calls // 3} batches")
@@ -2229,7 +2785,7 @@ BEIR_SHAPES = {
                     rel=(1, 2)),
 }
 EVAL_TOP_K = 1000
-EVAL_CPU_ROWS = 256  # FiQA docs and queries re-encoded on the CPU
+EVAL_CPU_ROWS = 32  # FiQA docs and queries re-encoded on the CPU
 EVAL_CANDIDATES = 1000  # per query in the top1000.dev-style file
 EVAL_VOCAB = 30_000
 
@@ -2455,7 +3011,7 @@ def eval_cpu_rows(model, caches):
 
 
 def eval_mrr(args, dev, model, root, paths):
-    """combined_mrr over the FiQA-shaped records, with a top1000.dev-style
+    """combined_mrr over the SciFact-shaped records, with a top1000.dev-style
     candidate file (qid \\t pid \\t query \\t passage)."""
     from cocodr_tpu_torch.data.records import TokenCache
     from cocodr_tpu_torch.evals.mrr_eval import combined_mrr, load_top_dev
@@ -2485,7 +3041,7 @@ def eval_mrr(args, dev, model, root, paths):
         "K1_ffn_block": L * (math.ceil(n_docs / 512)
                              + math.ceil(len(q2o) / 512)),
         "K2_dual_sweep": 1, "K3_topk": counts["K3_topk"]})
-    phase(f"  eval combined_mrr (FiQA records, {len(cands)} queries x "
+    phase(f"  eval combined_mrr (SciFact records, {len(cands)} queries x "
           f"{EVAL_CANDIDATES} candidates): {out} in {secs:.3f} s (host "
           f"clock)")
     if (out["QueriesRanked"] != len(q2o)
@@ -2507,8 +3063,8 @@ def evaluate(args, dev):
                                .manual_seed(args.seed + 4))
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
     with tempfile.TemporaryDirectory() as root:
-        paths, caches = eval_task(args, dev, model, root, "fiqa")
-        eval_task(args, dev, model, root, "scifact")
+        _, caches = eval_task(args, dev, model, root, "fiqa")
+        paths, _ = eval_task(args, dev, model, root, "scifact")
         eval_mrr(args, dev, model, root, paths)
         torch.cuda.empty_cache()
         eval_cpu_rows(model, caches)
@@ -2962,18 +3518,18 @@ def kmeans_walk(x, init, n_steps, card_assign, card_step):
 
 
 # (a) and (b): passages and queries of the ance-train phase's widths
-MINE_DOCS = 32_768  # passages of 16-128 tokens
-MINE_TRAIN_Q = 8_192  # train queries of 4-23 tokens
+MINE_DOCS = 16_384  # passages of 16-128 tokens
+MINE_TRAIN_Q = 4_096  # train queries of 4-23 tokens
 MINE_DEV_Q = 1_024
 MINE_STEPS = 3  # training steps a round in (a)
 ASYNC_STEPS = 2  # train_loop's steps in (b)
 # (c): MS MARCO passage's corpus and dev queries; its 502,939 train
-# queries cut to 131,072 for the time limit
+# queries cut to 32,768 for the time limit
 MARCO_DOCS = 8_841_823
 MARCO_DEV_Q = 6_980
-MARCO_TRAIN_Q = 131_072
+MARCO_TRAIN_Q = 32_768
 MARCO_CHECK_Q = 1_024  # (c)'s train queries held against the exact search
-WALK_STEPS = {"a": 500, "b": 50, "c": 20}  # kmeans_walk's steps a leg
+WALK_STEPS = {"a": 100, "b": 50, "c": 5}  # kmeans_walk's steps a leg
 PLACE_SLACK = 64 * 2 ** 20  # the placement's growth against its tensor
 PEAK_SLACK = 4 * 2 ** 30  # mine()'s peak against one lone search_topk
 
@@ -3415,22 +3971,39 @@ def ance_mine(args, dev):
 
 def marco_corpus(args, dev):
     """MARCO_DOCS row-normalised DIM-d float32 rows from the seed, drawn on
-    the card in chunks into host memory (what encode_cache hands mine())."""
+    the card in chunks into host memory (what encode_cache hands mine()).
+    Each chunk reaches the host through one of two pinned staging buffers,
+    and 8 threads copy it into the array while the next chunk is drawn:
+    the writes to fresh pageable memory, not the draws, take the time."""
+    from concurrent.futures import ThreadPoolExecutor
+
     gen = torch.Generator(device=dev).manual_seed(args.seed + 12)
     out = np.empty((MARCO_DOCS, DIM), np.float32)
-    host = torch.from_numpy(out)
-    step = 262_144
-    for s in range(0, MARCO_DOCS, step):
-        x = torch.randn(min(step, MARCO_DOCS - s), DIM, generator=gen,
-                        device=dev)
-        host[s:s + len(x)].copy_(x / x.norm(dim=1, keepdim=True))
+    step, n_threads = 262_144, 8
+    stages = [torch.empty(step, DIM, pin_memory=dev.type == "cuda")
+              for _ in range(2)]
+    pending = [[], []]
+    with ThreadPoolExecutor(n_threads) as pool:
+        for i, s in enumerate(range(0, MARCO_DOCS, step)):
+            for f in pending[i % 2]:
+                f.result()
+            n = min(step, MARCO_DOCS - s)
+            x = torch.randn(n, DIM, generator=gen, device=dev)
+            stages[i % 2][:n].copy_(x / x.norm(dim=1, keepdim=True))
+            src = stages[i % 2][:n].numpy()
+            cuts = np.linspace(0, n, n_threads + 1).astype(int)
+            pending[i % 2] = [pool.submit(np.copyto, out[s + a:s + b],
+                                          src[a:b])
+                              for a, b in zip(cuts[:-1], cuts[1:])]
+        for f in pending[0] + pending[1]:
+            f.result()
     return out
 
 
 # --- coco: COCO pretraining at CocoStageConfig.base() ----------------------
 
 COCO_BATCHES = 20  # batches of docs in the span corpus
-COCO_STEPS, COCO_SAVE = 10, 5  # leg (a): steps, checkpoint interval
+COCO_STEPS, COCO_SAVE = 6, 3  # leg (a): steps, checkpoint interval
 COCO_CACHE_STEPS = 3  # leg (b)
 COCO_FUSED_STEPS = 2  # leg (d)
 COCO_CMP_DOCS = 8  # leg (e): 16 spans
@@ -3843,7 +4416,7 @@ def coco(args, dev):
             raise AssertionError(f"coco batch {batch['input_ids'].shape}")
         masked = int((batch["labels"] != -100).sum())
 
-        # (a) the direct step with dropout: 10 steps saving at 5 and 10
+        # (a) the direct step with dropout: 6 steps saving at 3 and 6
         ckpt = os.path.join(root, "ckpt")
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
@@ -3865,8 +4438,9 @@ def coco(args, dev):
         del state
         torch.cuda.empty_cache()
 
-        # resume: a fresh state loads checkpoint-5 and goes on to step 10
-        # through span_batches(start_batch=5), saving through AsyncSaver
+        # resume: a fresh state loads checkpoint-COCO_SAVE and goes on to
+        # COCO_STEPS through span_batches(start_batch=COCO_SAVE), saving
+        # through AsyncSaver
         state = coco_state(args, dev, stage, bert, total)
         load_checkpoint(os.path.join(ckpt, f"checkpoint-{COCO_SAVE}"), state)
         ckpt2 = os.path.join(root, "ckpt_resume")
@@ -4019,15 +4593,15 @@ def coco(args, dev):
 VAR_SHAPE = dict(docs=VAR_DOCS, queries=512, words=(126, VAR_DOC_LEN - 2),
                  title=False, rel=(1, 2))
 VAR_EVAL_K = 1000
-VAR_EINSUM_DOCS = 1024  # (a) with einsum attention: the first documents
+VAR_EINSUM_DOCS = 256  # (a) with einsum attention: the first documents
 VAR_TRAIN_Q, VAR_DEV_Q, VAR_MINE_K = 2048, 256, 200
 LARGE_RECORDS = 2048  # (b): RoBERTa-large records of up to 128 tokens
-MC_TRAIN_STEPS = 5  # (e), at MC_TRAIN_BATCH triplets of 64 / 2,048 tokens
+MC_TRAIN_STEPS = 3  # (e), at MC_TRAIN_BATCH triplets of 64 / 2,048 tokens
 # (e)'s card-against-CPU steps: 2 triplets whose documents are cut to 2
 # chunks (a float32 CPU step at full depth over documents of 4 chunks
 # would take minutes), each its own group in the iDRO step
 MC_CMP_BATCH, MC_CMP_CHUNKS = 2, 2
-DPR_STEPS = 5  # (f): run_warmup at TRAIN_BATCH x TRAIN_LEN
+DPR_STEPS = 3  # (f): run_warmup at TRAIN_BATCH x TRAIN_LEN
 DPR_CMP_BATCH = 4  # (f)'s nll compare; its iDRO compare takes CMP_BATCH
 
 
@@ -4823,7 +5397,7 @@ RECIPE_POLICIES = (None, "", "dots_saveable",
                    "no_save:attn_scores,attn_probs")  # None: remat off
 RECIPE_ACCUM = 2  # micro-batches an update in (c), (d) and the compare
 RECIPE_WARMUP_STEPS, RECIPE_WARMUP_SAVE = 6, 3  # (c): 3 windows
-RECIPE_DOCS, RECIPE_TRAIN_Q, RECIPE_DEV_Q = 32_768, 2_048, 256  # (d)
+RECIPE_DOCS, RECIPE_TRAIN_Q, RECIPE_DEV_Q = 16_384, 2_048, 256  # (d)
 RECIPE_ANCE_STEPS = 2  # (d): one window of dro-greedy
 RECIPE_KMEANS_ITERS = 100  # (d): 100 Lloyd steps x 1 restart
 # peak memory above the parameters, GiB, predicted from the tensors each
@@ -5780,8 +6354,10 @@ class CliRunner:
 
 
 def write_cli_checkpoint(args, root):
-    """A BERT-base checkpoint directory as HuggingFace writes one: random
-    weights from the seed (bert.* names, pytorch_model.bin), config.json,
+    """A BERT-base checkpoint directory as HuggingFace writes one of
+    BertForMaskedLM: random weights from the seed (bert.* names and the MLM
+    head's cls.predictions.*, its decoder tied to the word embeddings,
+    pytorch_model.bin), config.json,
     tokenizer_config.json and a vocab.txt of BERT's 30,522 entries: the
     special tokens at their BERT ids, CLI_WORDS whole words w0.., the
     pieces ##0..##9 (so that w{n} >= CLI_WORDS splits into pieces) and
@@ -5796,8 +6372,19 @@ def write_cli_checkpoint(args, root):
                                    args.seed + 16))
     ckpt = os.path.join(root, "ckpt")
     os.makedirs(ckpt)
-    torch.save(state_dict_to_hf(model.state_dict(), model.cfg),
-               os.path.join(ckpt, "pytorch_model.bin"))
+    sd = state_dict_to_hf(model.state_dict(), model.cfg)
+    gen = torch.Generator().manual_seed(args.seed + 17)
+    H, pre = bert.hidden_size, "cls.predictions."
+    sd.update({
+        pre + "transform.dense.weight": torch.randn(
+            H, H, generator=gen) * bert.initializer_range,
+        pre + "transform.dense.bias": torch.zeros(H),
+        pre + "transform.LayerNorm.weight": torch.ones(H),
+        pre + "transform.LayerNorm.bias": torch.zeros(H),
+        pre + "bias": torch.zeros(bert.vocab_size),
+        pre + "decoder.weight": sd["bert.embeddings.word_embeddings.weight"],
+        pre + "decoder.bias": torch.zeros(bert.vocab_size)})
+    torch.save(sd, os.path.join(ckpt, "pytorch_model.bin"))
     with open(os.path.join(ckpt, "config.json"), "w") as f:
         json.dump({"model_type": "bert", "vocab_size": bert.vocab_size,
                    "hidden_size": bert.hidden_size,
@@ -6098,7 +6685,7 @@ def cli_http(run, ckpt, emb_path, id_map, common, svc, texts, layers,
 
 PHASES = ["kernels", "search", "serve", "encode", "train", "eval",
           "ance-train", "ance-mine", "coco", "variants", "recipe", "http",
-          "ivf", "cli"]
+          "ivf", "cli", "cli-recipe"]
 
 
 def main() -> None:
@@ -6128,7 +6715,8 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
-    phase("build: nvcc -> " + str(_build.BUILD_ROOT))
+    clock = PhaseClock()
+    clock.start("build", "build: nvcc -> " + str(_build.BUILD_ROOT))
     lib = _build.library()
     for line in lib.log.splitlines():
         if "registers" in line or "spill" in line or "Function properties" in line:
@@ -6141,7 +6729,7 @@ def main() -> None:
     if unknown:
         raise ValueError(f"unknown phases {sorted(unknown)}; known {PHASES}")
     if "kernels" in run:
-        phase("kernel checks")
+        clock.start("kernels", "kernel checks")
         k5 = check_k5(ffn, gen, dev)
         kernels = [check_k1(ffn, gen, dev), k5]
         corpus = make_corpus(gen, dev)
@@ -6155,12 +6743,12 @@ def main() -> None:
         sweeps = check_sweeps(gen, dev, corpus, corpus_i8, dim_scale)
         check_sweep_shapes(gen, dev, corpus, corpus_i8)
     if "search" in run:
-        phase("search")
+        clock.start("search")
         search_counts = search(gen, dev, corpus, corpus_i8, dim_scale)
     if "kernels" in run:
         del corpus_i8
     if "serve" in run:
-        phase("serve")
+        clock.start("serve")
         serve_counts = serve(args, dev, corpus)
     if "kernels" in run:
         del corpus
@@ -6169,10 +6757,11 @@ def main() -> None:
                      ("eval", evaluate), ("ance-train", ance_train),
                      ("ance-mine", ance_mine), ("coco", coco),
                      ("variants", variants), ("recipe", recipe),
-                     ("http", http), ("ivf", ivf), ("cli", cli)):
+                     ("http", http), ("ivf", ivf), ("cli", cli),
+                     ("cli-recipe", cli_recipe)):
         if name not in run:
             continue
-        phase(name)
+        clock.start(name)
         if name == "train":
             out = fn(args, dev, k5["ms"])
         elif name == "http":
@@ -6184,6 +6773,7 @@ def main() -> None:
         elif name == "train":
             train_counts = out
         torch.cuda.empty_cache()
+    phase(f"phase seconds (host clock): {clock.summary()} [{smi}]")
     if run != PHASES:
         print(smi, flush=True)
         phase(f"partial run of {run}: no kernel summary, no result line")

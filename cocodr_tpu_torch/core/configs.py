@@ -4,6 +4,11 @@ COCO pretraining, the BM25 warmup and ANCE (`OptimizerConfig`,
 hyperparameters of record (reference COCO/README.md, warmup/README.md,
 warmup/commands/run_bm25_warmup.sh, ANCE/README.md).
 
+`to_json` and `PRESETS` (the six stage presets by name) are the JAX
+module's, for the CLI's `presets` and `--preset`; a preset's JSON carries
+the JAX one's keys and values, the compute dtype written as torch names
+it.
+
 `OptimizerConfig.build` makes the reference LAMB or optax.adamw's AdamW
 with the linear, cosine or ANCE episode schedules, wrapped in
 optim/multi_steps.py's MultiSteps (optax.MultiSteps) when grad_accum_steps
@@ -12,6 +17,7 @@ is above 1.
 from __future__ import annotations
 
 import dataclasses
+import json
 
 from cocodr_tpu_torch.losses.dro import DroConfig
 from cocodr_tpu_torch.models.bert import BertConfig
@@ -190,3 +196,19 @@ class AnceStageConfig:
             max_steps_per_episode=30_000,
             idro_last_k_layers=2,  # dro_loss.py:179-183
         )
+
+
+def to_json(cfg) -> str:
+    """A stage config -> indented JSON, nested configs as objects and
+    anything else JSON lacks (the compute dtype) as its str()."""
+    return json.dumps(dataclasses.asdict(cfg), default=str, indent=2)
+
+
+PRESETS = {
+    "coco-base": CocoStageConfig.base,
+    "coco-large": CocoStageConfig.large,
+    "warmup-base": WarmupStageConfig.base,
+    "warmup-large": WarmupStageConfig.large,
+    "ance-base": AnceStageConfig.base,
+    "ance-large": AnceStageConfig.large,
+}

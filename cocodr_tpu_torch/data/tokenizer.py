@@ -19,7 +19,10 @@ The pipeline is the fast tokenizer's:
      piece outside the vocabulary, becomes [UNK].
 
 `encode` and `__call__` are the two HuggingFace calling forms the port
-uses (data/preprocess.py and pipelines/serve.py). A directory without
+uses (data/preprocess.py and pipelines/serve.py); `vocab_size`,
+`all_special_tokens`, the `*_token_id`s, `num_special_tokens_to_add` and
+`convert_ids_to_tokens` are the surface the COCO collator reads
+(data/coco_collator.py), with BertTokenizerFast's values. A directory without
 `vocab.txt` (RoBERTa's byte-level BPE in `vocab.json` + `merges.txt`, or
 a `tokenizer.json` alone) raises NotImplementedError: ROADMAP.md Queue 1
 item 15.
@@ -120,6 +123,40 @@ class WordPieceTokenizer:
         self._specials = sorted((t for t in SPECIAL_TOKENS if t in self.vocab),
                                 key=len, reverse=True)
         self._clean = _CharMap(self._clean_char)
+        self._id_to_token = {i: t for t, i in self.vocab.items()}
+
+    # BertTokenizerFast's names for the collator (data/coco_collator.py)
+    @property
+    def vocab_size(self) -> int:
+        return len(self.vocab)
+
+    @property
+    def cls_token_id(self) -> int:
+        return self.cls_id
+
+    @property
+    def sep_token_id(self) -> int:
+        return self.sep_id
+
+    @property
+    def mask_token_id(self) -> Optional[int]:
+        return self.vocab.get("[MASK]")
+
+    @property
+    def all_special_tokens(self) -> List[str]:
+        """In transformers' order (unk, sep, pad, cls, mask)."""
+        return list(SPECIAL_TOKENS)
+
+    def num_special_tokens_to_add(self, pair: bool = False) -> int:
+        """[CLS] a [SEP], or [CLS] a [SEP] b [SEP] for a pair."""
+        return 3 if pair else 2
+
+    def convert_ids_to_tokens(self, ids):
+        """An id -> its token, a list of ids -> a list (None for an id
+        that no token keeps: a line of a token listed twice)."""
+        if isinstance(ids, (int, np.integer)):
+            return self._id_to_token.get(int(ids))
+        return [self._id_to_token.get(int(i)) for i in ids]
 
     @classmethod
     def from_pretrained(cls, path: str) -> "WordPieceTokenizer":

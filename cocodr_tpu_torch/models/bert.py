@@ -115,6 +115,12 @@ class BertConfig:
     # tokens offset past pad_token_id (HF create_position_ids_from_input_ids)
     position_style: str = "bert"
     dtype: torch.dtype = torch.float32  # compute dtype
+    # recompute in the backward instead of keeping activations (the module
+    # docstring): remat_policy '' (each layer), 'dots_saveable' (each
+    # layer, the matrix products kept) or 'no_save:attn_scores,attn_probs'
+    # (the einsum attention core only)
+    remat: bool = False
+    remat_policy: str = ""
     # 'einsum' (default) or 'fused': K8 for sequence lengths divisible by 8
     # when no attention dropout runs
     attention_impl: str = "einsum"
@@ -125,12 +131,6 @@ class BertConfig:
     # W8A8 int8 FFN half-layers (K7), an inference mode; the FFN weights
     # stay float32 and are quantized per call, as in the JAX package
     matmul_int8: bool = False
-    # recompute in the backward instead of keeping activations (the module
-    # docstring): remat_policy '' (each layer), 'dots_saveable' (each
-    # layer, the matrix products kept) or 'no_save:attn_scores,attn_probs'
-    # (the einsum attention core only)
-    remat: bool = False
-    remat_policy: str = ""
 
     def __post_init__(self):
         if self.attention_impl not in ("einsum", "fused"):

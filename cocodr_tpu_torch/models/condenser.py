@@ -142,8 +142,12 @@ class CondenserForPretraining(nn.Module):
 
     def head_hiddens(self, last, hidden_states, attention_mask,
                      generator=None):
-        h = torch.cat([last[:, :1], hidden_states[self.skip_from][:, 1:]],
-                      dim=1)
+        """[CLS of the last layer, hidden_states[skip_from][:, 1:]] through
+        the c_head. A skip_from past the depth takes the last layer, as the
+        JAX package's clamped index into its [L + 1, ...] stack does (a
+        preset's skip_from 6 on a shallower backbone)."""
+        skip = hidden_states[min(self.skip_from, len(hidden_states) - 1)]
+        h = torch.cat([last[:, :1], skip[:, 1:]], dim=1)
         bias = make_attention_bias(attention_mask)
         for layer in self.c_head:
             h = layer(h, bias, generator)

@@ -528,6 +528,7 @@ def ance_round(
     dropout_seed: Optional[int] = 0,
     device_put=None,
     device="cuda",
+    mine_model=None,
 ):
     """Time-multiplexed ANCE: mine with state.model's weights as they are
     (checkpoint name `step-{state.step}`), then train up to
@@ -535,9 +536,13 @@ def ance_round(
     shuffled by round_idx) -> (state, the mine's dev metrics, steps
     taken). One device, no polling, the same staleness as the async pair:
     the negatives were mined before the round's updates. The JAX function
-    takes the flax module as `model`; here state.model is the model."""
+    takes the flax module it mines with as `model`; here state.model
+    mines, or mine_model (a DualEncoder of state.model's parameter names,
+    e.g. its matmul_int8 twin) loaded with state.model's weights."""
     dev_metrics = mine(
-        state.model, None, passage_cache, train_query_cache,
+        state.model if mine_model is None else mine_model,
+        None if mine_model is None else state.model.state_dict(),
+        passage_cache, train_query_cache,
         train_positives, dev_query_cache, dev_qrels, work_dir, round_idx,
         mine_cfg, mesh=mesh, checkpoint_name=f"step-{int(state.step)}",
         device=device,

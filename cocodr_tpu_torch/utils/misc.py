@@ -1,6 +1,4 @@
-"""Small utilities: the port's copy of what it needs of
-cocodr_tpu/utils/misc.py (`lamb_trust_ratios` comes with ROADMAP.md
-Queue 1 item 11)."""
+"""Small utilities: the port's copy of cocodr_tpu/utils/misc.py."""
 from __future__ import annotations
 
 import glob
@@ -109,3 +107,28 @@ def episode_lr_decay(base_lr: float, step: int, total_steps: int,
     """LR decay across ANCE episodes: lr <- max(floor, 1 - step/total) * lr
     (reference ANCE/drivers/run_ann.py:120-125)."""
     return max(floor, 1.0 - step / float(total_steps)) * base_lr
+
+
+def lamb_trust_ratios(optimizer, model) -> dict:
+    """Per-tensor LAMB trust ratios for diagnostics (the reference logs
+    histograms of them, ANCE/utils/lamb.py:11-22), from the optimizer's
+    current moments: clip(|p|, 0, 10) / |m / (sqrt(v) + 1e-6)|, 1 where
+    either norm is 0, by parameter name. optimizer: an optim.lamb.Lamb or
+    a MultiSteps around one; {} for another optimizer or before the first
+    update."""
+    from cocodr_tpu_torch.optim.lamb import Lamb
+
+    inner = getattr(optimizer, "inner", optimizer)
+    if not isinstance(inner, Lamb):
+        return {}
+    out = {}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            st = inner.state.get(p)
+            if not st:
+                continue
+            adam = st["exp_avg"] / (st["exp_avg_sq"].sqrt() + 1e-6)
+            wn = float(p.float().norm().clamp(0.0, 10.0))
+            an = float(adam.float().norm())
+            out[name] = 1.0 if wn == 0 or an == 0 else wn / an
+    return out

@@ -10,7 +10,8 @@ of the step, the model's state dict, the optimizer's state dict and the
 DRO state's tensors when the state carries one (not an orbax tree).
 `models/convert.py::load_jax_train_state` takes a JAX TrainState into a
 port state instead. `AsyncSaver` writes the same checkpoints on a
-background thread.
+background thread. `export_hf_bert` writes a model as a HuggingFace
+checkpoint directory, the files the JAX package's export writes.
 """
 from __future__ import annotations
 
@@ -186,3 +187,53 @@ def load_checkpoint(path: str, state: TrainState) -> TrainState:
     extra = payload.get("extra")
     state.extra = None if extra is None else DroState(**extra)
     return state
+
+
+def export_hf_bert(state_dict, cfg, out_dir: str, head_params=None,
+                   extra_state=None) -> None:
+    """Write a models.dual_encoder.DualEncoder's state dict as a
+    HuggingFace checkpoint directory: the counterpart of the JAX package's
+    export_hf_bert and of save_pretrained (cfg: its DualEncoderConfig).
+
+    pytorch_model.bin holds the tensors of models/hf.py::state_dict_to_hf:
+    a single tower under BertModel's names without the `bert.` /
+    `roberta.` prefix (as the JAX export writes them) and the rdot_nll
+    head as `embeddingHead.*` / `norm.*` (reference ANCE/model/models.py:
+    109-110), or a two-tower model's towers under `question_model.` /
+    `ctx_model.`; extra_state's tensors join them (a Condenser's MLM head).
+    head_params (a Condenser's `c_head.*`) go to model.pt (reference
+    COCO/modeling.py:123-131). config.json records the backbone and its
+    flavour (bert or roberta positions), so that a reload rebuilds it."""
+    from cocodr_tpu_torch.models.hf import state_dict_to_hf
+
+    bert = cfg.bert
+    roberta = bert.position_style == "roberta"
+    os.makedirs(out_dir, exist_ok=True)
+    sd = state_dict_to_hf(state_dict, cfg)
+    if not cfg.two_tower:
+        prefix = "roberta." if roberta else "bert."
+        sd = {k[len(prefix):] if k.startswith(prefix) else k: v
+              for k, v in sd.items()}
+    sd.update(extra_state or {})
+    torch.save({k: v.detach().cpu().contiguous() for k, v in sd.items()},
+               os.path.join(out_dir, "pytorch_model.bin"))
+    config = {
+        "architectures": ["RobertaModel" if roberta else "BertModel"],
+        "model_type": "roberta" if roberta else "bert",
+        "vocab_size": bert.vocab_size,
+        "hidden_size": bert.hidden_size,
+        "num_hidden_layers": bert.num_hidden_layers,
+        "num_attention_heads": bert.num_attention_heads,
+        "intermediate_size": bert.intermediate_size,
+        "hidden_act": bert.hidden_act,
+        "max_position_embeddings": bert.max_position_embeddings,
+        "type_vocab_size": bert.type_vocab_size,
+        "layer_norm_eps": bert.layer_norm_eps,
+        "pad_token_id": bert.pad_token_id,
+    }
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    if head_params is not None:
+        torch.save({k: v.detach().cpu().contiguous()
+                    for k, v in head_params.items()},
+                   os.path.join(out_dir, "model.pt"))

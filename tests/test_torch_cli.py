@@ -362,24 +362,28 @@ def test_load_model_heads_towers_and_weights(hf_checkpoint, tmp_path):
         cli._load_model(str(bad), "rdot_nll_condenser", cpu)
 
 
-def test_what_the_cli_leaves_raises(hf_checkpoint, encoded, monkeypatch):
+def test_what_the_cli_leaves_raises(hf_checkpoint, encoded, monkeypatch,
+                                   capsys):
     """--mesh, --distributed and --cpu-devices 2 name ROADMAP.md Queue 1
-    item 11; without a card and without --cpu-devices 1 the commands
-    raise instead of running on the CPU; the JAX CLI's other subcommands
-    are not registered."""
+    item 11a; without a card and without --cpu-devices 1 the commands
+    raise instead of running on the CPU; every one of the JAX CLI's
+    subcommands is registered (tests/test_torch_cli_surface.py holds
+    their flags)."""
     _, rec, npy, _ = encoded
     base = ["encode", "--checkpoint", hf_checkpoint, "--records",
             rec + "/passages", "--out", npy + ".x"]
     for extra in (["--mesh", "2x1"], ["--distributed"],
                   ["--cpu-devices", "2"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 11a"):
             cli.main(base + extra)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(base)
     for name in ("eval-beir", "warmup", "coco", "presets"):
-        with pytest.raises(SystemExit):
-            cli.main([name])
+        with pytest.raises(SystemExit) as ei:
+            cli.main([name, "--help"])
+        assert ei.value.code == 0
+    assert "usage: cocodr_tpu_torch " + name in capsys.readouterr().out
 
 
 def test_profile_and_log_dirs(encoded, hf_checkpoint, tmp_path, capsys):

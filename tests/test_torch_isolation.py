@@ -62,6 +62,7 @@ MODULES = [
     "cocodr_tpu_torch.losses.dro",
     "cocodr_tpu_torch.losses.nll",
     "cocodr_tpu_torch.losses.contrastive",
+    "cocodr_tpu_torch.losses.criteria",
     "cocodr_tpu_torch.optim",
     "cocodr_tpu_torch.optim.lamb",
     "cocodr_tpu_torch.optim.adamw",
@@ -69,6 +70,7 @@ MODULES = [
     "cocodr_tpu_torch.optim.schedules",
     "cocodr_tpu_torch.core",
     "cocodr_tpu_torch.core.configs",
+    "cocodr_tpu_torch.core.precision",
     "cocodr_tpu_torch.utils",
     "cocodr_tpu_torch.utils.logging",
     "cocodr_tpu_torch.utils.misc",
@@ -80,6 +82,38 @@ MODULES = [
 def test_import_leaves_jax_and_jax_package_out():
     code = (
         "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'transformers', "
+        "'cocodr_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_cli_subcommands_leave_jax_out():
+    """In a fresh process: every subcommand's --help, `presets`, and the
+    modules its commands import when they run; no JAX, flax, optax,
+    transformers or JAX package module is loaded."""
+    code = (
+        "import contextlib, importlib, io, sys\n"
+        "from cocodr_tpu_torch import cli\n"
+        "names = ['presets', 'eval-beir', 'parity', 'encode', 'serve', "
+        "'preprocess-msmarco', 'preprocess-beir', 'warmup', 'ance', "
+        "'ance-mine', 'ance-train', 'export-hf', 'preprocess-coco', 'coco', "
+        "'convert-hf']\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    for n in names:\n"
+        "        try:\n"
+        "            cli.main([n, '--help'])\n"
+        "        except SystemExit as e:\n"
+        "            assert e.code == 0, n\n"
+        "    cli.main(['presets'])\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
