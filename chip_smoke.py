@@ -84,7 +84,7 @@ Phases, each printed with its elapsed seconds:
      of tokenize, encode, search and score, docs/s and the launches; the
      ids against an exact plain search of the same embeddings up to
      near-ties, the metrics against that search's (the card's row taken
-     only where a relevant id moved by a near-tie), the first 32 FiQA docs
+     only where a relevant id moved by a near-tie), the first 16 FiQA docs
      and queries re-encoded on the CPU through the plain versions (cosine
      >= 0.999); then combined_mrr over the SciFact records with a
      top1000.dev-style candidate file; the model's parameters bit-equal
@@ -98,7 +98,7 @@ Phases, each printed with its elapsed seconds:
      step's forward, group pass (a product per group, all 50 present),
      training backward and optimizer, the peak memory of the training run
      and of those all-group steps, dro_state_summary; then one idro step
-     at batch 8, G 4, dropout off, on the card and on the CPU in float32
+     at batch 4, G 4, dropout off, on the card and on the CPU in float32
      from the same weights and DroState, held together by the loss, the
      clipped gradients' cosines, h_fun and the cosines between the groups'
      gradients that the group pass forms;
@@ -148,7 +148,7 @@ Phases, each printed with its elapsed seconds:
      weights, dropout off (K1 104 and 14), by the loss and the gradients'
      cosines, a cache step with the next chunk's cotangents planted must
      fail them; (d) fused attention without dropout (K1 and K8 14 a step);
-     (e) one direct step at 16 spans on the card and on the CPU through
+     (e) one direct step at 8 spans on the card and on the CPU through
      the plain versions in float32, by compare_step's bounds, a step with
      the c_head fed from hidden_states[5] planted must fail them;
  12. variants: the model variants, random weights from the seed, bf16
@@ -171,9 +171,9 @@ Phases, each printed with its elapsed seconds:
      time_* and peak memory; (e) nll_multichunk with dropout through
      train_on_ann_file over (d)'s ann file (batch 8, queries 64, documents
      2,048: K5 36 a step): triplets/s, card ms by phase, peak memory; then
-     an nll and a lane iDRO step (fused attention, dropout off, documents
-     of one real chunk and one all padding) against the CPU's float32
-     step; (f) DPR on BERT-base through run_warmup (batch 64 x 128, 5
+     an nll step (1 triplet) and a lane iDRO step (2, each its own group;
+     fused attention, dropout off, documents of one real chunk and one all
+     padding) against the CPU's float32 step; (f) DPR on BERT-base through run_warmup (batch 64 x 128, 5
      steps, dropout: K5 36 a step), every parameter of both towers and
      poolers given a gradient and LAMB moments, the checkpoint loaded back;
      an nll step and a two-tower iDRO step against the CPU, a group pass
@@ -232,8 +232,9 @@ Phases, each printed with its elapsed seconds:
      encode (K1 12 a batch of 512; its .npy equal to encode_cache in this
      process bit for bit; docs/s), serve --queries (a TREC run equal to
      the same service's search_stream here), serve --search-method ivf
-     through the stdin REPL, and serve --http (answers equal to search()
-     here), each one's launches checked; then in this process
+     through the stdin REPL (these two started together after encode,
+     beside this process's checks), and serve --http (answers equal to
+     search() here), each one's launches checked; then in this process
      evaluate_beir_task and mine() by search_method 'ivf' at full probe
      over those records (metrics within 1e-2 of 'pallas''s, the ann
      file's lines valid, K1 only).
@@ -257,18 +258,44 @@ Phases, each printed with its elapsed seconds:
      step), round 1 mined from step-3, then ance --int8-encode resuming
      to round 2 (K7 for its encodes); ance-mine and ance-train as two
      concurrent processes on a fresh --ckpt-dir, the second ann file from
-     checkpoint-2; export-hf of the ANCE checkpoint, eval-beir (K1 12 a
-     batch, K2 1, K3) equal to eval_beir in this process, parity PASS at
-     that nDCG and exit code 1 at a planted one; convert-hf and presets.
+     checkpoint-2 (started after the warmup export, they run beside this
+     process's ance calls and the steps after them); export-hf of the
+     ANCE checkpoint, eval-beir (K1 12 a batch, K2 1, K3) equal to
+     eval_beir in this process, parity PASS at that nDCG and exit code 1
+     at a planted one; convert-hf and presets.
      Each stage's seconds, and the CLI's own spans/s, triplets/s and
      docs/s.
+ 18. mesh (after cli-recipe): the data-parallel paths (core/mesh.py,
+     parallel/) on a world of one nccl process that create_mesh makes
+     (the machine has one card, and NCCL refuses two ranks on one
+     device), each forced through its sharded code at W = 1 and held
+     against the plain path, its launches equal to the plain path's: (a)
+     mips_topk_sharded at 1,024 queries x 1,048,576 docs, k 100, by
+     'pallas' and 'fast' (ids and scores equal search_topk's; q/s, the
+     all-gather and merge's ms); (b) the sharded RetrievalService
+     (batches of 64, top 10; K1 12 a batch) equal to the plain one; (c)
+     run_warmup through shard_train_init and put_batch, 5 steps of 64 x
+     128 with dropout (K5 36 a step), losses and parameters bit-equal to
+     the plain run; (d) a direct and a grad-cache COCO step at 400 x 128
+     with the span contrastive over the world, bit-equal; (e) mine(mesh=)
+     over 16,384 passages and 4,096 train queries, its ann file equal to
+     mine()'s; (f) eval-beir --mesh auto in a subprocess on the cli
+     phase's SciFact-sized task, its metrics equal to eval_beir's here;
+     (g) a world of two processes on the one card over gloo (whose CUDA
+     tensors take every collective the port runs: gloo_cuda_probe.py),
+     beside (c)-(f): the (a) searches with each rank holding half the
+     corpus, ids equal to (a)'s, launches as (a)'s; 3 data-parallel
+     warmup steps without dropout (K1 36 a step), the ranks' parameters
+     bit-equal, the first step's averaged gradients and every loss held
+     to a world of one's by the card-against-CPU bounds.
+     W = 4 is the CPU tests' (gloo).
 Each phase's seconds print on a line of their own as it ends
 (`phase seconds NAME: S`), and all of them together before the kernel
 summary.
 Every path (the search phase, each serve mode, each encode configuration,
 each training run, each eval task, combined_mrr, each mining round, each
 COCO leg, each variants leg, each recipe leg, each HTTP leg, each IVF
-search, each CLI subcommand, each cli-recipe call) runs
+search, each CLI subcommand, each cli-recipe call, each mesh leg) runs
 with every kernel's launch count set to 0 just
 before it and read just after, and fails if a kernel of the path never
 launched or a count differs from the path's own. Then one JSON line of per-kernel numbers,
@@ -283,6 +310,7 @@ import faulthandler
 faulthandler.dump_traceback_later(1100, exit=True)
 
 import argparse  # noqa: E402
+import contextlib  # noqa: E402
 import copy  # noqa: E402
 import itertools  # noqa: E402
 import dataclasses  # noqa: E402
@@ -1588,7 +1616,9 @@ def cli_recipe(args, dev):
     common = [] if on_card else ["--cpu-devices", "1"]
     cli = InProcessCli(on_card, card)
     stage_s = {}
-    with tempfile.TemporaryDirectory() as root:
+    # the stack ends the async pair's processes before the directory goes
+    with tempfile.TemporaryDirectory() as root, \
+            contextlib.ExitStack() as stack:
         t = time.perf_counter()
         ckpt = write_cli_checkpoint(args, root)
         data = write_beir_task(np.random.default_rng([args.seed, 16]), root,
@@ -1751,6 +1781,26 @@ def cli_recipe(args, dev):
         cli.run("export-hf (warmup)", [
             "export-hf", "--checkpoint", wck, "--config", ckpt, "--out",
             warmup_export])
+
+        # 6. the async pair, two processes on a fresh --ckpt-dir, started
+        # here to run beside 5, 7 and 8 of this process; read after 8
+        pair_t = time.perf_counter()
+        pair_ck = os.path.join(root, "pair_ck")
+        runner = CliRunner(root)
+        pair = ["--data-dir", marco, "--checkpoint", warmup_export,
+                "--ckpt-dir", pair_ck, "--rounds", "2", "--poll-secs", "1",
+                "--batch-size", "64", "--seed", str(args.seed)] + common
+        procs = []
+        for name, extra in (("ance-mine", []), ("ance-train", [
+                "--steps-per-round", str(CLI_PAIR_STEPS)])):
+            cmd, counts_path = runner.command([name] + pair + extra)
+            log = stack.enter_context(open(os.path.join(
+                root, f"{name}.log"), "w+"))
+            proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                    text=True, env=runner.env, cwd=ROOT)
+            stack.callback(proc.kill)
+            procs.append((name, counts_path, log, proc))
+
         ack = os.path.join(root, "ance_ck")
         ance_argv = ["ance", "--data-dir", marco, "--checkpoint",
                      warmup_export, "--ckpt-dir", ack, "--loss-kind",
@@ -1793,44 +1843,6 @@ def cli_recipe(args, dev):
               f"nDCG@10 {[round(r['ndcg_cut_10'], 4) for r in recs]} "
               f"[{card}]")
         stage_s["ance"] = time.perf_counter() - t
-
-        # 6. the async pair, two processes on a fresh --ckpt-dir
-        t = time.perf_counter()
-        pair_ck = os.path.join(root, "pair_ck")
-        runner = CliRunner(root)
-        pair = ["--data-dir", marco, "--checkpoint", warmup_export,
-                "--ckpt-dir", pair_ck, "--rounds", "2", "--poll-secs", "1",
-                "--batch-size", "64", "--seed", str(args.seed)] + common
-        procs = []
-        for name, extra in (("ance-mine", []), ("ance-train", [
-                "--steps-per-round", str(CLI_PAIR_STEPS)])):
-            cmd, counts_path = runner.command([name] + pair + extra)
-            procs.append((name, counts_path, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True, env=runner.env, cwd=ROOT)))
-        pair_counts = {}
-        for name, counts_path, proc in procs:
-            text, _ = proc.communicate(timeout=600)
-            if proc.returncode != 0:
-                raise AssertionError(f"cli-recipe {name}: exit "
-                                     f"{proc.returncode}\n{text[-4000:]}")
-            with open(counts_path) as f:
-                pair_counts[name] = json.load(f)
-            phase(f"  cli-recipe {name} (a process) launches "
-                  f"{pair_counts[name]}")
-        if on_card:  # the miner's two rounds mine as the idro call's two
-            check_counts("cli-recipe ance-mine", pair_counts["ance-mine"],
-                         {k: v for k, v in round_counts[0].items()
-                          if k != "K5_ffn"})
-            check_counts("cli-recipe ance-train", pair_counts["ance-train"],
-                         {"K5_ffn": 3 * layers * CLI_PAIR_STEPS * 2})
-        names = ann_checkpoints(pair_ck)
-        if names != ["initial", f"checkpoint-{CLI_PAIR_STEPS}"]:
-            raise AssertionError(f"cli-recipe async pair mined {names}")
-        stage_s["ance-mine + ance-train"] = time.perf_counter() - t
-        phase(f"  cli-recipe async pair: ann files from {names}, "
-              f"{stage_s['ance-mine + ance-train']:.2f} s for both "
-              f"processes")
 
         # 7. export-hf of the ANCE checkpoint, eval-beir, parity
         t = time.perf_counter()
@@ -1898,6 +1910,33 @@ def cli_recipe(args, dev):
                      "warmup-large", "ance-base", "ance-large"]:
             raise AssertionError(f"cli-recipe presets: {names}")
         stage_s["convert-hf + presets"] = time.perf_counter() - t
+
+        # 6, read: the async pair
+        pair_counts = {}
+        for name, counts_path, log, proc in procs:
+            proc.wait(timeout=600)
+            if proc.returncode != 0:
+                log.seek(0)
+                raise AssertionError(
+                    f"cli-recipe {name}: exit {proc.returncode}\n"
+                    f"{log.read()[-4000:]}")
+            with open(counts_path) as f:
+                pair_counts[name] = json.load(f)
+            phase(f"  cli-recipe {name} (a process) launches "
+                  f"{pair_counts[name]}")
+        if on_card:  # the miner's two rounds mine as the idro call's two
+            check_counts("cli-recipe ance-mine", pair_counts["ance-mine"],
+                         {k: v for k, v in round_counts[0].items()
+                          if k != "K5_ffn"})
+            check_counts("cli-recipe ance-train", pair_counts["ance-train"],
+                         {"K5_ffn": 3 * layers * CLI_PAIR_STEPS * 2})
+        names = ann_checkpoints(pair_ck)
+        if names != ["initial", f"checkpoint-{CLI_PAIR_STEPS}"]:
+            raise AssertionError(f"cli-recipe async pair mined {names}")
+        stage_s["ance-mine + ance-train"] = time.perf_counter() - pair_t
+        phase(f"  cli-recipe async pair: ann files from {names}, "
+              f"{stage_s['ance-mine + ance-train']:.2f} s for both "
+              f"processes, beside 5, 7 and 8 of this process")
     phase(f"  cli-recipe coco: {coco_log[-1]['spans_per_s']:.1f} spans/s "
           f"(the CLI's log, the resumed run's last step) [{card}]")
     phase("  cli-recipe seconds by stage: " + ", ".join(
@@ -2785,7 +2824,9 @@ BEIR_SHAPES = {
                     rel=(1, 2)),
 }
 EVAL_TOP_K = 1000
-EVAL_CPU_ROWS = 32  # FiQA docs and queries re-encoded on the CPU
+# FiQA docs and queries re-encoded on the CPU (item 16's rule: 32 read
+# 9.2 s of the phase on a slow host; H100 80GB HBM3, 700 W)
+EVAL_CPU_ROWS = 16
 EVAL_CANDIDATES = 1000  # per query in the top1000.dev-style file
 EVAL_VOCAB = 30_000
 
@@ -3085,7 +3126,10 @@ ANCE_DOCS = 8192  # passage records (128 tokens)
 ANCE_LINES = 64  # ann lines: 30 negatives each, 1,920 triplets
 ANCE_NEGS = 30
 IDRO_STEPS, GREEDY_STEPS, ANCE_NODROP_STEPS = 6, 3, 2
-IDRO_CMP_GROUPS = 4  # the card-against-CPU iDRO step, batch CMP_BATCH
+# the card-against-CPU iDRO step: batch IDRO_CMP_BATCH, one triplet a
+# group (item 16's rule: at 8 its CPU steps read 9.3 s of ance-train and
+# 12.6 s of variants on a slow host; H100 80GB HBM3, 700 W)
+IDRO_CMP_BATCH, IDRO_CMP_GROUPS = 4, 4
 # the card-against-CPU iDRO step's h_fun: max |log h_card - log h_cpu|.
 # The group pass moves log h by rho (0.05) x a mean of the groups'
 # gradient cosines; a rounding that passes the gradient bounds (cosine
@@ -3301,10 +3345,10 @@ def h_fun_log_err(h_a, h_b):
 
 
 def idro_compare(args, dev, stage, bert, data):
-    """One iDRO step at CMP_BATCH, G = IDRO_CMP_GROUPS, dropout off, on the
-    card (K1, K8, bf16) and on the CPU (their plain versions, float32) from
-    the same weights and DroState: loss, clipped gradients and h_fun. The
-    bounds' calibration holds a bf16 step against a float32 one
+    """One iDRO step at IDRO_CMP_BATCH, G = IDRO_CMP_GROUPS, dropout off, on
+    the card (K1, K8, bf16) and on the CPU (their plain versions, float32)
+    from the same weights and DroState: loss, clipped gradients and h_fun.
+    The bounds' calibration holds a bf16 step against a float32 one
     (tests/test_torch_ance.py::test_idro_compare_bounds_*). A bf16 step on
     the CPU is a second rounding: at BERT-base on the H100 the card stood
     closer to the float32 step (worst tensor cosine 0.918, h_fun 1.0e-4)
@@ -3322,7 +3366,7 @@ def idro_compare(args, dev, stage, bert, data):
         stage.model_type, dataclasses.replace(bert, dtype=torch.float32),
         device="cpu")
     cpu_model.load_state_dict(model.state_dict())
-    batch = ance_batch(data, CMP_BATCH, "cpu", IDRO_CMP_GROUPS)
+    batch = ance_batch(data, IDRO_CMP_BATCH, "cpu", IDRO_CMP_GROUPS)
     dstate = compare_dro_state(dro, args.seed)
 
     def step(m):
@@ -3360,9 +3404,10 @@ def idro_compare(args, dev, stage, bert, data):
         finally:
             remove()
     off_diag = (cb - torch.eye(IDRO_CMP_GROUPS, dtype=cb.dtype)).abs().max()
-    phase(f"  ance compare card vs CPU float32 (iDRO, batch {CMP_BATCH}, G "
-          f"{IDRO_CMP_GROUPS}, dropout off): loss {la:.6f} vs {lb:.6f} (rel "
-          f"{rel:.2e}, bound {CMP_LOSS_RTOL}); clipped-gradient cosine "
+    phase(f"  ance compare card vs CPU float32 (iDRO, batch "
+          f"{IDRO_CMP_BATCH}, G {IDRO_CMP_GROUPS}, dropout off): loss "
+          f"{la:.6f} vs {lb:.6f} (rel {rel:.2e}, bound {CMP_LOSS_RTOL}); "
+          f"clipped-gradient cosine "
           f"{glob:.6f} (bound {CMP_GLOBAL_COSINE}); worst tensor {worst} "
           f"{cos:.6f} (bound {CMP_TENSOR_COSINE}); h_fun max |log diff| "
           f"{herr:.2e} (bound {IDRO_H_LOG_TOL}); group-gradient cosines max "
@@ -4006,7 +4051,8 @@ COCO_BATCHES = 20  # batches of docs in the span corpus
 COCO_STEPS, COCO_SAVE = 6, 3  # leg (a): steps, checkpoint interval
 COCO_CACHE_STEPS = 3  # leg (b)
 COCO_FUSED_STEPS = 2  # leg (d)
-COCO_CMP_DOCS = 8  # leg (e): 16 spans
+# leg (e): 8 spans (item 16's rule: at 16 its CPU step read 7.0 s)
+COCO_CMP_DOCS = 4
 COCO_TOP_KERNELS = 12  # kernels listed from leg (a)'s profiled step
 # leg (a): the resumed run must equal the uninterrupted one bit for bit.
 # With the token-type rows taken by nn.Embedding, the resumed parameters on
@@ -4599,10 +4645,14 @@ LARGE_RECORDS = 2048  # (b): RoBERTa-large records of up to 128 tokens
 MC_TRAIN_STEPS = 3  # (e), at MC_TRAIN_BATCH triplets of 64 / 2,048 tokens
 # (e)'s card-against-CPU steps: 2 triplets whose documents are cut to 2
 # chunks (a float32 CPU step at full depth over documents of 4 chunks
-# would take minutes), each its own group in the iDRO step
-MC_CMP_BATCH, MC_CMP_CHUNKS = 2, 2
+# would take minutes), each its own group in the iDRO step; the nll step
+# takes the first triplet alone (item 16's rule: at two its CPU step
+# read 42 s of the phase's 166 on a slow host; H100 80GB HBM3, 700 W)
+MC_CMP_BATCH, MC_CMP_CHUNKS, MC_NLL_CMP_BATCH = 2, 2, 1
 DPR_STEPS = 3  # (f): run_warmup at TRAIN_BATCH x TRAIN_LEN
-DPR_CMP_BATCH = 4  # (f)'s nll compare; its iDRO compare takes CMP_BATCH
+# (f)'s nll compare (item 16's rule: at 4 its CPU step read 4.8 s); its
+# iDRO compare takes IDRO_CMP_BATCH
+DPR_CMP_BATCH = 2
 
 
 def variant_model(args, dev, model_type, bert, offset, **kw):
@@ -5245,8 +5295,10 @@ def mc_train(args, dev, cache, queries, ann):
                           17, base_len=VAR_CHUNK)
     arrays = mc_compare_arrays(args, cache)
     expect = {"K1_ffn_block": 3 * layers, "K8_attention": 3 * layers}
-    variant_compare(f"variants (e) compare (batch {MC_CMP_BATCH}, docs of "
-                    f"{MC_CMP_CHUNKS} chunks)", model, arrays, expect)
+    variant_compare(f"variants (e) compare (batch {MC_NLL_CMP_BATCH}, docs "
+                    f"of {MC_CMP_CHUNKS} chunks)", model,
+                    {k: v[:MC_NLL_CMP_BATCH] for k, v in arrays.items()},
+                    expect)
     cfg = TrainStepConfig(
         loss_kind="idro", dro=dataclasses.replace(stage.dro,
                                                   n_groups=MC_CMP_BATCH),
@@ -5333,9 +5385,10 @@ def dpr_leg(args, dev, root):
                     expect)
     dro = dataclasses.replace(AnceStageConfig.base().dro,
                               n_groups=IDRO_CMP_GROUPS)
-    arrays["groups"] = np.arange(CMP_BATCH) % IDRO_CMP_GROUPS
+    arrays = {k: v[:IDRO_CMP_BATCH] for k, v in arrays.items()}
+    arrays["groups"] = np.arange(IDRO_CMP_BATCH) % IDRO_CMP_GROUPS
     variant_idro_compare(
-        args, f"variants (f) iDRO compare (batch {CMP_BATCH})", model,
+        args, f"variants (f) iDRO compare (batch {IDRO_CMP_BATCH})", model,
         arrays, TrainStepConfig(loss_kind="idro", dro=dro,
                                 idro_last_k_layers=3), expect,
         plants=[("a group pass over the query tower alone",
@@ -6331,6 +6384,7 @@ class CliRunner:
             f.write(CLI_LAUNCHER.format(counters=counters))
         self.env = dict(os.environ, PYTHONPATH=str(ROOT))
         self.n = 0
+        self.jobs = []
 
     def command(self, argv):
         self.n += 1
@@ -6339,18 +6393,45 @@ class CliRunner:
 
     def run(self, name, argv, stdin=None):
         """-> (seconds, stdout, launch counts); a failed command raises."""
+        return self.finish(name, self.start(argv, stdin))
+
+    def start(self, argv, stdin=None):
+        """The command started, its output going to files -> its job for
+        finish(); it runs beside this process's work meanwhile."""
         cmd, counts = self.command(argv)
-        t = time.perf_counter()
-        out = subprocess.run(cmd, input=stdin, capture_output=True,
-                             text=True, env=self.env, cwd=ROOT, timeout=300)
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        proc = subprocess.Popen(
+            cmd, stdout=out, stderr=err, text=True, env=self.env, cwd=ROOT,
+            stdin=subprocess.DEVNULL if stdin is None else subprocess.PIPE)
+        if stdin is not None:
+            proc.stdin.write(stdin)
+            proc.stdin.close()
+        job = (proc, out, err, counts, time.perf_counter())
+        self.jobs.append(job)
+        return job
+
+    def finish(self, name, job):
+        """Wait for a started command -> as run()."""
+        proc, out, err, counts, t = job
+        proc.wait(timeout=300)
         secs = time.perf_counter() - t
-        if out.returncode != 0:
-            raise AssertionError(f"cli {name}: exit {out.returncode}\n"
-                                 f"{out.stderr[-4000:]}")
+        res = argparse.Namespace(returncode=proc.returncode)
+        for key, f in (("stdout", out), ("stderr", err)):
+            f.seek(0)
+            setattr(res, key, f.read())
+            f.close()
+        if proc.returncode != 0:
+            raise AssertionError(f"cli {name}: exit {proc.returncode}\n"
+                                 f"{res.stderr[-4000:]}")
         with open(counts) as f:
             got = json.load(f)
         phase(f"  cli {name}: {secs:.2f} s (a subprocess); launches {got}")
-        return secs, out, got
+        return secs, res, got
+
+    def kill_all(self):
+        """End every started command still running."""
+        for job in self.jobs:
+            job[0].kill()
 
 
 def write_cli_checkpoint(args, root):
@@ -6440,12 +6521,14 @@ def cli(args, dev):
     card = nvidia_smi()
     on_card = dev.type == "cuda"
     common = [] if on_card else ["--cpu-devices", "1"]
-    with tempfile.TemporaryDirectory() as root:
+    with tempfile.TemporaryDirectory() as root, \
+            contextlib.ExitStack() as stack:
         ckpt = write_cli_checkpoint(args, root)
         rng = np.random.default_rng([args.seed, 16])
         data = write_beir_task(rng, root, "scifact")
         rec = os.path.join(root, "rec")
         run = CliRunner(root)
+        stack.callback(run.kill_all)
         secs, _, counts = run.run("preprocess-beir", [
             "preprocess-beir", "--data-dir", data, "--out", rec,
             "--tokenizer", ckpt, "--task", "scifact", "--n-workers", "4"])
@@ -6462,6 +6545,28 @@ def cli(args, dev):
             "encode", "--checkpoint", ckpt, "--records",
             os.path.join(rec, "passages"), "--out", emb_path,
             "--batch-size", "512", "--log-dir", log_dir] + common)
+        tok = load_tokenizer(ckpt)
+        id_map = os.path.join(rec, "passages.docid2offset.pickle")
+        off2id = {v: k for k, v in load_id_map(id_map).items()}
+        doc_ids = [off2id[i] for i in range(n_docs)]
+        queries = []
+        with open(os.path.join(data, "queries.jsonl")) as f:
+            for line in f:
+                j = json.loads(line)
+                queries.append((j["_id"], j["text"]))
+        tsv = os.path.join(root, "queries.tsv")
+        with open(tsv, "w") as f:
+            f.writelines(f"{q}\t{t}\n" for q, t in queries)
+        trec = os.path.join(root, "run.trec")
+        repl = [t for _, t in queries[:CLI_REPL_QUERIES]]
+        # serve --queries and the ivf REPL run beside this process's work
+        q_job = run.start([
+            "serve", "--checkpoint", ckpt, "--emb", emb_path, "--id-map",
+            id_map, "--queries", tsv, "--output", trec] + common)
+        ivf_job = run.start([
+            "serve", "--checkpoint", ckpt, "--emb", emb_path, "--id-map",
+            id_map, "--search-method", "ivf", "--ivf-nprobe",
+            str(CLI_IVF_NPROBE)] + common, stdin="\n".join(repl) + "\n")
         model = tcli._load_model(ckpt, "rdot_nll_condenser", dev)
         layers = model.cfg.bert.num_hidden_layers
         n_batches = math.ceil(n_docs / 512)
@@ -6488,22 +6593,7 @@ def cli(args, dev):
               f"of the same checkpoint in this process (max |diff| "
               f"{diff:.3e}) [{card}]")
 
-        tok = load_tokenizer(ckpt)
-        id_map = os.path.join(rec, "passages.docid2offset.pickle")
-        off2id = {v: k for k, v in load_id_map(id_map).items()}
-        doc_ids = [off2id[i] for i in range(n_docs)]
-        queries = []
-        with open(os.path.join(data, "queries.jsonl")) as f:
-            for line in f:
-                j = json.loads(line)
-                queries.append((j["_id"], j["text"]))
-        tsv = os.path.join(root, "queries.tsv")
-        with open(tsv, "w") as f:
-            f.writelines(f"{q}\t{t}\n" for q, t in queries)
-        trec = os.path.join(root, "run.trec")
-        secs, out, counts = run.run("serve --queries", [
-            "serve", "--checkpoint", ckpt, "--emb", emb_path, "--id-map",
-            id_map, "--queries", tsv, "--output", trec] + common)
+        secs, out, counts = run.finish("serve --queries", q_job)
         n_calls = math.ceil(len(queries) / BATCH)
         if on_card:
             check_counts("cli serve --queries", counts,
@@ -6531,11 +6621,8 @@ def cli(args, dev):
               f"(max score diff {worst:.3e}: the run's 6 decimals); "
               f"{bulk['qps']} queries/s (the CLI's own clock) [{card}]")
 
-        repl = [t for _, t in queries[:CLI_REPL_QUERIES]]
-        secs, out, counts = run.run("serve --search-method ivf (REPL)", [
-            "serve", "--checkpoint", ckpt, "--emb", emb_path, "--id-map",
-            id_map, "--search-method", "ivf", "--ivf-nprobe",
-            str(CLI_IVF_NPROBE)] + common, stdin="\n".join(repl) + "\n")
+        secs, out, counts = run.finish("serve --search-method ivf (REPL)",
+                                       ivf_job)
         if on_card:
             check_counts("cli serve ivf", counts,
                          {"K1_ffn_block": layers * len(repl)})
@@ -6683,9 +6770,601 @@ def cli_http(run, ckpt, emb_path, id_map, common, svc, texts, layers,
           f"[{card}]")
 
 
+MESH_SERVE_BATCHES = 8  # (b): batches of BATCH queries
+MESH_WARMUP_STEPS = 5  # (c): steps of each run
+MESH_SEARCH_METHODS = (("pallas", ["K2_dual_sweep", "K3_topk"]),
+                       ("fast", ["K2_dual_sweep_packed", "K3_topk"]))
+# (g): two gloo processes on the one card. gloo_cuda_probe.py found, on
+# torch 2.11.0+cu128 (H100 80GB HBM3, 700 W), that gloo takes CUDA
+# tensors for every collective the port runs (all_gather, all_reduce,
+# broadcast, barrier, broadcast_object_list, and the scatter of the
+# differentiable all-gather's backward), so the leg runs: the (a)
+# searches with each rank holding half the corpus, then GLOO_STEPS
+# data-parallel warmup steps without dropout against a world of one's.
+# The CPU tests' 1e-5 in the parameters (tests/test_torch_sharded_train.py)
+# holds in float32; in bf16 the halves' gradients round apart (~1e-3) and
+# LAMB's first steps, near sign(g) an element, turn that into steps of
+# +-lr where a gradient is near 0 (2.6e-4 after 3 steps on the H100). So
+# the first step's loss and averaged gradients are held to the world of
+# one's by the card-against-CPU bounds (compare_step's, rounding of the
+# same kind), every step's loss by CMP_LOSS_RTOL
+GLOO_WORLD, GLOO_STEPS = 2, 3
+# (g)'s scores against (a)'s: float32 sums of the same bf16 products, in
+# another order where the rescoring's shapes differ (a 768-term sum of
+# scores ~0.15 moves by ~1e-7); ids may differ only between such ties
+GLOO_SCORE_TOL = 1e-6
+
+
+def same_state_dicts(name, a, b):
+    """Two state dicts bit-equal, key for key."""
+    diff = [k for k in a if not torch.equal(a[k], b[k])]
+    if a.keys() != b.keys() or diff:
+        raise AssertionError(f"{name}: tensors differ: {diff[:5]}")
+
+
+def counted_pair(name, plain, sharded, needed, dev):
+    """plain() then sharded(), the counts zeroed before and read after
+    each; the sharded path's launches must equal the plain path's ->
+    (plain's result, sharded's result, the counts, each path's seconds on
+    the host clock)."""
+    out, secs, counts = [], [], []
+    for tag, fn in (("plain", plain), ("sharded", sharded)):
+        zero_counts()
+        t = time.perf_counter()
+        out.append(fn())
+        synchronize(dev)
+        secs.append(time.perf_counter() - t)
+        counts.append(read_counts(f"mesh {name} ({tag})", needed))
+    if counts[0] != counts[1]:
+        raise AssertionError(f"mesh {name}: the sharded path launched "
+                             f"{counts[1]}, the plain one {counts[0]}")
+    return out[0], out[1], counts[1], secs
+
+
+def mesh_search(args, dev, mesh, corpus, card):
+    """(a) mips_topk_sharded against search_topk, 'pallas' and 'fast' ->
+    (launch counts, the sharded (scores, ids)) by method."""
+    from cocodr_tpu_torch.parallel.topk import (
+        distributed_topk,
+        mips_topk_sharded,
+        search_topk,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 18)
+    q = normed(gen, dev, SEARCH_Q, DIM)
+    on_card = dev.type == "cuda"
+    counts, results = {}, {}
+    for method, needed in MESH_SEARCH_METHODS:
+        def plain():
+            return search_topk(q, corpus, SEARCH_K, method=method,
+                               device=dev)
+
+        def sharded():
+            return mips_topk_sharded(q, corpus, SEARCH_K, mesh,
+                                     method=method, device=dev)
+
+        plain(), sharded()  # warm: the kernels' first launches
+        (v0, i0), (v1, i1), c, secs = counted_pair(
+            f"(a) search {method}", plain, sharded,
+            needed if on_card else [], dev)
+        if not (np.array_equal(i0, i1) and np.array_equal(v0, v1)):
+            raise AssertionError(f"mesh (a) {method}: the sharded search's "
+                                 "results differ from search_topk's")
+        counts[method], results[method] = c, (v1, i1)
+        phase(f"  mesh (a) {method}: {SEARCH_Q} queries x {N_DOCS} docs, "
+              f"k {SEARCH_K}: ids and scores equal search_topk's; "
+              f"{SEARCH_Q / secs[1]:.0f} q/s sharded, "
+              f"{SEARCH_Q / secs[0]:.0f} q/s plain (host clock); launches "
+              f"{ {k: v for k, v in c.items() if v} } [{card}]")
+    v = torch.from_numpy(v1).to(dev)
+    i = torch.from_numpy(i1).to(dev)
+    if on_card:
+        ag = time_ms(lambda: distributed_topk(v, i, SEARCH_K, mesh))
+        phase(f"  mesh (a) distributed_topk of [{SEARCH_Q}, {SEARCH_K}] "
+              f"(the all-gather and the merge): {ag:.4f} ms [{card}]")
+    return counts, results
+
+
+def mesh_serve(args, dev, mesh, corpus, card):
+    """(b) the sharded RetrievalService against the plain one."""
+    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+    from cocodr_tpu_torch.pipelines.serve import RetrievalService, ServeConfig
+
+    bert = BertConfig.base(dtype=torch.bfloat16)
+    model = build_dual_encoder("rdot_nll_condenser", bert, device=dev,
+                               generator=torch.Generator().manual_seed(
+                                   args.seed))
+    cfg = ServeConfig(top_k=TOP_K, max_query_len=QUERY_LEN, max_batch=BATCH)
+    rng = np.random.default_rng(args.seed + 18)
+    texts = make_queries(rng, BATCH * MESH_SERVE_BATCHES)
+    batches = [texts[s:s + BATCH] for s in range(0, len(texts), BATCH)]
+    services = [RetrievalService(model, HashTokenizer(), corpus, cfg=cfg,
+                                 device=dev),
+                RetrievalService(model, HashTokenizer(), corpus, cfg=cfg,
+                                 mesh=mesh, device=dev)]
+    for svc in services:
+        svc.search(batches[0])  # warm
+    on_card = dev.type == "cuda"
+    (plain, sharded, counts, secs) = counted_pair(
+        "(b) serve", lambda: [services[0].search(b) for b in batches],
+        lambda: [services[1].search(b) for b in batches],
+        ["K1_ffn_block", "K2_dual_sweep", "K3_topk"] if on_card else [],
+        dev)
+    for (v0, i0), (v1, i1) in zip(plain, sharded):
+        if not (np.array_equal(v0, v1) and i0 == i1):
+            raise AssertionError("mesh (b): the sharded service's answers "
+                                 "differ from the plain one's")
+    layers = bert.num_hidden_layers
+    if on_card and counts["K1_ffn_block"] != layers * len(batches):
+        raise AssertionError(f"mesh (b): K1 {counts['K1_ffn_block']}")
+    phase(f"  mesh (b) serve: {len(batches)} batches of {BATCH}, top "
+          f"{TOP_K} over {N_DOCS} docs: answers equal the plain service's; "
+          f"{secs[1] * 1e3 / len(batches):.2f} ms a batch sharded, "
+          f"{secs[0] * 1e3 / len(batches):.2f} plain (host clock); launches "
+          f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+    return counts
+
+
+def mesh_warmup(args, dev, mesh, root, card):
+    """(c) run_warmup with shard_train_init's state and put_batch against
+    the plain run: 5 steps at 64 x 128 with dropout."""
+    from cocodr_tpu_torch.core.configs import OptimizerConfig
+    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+    from cocodr_tpu_torch.parallel.sharded_train import shard_train_init
+    from cocodr_tpu_torch.pipelines.train_step import build_train_step
+    from cocodr_tpu_torch.pipelines.warmup import WarmupConfig, run_warmup
+    from cocodr_tpu_torch.utils.train_state import TrainState
+
+    bert = BertConfig.base(dtype=torch.bfloat16)
+    layers = bert.num_hidden_layers
+    path = write_triples(args, os.path.join(root, "triples.tsv"),
+                         TRAIN_BATCH * MESH_WARMUP_STEPS)
+    runs = []
+    for tag, sharded in (("plain", False), ("sharded", True)):
+        model = build_dual_encoder("rdot_nll_condenser", bert, device=dev,
+                                   generator=torch.Generator().manual_seed(
+                                       args.seed))
+        opt = OptimizerConfig(lr=2e-4, warmup_steps=5, total_steps=100
+                              ).build(model.parameters())
+        put = None
+        if sharded:
+            state, put = shard_train_init(mesh, model, opt)
+        else:
+            state = TrainState(model, opt)
+        rec = StepRecorder(build_train_step())
+        cfg = WarmupConfig(max_seq_len=TRAIN_LEN, batch_size=TRAIN_BATCH,
+                           num_epochs=1, save_steps=10 ** 9,
+                           max_steps=MESH_WARMUP_STEPS, log_every=10 ** 9)
+        zero_counts()
+        run_warmup(state, rec, path, HashTokenizer(), cfg,
+                   os.path.join(root, f"warmup_{tag}"), resume=False,
+                   dropout_seed=args.seed, device_put=put)
+        check_steps(f"mesh (c) {tag}", rec, 1, MESH_WARMUP_STEPS,
+                    {"K5_ffn": 3 * layers} if dev.type == "cuda" else {})
+        runs.append(([r[1] for r in rec.records],
+                     {k: v.clone() for k, v in
+                      state.model.state_dict().items()}))
+        del state, model, opt
+    if runs[0][0] != runs[1][0]:
+        raise AssertionError(f"mesh (c): losses {runs[1][0]} != "
+                             f"{runs[0][0]}")
+    same_state_dicts("mesh (c) parameters", runs[1][1], runs[0][1])
+    phase(f"  mesh (c) warmup: {MESH_WARMUP_STEPS} steps of {TRAIN_BATCH} "
+          f"x {TRAIN_LEN} with dropout through shard_train_init and "
+          f"put_batch: losses {', '.join(f'{x:.4f}' for x in runs[1][0])} "
+          f"and parameters bit-equal to the plain run (K5 {3 * layers} a "
+          f"step in both) [{card}]")
+    return {"K5_ffn": 3 * layers * MESH_WARMUP_STEPS}
+
+
+def mesh_coco(args, dev, mesh, card):
+    """(d) a direct and a grad-cache COCO step with the span contrastive
+    over the world (axis_name) against the plain steps, with dropout."""
+    from cocodr_tpu_torch.core.configs import CocoStageConfig
+    from cocodr_tpu_torch.parallel.sharded_train import shard_train_init
+    from cocodr_tpu_torch.pipelines.coco import build_coco_train_step
+    from cocodr_tpu_torch.utils.train_state import TrainState
+
+    stage = CocoStageConfig.base()
+    bert = dataclasses.replace(stage.bert, dtype=torch.bfloat16)
+    rng = np.random.default_rng([args.seed, 18])
+    ids = rng.integers(1000, 30522, (COCO_SPANS, COCO_LEN)).astype(np.int32)
+    lens = rng.integers(COCO_LEN // 2, COCO_LEN + 1, COCO_SPANS)
+    mask = (np.arange(COCO_LEN)[None, :] < lens[:, None]).astype(np.int32)
+    ids = ids * mask
+    ids[:, 0] = 101
+    labels = np.where((rng.random(ids.shape) < 0.15) & (mask > 0), ids,
+                      -100).astype(np.int32)
+    host = {"input_ids": ids, "attention_mask": mask, "labels": labels}
+    counts = {}
+    for chunk in (0, COCO_CHUNK):
+        def run(sharded):
+            model = coco_model(args, dev, stage, bert, 18)
+            opt = stage.optimizer.build(model.parameters())
+            if sharded:
+                state, put = shard_train_init(mesh, model, opt)
+                batch = put(host)
+            else:
+                state = TrainState(model, opt)
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in host.items()}
+            m = build_coco_train_step(coco_config(stage, chunk))(
+                state, batch, args.seed)
+            return ({k: v.clone() for k, v in m.items()},
+                    {k: v.clone() for k, v in model.state_dict().items()})
+
+        name = "cache" if chunk else "direct"
+        (m0, p0), (m1, p1), c, secs = counted_pair(
+            f"(d) coco {name}", lambda: run(False), lambda: run(True),
+            ["K5_ffn"] if dev.type == "cuda" else [], dev)
+        if any(not torch.equal(m0[k], m1[k]) for k in m0):
+            raise AssertionError(f"mesh (d) {name}: metrics {m1} != {m0}")
+        same_state_dicts(f"mesh (d) {name} parameters", p1, p0)
+        counts[name] = c
+        phase(f"  mesh (d) coco {name} step ({COCO_SPANS} x {COCO_LEN}, "
+              f"dropout; chunk {chunk or 'none'}): metrics "
+              f"{ {k: round(float(v), 4) for k, v in m1.items()} } and "
+              f"parameters bit-equal to the plain step's; launches "
+              f"{ {k: v for k, v in c.items() if v} } [{card}]")
+    return counts
+
+
+def mesh_mine(args, dev, mesh, root, card):
+    """(e) mine(mesh=) against mine() over MINE_DOCS passages."""
+    from cocodr_tpu_torch.core.configs import AnceStageConfig
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+    from cocodr_tpu_torch.pipelines import ance
+
+    stage = AnceStageConfig.base()
+    bert = dataclasses.replace(stage.bert, dtype=torch.bfloat16)
+    cfg = ance.MineConfig(
+        topk_training=stage.topk_training,
+        negative_sample=stage.negative_sample, n_splits=5,
+        cluster_query=True, cluster_centroids=stage.dro.n_groups,
+        kmeans_iters=50, kmeans_redo=1, batch_size=stage.eval_batch,
+        seed=args.seed)
+    pc, tq, dq, positives, dev_qrels = write_mine_data(
+        args, root, "mesh_mine", MINE_DOCS, MINE_DOCS, MINE_TRAIN_Q,
+        MINE_DEV_Q)
+    model = build_dual_encoder(stage.model_type, bert, device=dev,
+                               generator=torch.Generator().manual_seed(
+                                   args.seed))
+
+    def run(tag, mesh_):
+        return ance.mine(model, None, pc, tq, positives, dq, dev_qrels,
+                         os.path.join(root, f"mine_{tag}"), 0, cfg,
+                         mesh=mesh_, device=dev)
+
+    m0, m1, c, secs = counted_pair(
+        "(e) mine", lambda: run("plain", None), lambda: run("mesh", mesh),
+        ["K1_ffn_block", "K2_dual_sweep", "K3_topk"]
+        if dev.type == "cuda" else [], dev)
+    a, b = (open(ance.ann_data_path(os.path.join(root, f"mine_{t}"), 0)).read()
+            for t in ("plain", "mesh"))
+    if a != b or not a:
+        raise AssertionError("mesh (e): mine(mesh=)'s ann file differs")
+    keys = [k for k in m0 if not k.startswith("time_")]
+    if any(m0[k] != m1[k] for k in keys):
+        raise AssertionError(f"mesh (e): dev metrics differ")
+    phase(f"  mesh (e) mine(mesh=): {MINE_DOCS} passages, {MINE_TRAIN_Q} "
+          f"train and {MINE_DEV_Q} dev queries: the ann file "
+          f"({len(a.splitlines())} lines) and the dev metrics equal "
+          f"mine()'s; {secs[1]:.2f} s against {secs[0]:.2f} s; launches "
+          f"{ {k: v for k, v in c.items() if v} } [{card}]")
+    return c
+
+
+def mesh_cli_start(args, dev, root):
+    """(f), started: eval-beir --mesh auto in a subprocess on the cli
+    phase's SciFact-sized task, running beside (c)-(e) -> its job."""
+    ckpt = write_cli_checkpoint(args, root)
+    rng = np.random.default_rng([args.seed, 16])
+    data = write_beir_task(rng, root, "scifact")
+    run = CliRunner(root)
+    common = [] if dev.type == "cuda" else ["--cpu-devices", "1"]
+    job = run.start([
+        "eval-beir", "--data-dir", data, "--work-dir",
+        os.path.join(root, "w_mesh"), "--checkpoint", ckpt, "--task",
+        "scifact", "--mesh", "auto"] + common)
+    return {"run": run, "job": job, "ckpt": ckpt, "data": data}
+
+
+def mesh_cli_finish(dev, root, job, card):
+    """(f), read: the subprocess's metrics and launches against eval_beir
+    in this process without a mesh."""
+    from cocodr_tpu_torch import cli as tcli
+    from cocodr_tpu_torch.data.tokenizer import load_tokenizer
+    from cocodr_tpu_torch.pipelines.eval_beir import eval_beir
+
+    secs, out, counts = job["run"].finish(
+        "eval-beir --mesh auto (beside (c)-(e))", job["job"])
+    got = json.loads(out.stdout[out.stdout.index("{"):])
+    model = tcli._load_model(job["ckpt"], "rdot_nll_condenser", dev)
+    zero_counts()
+    want = eval_beir(model, job["data"], os.path.join(root, "w_plain"),
+                     load_tokenizer(job["ckpt"]), task="scifact",
+                     device=dev)
+    plain = read_counts("mesh (f) eval_beir in this process", [])
+    if counts != plain:
+        raise AssertionError(f"mesh (f): eval-beir --mesh auto launched "
+                             f"{counts}, eval_beir here {plain}")
+    worst = max(abs(got[k] - want[k]) for k in want)
+    if got.keys() != want.keys() or worst > 1e-6:
+        raise AssertionError(f"mesh (f): metrics {got} != {want}")
+    phase(f"  mesh (f) cli eval-beir --mesh auto: {secs:.2f} s (a "
+          f"subprocess); nDCG@10 {got['ndcg_cut_10']:.4f}, every metric "
+          f"within {worst:.1e} of eval_beir without a mesh; launches "
+          f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+    return counts
+
+
+def to_host(x):
+    """A tensor or array -> a numpy array on the host."""
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def tie_moves(v, i, v0, i0):
+    """Top-k (scores, ids) [Q, k] against (v0, i0) of the same search ->
+    (max |score diff|, the rows whose ids differ). Raises unless every
+    differing position is a tie: the id's own score in the other list
+    (or, if it fell out, that list's k-th score) within GLOO_SCORE_TOL."""
+    err = float(np.abs(v.astype(np.float64) - v0.astype(np.float64)).max())
+    rows = np.flatnonzero((i != i0).any(axis=1)).tolist()
+    for r in rows:
+        for a, b, va, vb in ((i[r], i0[r], v[r], v0[r]),
+                             (i0[r], i[r], v0[r], v[r])):
+            at = {d: n for n, d in enumerate(b.tolist())}
+            for n in np.flatnonzero(a != b):
+                m = at.get(int(a[n]))
+                other = vb[m] if m is not None else vb[-1]
+                if abs(float(va[n]) - float(other)) > GLOO_SCORE_TOL:
+                    raise AssertionError(
+                        f"mesh (g): row {r}, id {int(a[n])} at {n} scores "
+                        f"{float(va[n])!r}, {float(other)!r} in the other "
+                        "list: not a tie")
+    return err, rows
+
+
+def gloo_warmup(seed, triples, ckpt_dir, dev, mesh=None):
+    """GLOO_STEPS warmup steps of TRAIN_BATCH x TRAIN_LEN without dropout
+    from the seed's weights, data-parallel over `mesh` (shard_train_init)
+    or on one device -> (losses, the parameters on the host, launches,
+    the first step's gradients after the average and the clip)."""
+    from cocodr_tpu_torch.core.configs import OptimizerConfig
+    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+    from cocodr_tpu_torch.parallel.sharded_train import shard_train_init
+    from cocodr_tpu_torch.pipelines.train_step import build_train_step
+    from cocodr_tpu_torch.pipelines.warmup import WarmupConfig, run_warmup
+    from cocodr_tpu_torch.utils.train_state import TrainState
+
+    model = build_dual_encoder(
+        "rdot_nll_condenser", BertConfig.base(dtype=torch.bfloat16),
+        device=dev, generator=torch.Generator().manual_seed(seed))
+    opt = OptimizerConfig(lr=2e-4, warmup_steps=5, total_steps=100
+                          ).build(model.parameters())
+    put = None
+    if mesh is None:
+        state = TrainState(model, opt)
+    else:
+        state, put = shard_train_init(mesh, model, opt)
+    rec = StepRecorder(build_train_step())
+    first = {}
+
+    def step(st, batch, gens):
+        out = rec(st, batch, gens)
+        if not first:
+            first.update({k: p.grad.detach().float().cpu()
+                          for k, p in st.model.named_parameters()
+                          if p.grad is not None})
+        return out
+
+    cfg = WarmupConfig(max_seq_len=TRAIN_LEN, batch_size=TRAIN_BATCH,
+                       num_epochs=1, save_steps=10 ** 9,
+                       max_steps=GLOO_STEPS, log_every=10 ** 9)
+    zero_counts()
+    run_warmup(state, step, triples, HashTokenizer(), cfg, ckpt_dir,
+               resume=False, dropout_seed=None, device_put=put)
+    counts = read_counts("mesh (g) warmup", ["K1_ffn_block"])
+    return ([r[1] for r in rec.records],
+            {k: v.detach().cpu().clone()
+             for k, v in state.model.state_dict().items()}, counts, first)
+
+
+def gloo_rank(seed, triples, work):
+    """(g), one rank of GLOO_WORLD joined over gloo on the one card
+    (core/mesh.py::spawn): the (a) searches with this rank's share of the
+    corpus, then gloo_warmup over the world -> {search: (scores, ids) by
+    method, counts, losses, digest: a CRC of the parameters' bytes, and,
+    on rank 0, the parameters}."""
+    import torch.distributed as dist
+
+    from cocodr_tpu_torch.core.mesh import MeshConfig, create_mesh
+    from cocodr_tpu_torch.parallel.topk import mips_topk_sharded
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = create_mesh(MeshConfig(), dev)
+    rank = dist.get_rank()
+    # the corpus and queries of mesh() and mesh_search, from the seed
+    corpus = make_corpus(torch.Generator(device=dev).manual_seed(seed), dev)
+    q = normed(torch.Generator(device=dev).manual_seed(seed + 18), dev,
+               SEARCH_Q, DIM)
+    out = {"search": {}, "counts": {}}
+    for method, needed in MESH_SEARCH_METHODS:
+        zero_counts()
+        v, i = mips_topk_sharded(q, corpus, SEARCH_K, mesh, method=method,
+                                 device=dev)
+        out["search"][method] = (to_host(v), to_host(i))
+        out["counts"][method] = read_counts(
+            f"mesh (g) rank {rank} {method}", needed)
+    del corpus, q
+    torch.cuda.empty_cache()
+    losses, params, out["counts"]["warmup"], grads = gloo_warmup(
+        seed, triples, os.path.join(work, "warmup"), dev, mesh)
+    crc = 0
+    for v in params.values():
+        crc = zlib.crc32(v.numpy().tobytes(), crc)
+    out.update(losses=losses, digest=crc)
+    if rank == 0:
+        out.update(params=params, grads=grads)
+    return out
+
+
+def mesh_gloo_start(args, root):
+    """(g), started: the world of GLOO_WORLD gloo processes on a thread, so
+    that it runs beside (c)-(f) -> (thread, its outcome dict)."""
+    import threading
+
+    from cocodr_tpu_torch.core.mesh import spawn
+
+    triples = write_triples(args, os.path.join(root, "gloo_triples.tsv"),
+                            TRAIN_BATCH * GLOO_STEPS)
+    work = os.path.join(root, "gloo")
+    outcome = {"triples": triples}
+
+    def run():
+        t = time.perf_counter()
+        try:
+            outcome["ranks"] = spawn(gloo_rank, GLOO_WORLD,
+                                     os.path.join(work, "store"), args.seed,
+                                     triples, work, timeout=600)
+        except BaseException as e:  # raised again by mesh_gloo_finish
+            outcome["error"] = e
+        outcome["seconds"] = time.perf_counter() - t
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, outcome
+
+
+def mesh_gloo_finish(args, dev, root, started, searched, search_counts,
+                     card):
+    """(g), read: each rank's search ids equal (a)'s up to ties and its
+    launches the plain per-shard ones; the ranks' parameters
+    bit-identical; against a world of one (gloo_warmup in this process on
+    the same data, while the world runs) the first step's loss and
+    averaged gradients by compare_step's bounds, every step's loss within
+    CMP_LOSS_RTOL; the parameters' largest difference reported."""
+    from cocodr_tpu_torch.models.bert import BertConfig
+
+    thread, outcome = started
+    losses1, params1, counts1, grads1 = gloo_warmup(
+        args.seed, outcome["triples"], os.path.join(root, "gloo_one"), dev)
+    layers = BertConfig.base().num_hidden_layers
+    check_counts("mesh (g) world of one", counts1,
+                 {"K1_ffn_block": 3 * layers * GLOO_STEPS})
+    thread.join(660)
+    if thread.is_alive():
+        raise AssertionError("mesh (g): the gloo world has not ended")
+    if "error" in outcome:
+        raise AssertionError("mesh (g): the gloo world failed") \
+            from outcome["error"]
+    ranks = outcome["ranks"]
+    score_err, tied = 0.0, {}
+    for r, res in enumerate(ranks):
+        for method, _ in MESH_SEARCH_METHODS:
+            v, i = res["search"][method]
+            err, rows = tie_moves(v, i, *searched[method])
+            phase(f"  mesh (g) rank {r} {method}: scores max |diff| "
+                  f"{err:.3e} against (a)'s, {len(rows)} rows whose ids "
+                  f"differ (rows {rows[:8]})")
+            if err > GLOO_SCORE_TOL:
+                raise AssertionError(f"mesh (g) rank {r} {method}: scores "
+                                     f"{err:.3e} off (a)'s")
+            score_err = max(score_err, err)
+            tied[method] = len(rows)
+            check_counts(f"mesh (g) rank {r} {method}",
+                         res["counts"][method], search_counts[method])
+        check_counts(f"mesh (g) rank {r} warmup", res["counts"]["warmup"],
+                     counts1)
+    if len({res["digest"] for res in ranks}) != 1:
+        raise AssertionError("mesh (g): the ranks' parameters differ")
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(ranks[0]["losses"], losses1))
+    rel, glob, gworst, gcos = step_agreement(
+        ranks[0]["losses"][0], ranks[0]["grads"], losses1[0], grads1)
+    worst = max(params1, key=lambda k: (ranks[0]["params"][k].float()
+                                        - params1[k].float()).abs().max())
+    p_err = (ranks[0]["params"][worst].float()
+             - params1[worst].float()).abs().max().item()
+    phase(f"  mesh (g) {GLOO_WORLD} gloo processes on the one card, "
+          f"{outcome['seconds']:.2f} s beside (c)-(f): the searches' ids "
+          f"equal (a)'s on every rank up to ties within {GLOO_SCORE_TOL} "
+          f"(rows reordered by them {tied}; scores max |diff| "
+          f"{score_err:.3e}), launches as (a)'s; {GLOO_STEPS} warmup "
+          f"steps of {TRAIN_BATCH} x {TRAIN_LEN} without dropout, the "
+          f"ranks' parameters bit-equal, "
+          f"losses {', '.join(f'{x:.6f}' for x in ranks[0]['losses'])} "
+          f"against a world of one's "
+          f"{', '.join(f'{x:.6f}' for x in losses1)} (rel {loss_err:.2e}, "
+          f"bound {CMP_LOSS_RTOL}); the first step's averaged, clipped "
+          f"gradients: cosine {glob:.6f} (bound {CMP_GLOBAL_COSINE}), "
+          f"worst tensor {gworst} {gcos:.6f} (bound {CMP_TENSOR_COSINE}); "
+          f"parameters after step {GLOO_STEPS} max |diff| {p_err:.3e} in "
+          f"{worst}; launches {counts1} a rank [{card}]")
+    if not (steps_agree(rel, glob, gcos) and loss_err <= CMP_LOSS_RTOL):
+        raise AssertionError("mesh (g): the world of two strays from the "
+                             "world of one")
+    return counts1
+
+
+def mesh(args, dev):
+    """Phase 18: the data-parallel paths on a world of one nccl process
+    (core/mesh.py::create_mesh makes it; the card's machine has one card),
+    each forced through its sharded code even at W = 1 and held against
+    the plain path: (a) the sharded search, (b) the sharded service, (c)
+    warmup through shard_train_init, (d) the COCO steps with the span
+    contrastive over the world, (e) mine(mesh=), (f) eval-beir --mesh auto
+    in a subprocess; on the card also (g), a world of two gloo processes
+    beside (c)-(f). Each path's launch counts equal the plain path's."""
+    import torch.distributed as dist
+
+    from cocodr_tpu_torch.core.mesh import MeshConfig, create_mesh
+
+    card = nvidia_smi()
+    mesh_ = create_mesh(MeshConfig(), dev)
+    backend = dist.get_backend()
+    if dev.type == "cuda" and backend != "nccl":
+        raise AssertionError(f"mesh: backend {backend} on the card")
+    phase(f"  mesh: a world of {dist.get_world_size()} ({backend}), mesh "
+          f"{tuple(mesh_.shape)} {mesh_.mesh_dim_names}")
+    counts = {}
+    try:
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        corpus = make_corpus(gen, dev)
+        counts["search"], searched = mesh_search(args, dev, mesh_, corpus,
+                                                 card)
+        counts["serve"] = mesh_serve(args, dev, mesh_, corpus, card)
+        del corpus
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as root, \
+                contextlib.ExitStack() as stack:
+            # (f) and (g) run beside (c)-(e)
+            job = mesh_cli_start(args, dev, root)
+            stack.callback(job["run"].kill_all)
+            gloo = (mesh_gloo_start(args, root) if dev.type == "cuda"
+                    else None)
+            counts["warmup"] = mesh_warmup(args, dev, mesh_, root, card)
+            torch.cuda.empty_cache()
+            counts["coco"] = mesh_coco(args, dev, mesh_, card)
+            torch.cuda.empty_cache()
+            counts["mine"] = mesh_mine(args, dev, mesh_, root, card)
+            torch.cuda.empty_cache()
+            counts["cli"] = mesh_cli_finish(dev, root, job, card)
+            if gloo is not None:
+                counts["gloo"] = mesh_gloo_finish(
+                    args, dev, root, gloo, searched, counts["search"], card)
+    finally:
+        dist.destroy_process_group()
+    return counts
+
+
 PHASES = ["kernels", "search", "serve", "encode", "train", "eval",
           "ance-train", "ance-mine", "coco", "variants", "recipe", "http",
-          "ivf", "cli", "cli-recipe"]
+          "ivf", "cli", "cli-recipe", "mesh"]
 
 
 def main() -> None:
@@ -6758,7 +7437,7 @@ def main() -> None:
                      ("ance-mine", ance_mine), ("coco", coco),
                      ("variants", variants), ("recipe", recipe),
                      ("http", http), ("ivf", ivf), ("cli", cli),
-                     ("cli-recipe", cli_recipe)):
+                     ("cli-recipe", cli_recipe), ("mesh", mesh)):
         if name not in run:
             continue
         clock.start(name)

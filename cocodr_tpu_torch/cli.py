@@ -34,9 +34,22 @@ port reads no orbax checkpoint). Commands that compute run on the card;
 versions. The model computes in bf16 on the card (the kernels' dtype) and
 in float32 on the CPU (the JAX CLI's dtype); parameters and optimizer
 state are float32. `--compile-cache` and coco's `--dropout-rng` are
-accepted for the JAX command lines and have no effect. `--mesh`,
-`--distributed` and `--cpu-devices` above 1 raise: ROADMAP.md Queue 1
-item 11a.
+accepted for the JAX command lines and have no effect.
+
+Several devices (core/mesh.py): `--mesh DATAxMODEL|auto` runs a command
+data-parallel over a world of processes, one a device. `--distributed`
+joins the world torchrun made (`torchrun --nproc-per-node N -m
+cocodr_tpu_torch.cli CMD ... --distributed --mesh auto`: nccl, a card a
+process); `--cpu-devices N` with N > 1 and a mesh spawns N CPU processes
+over gloo (the JAX CLI's N virtual CPU devices); a mesh alone makes a
+world of one. Every rank reads the same inputs; over a mesh rank 0 alone
+prints and writes files (core/mesh.py::is_writer), while without one
+each process of a --distributed world runs the command on its own card,
+as each process of the JAX CLI does. `serve` over a mesh answers through rank 0, which sends
+each query batch to the other ranks (pipelines/serve.py::Lockstep): its
+REPL reads rank 0's stdin, which a spawned CPU rank does not have, so
+there use --queries or --http. A model axis above 1 raises (ROADMAP.md
+Queue 1 item 11c).
 """
 from __future__ import annotations
 
@@ -60,15 +73,15 @@ def _add_common(p):
                         "ignored: the port has no compile cache (its kernels "
                         "are built once per checkout by nvcc)")
     p.add_argument("--mesh", default=None,
-                   help="a device mesh: not ported yet (ROADMAP.md Queue 1 "
-                        "item 11a)")
+                   help="device mesh 'DATAxMODEL' (e.g. 8x1) or 'auto' for "
+                        "all devices data-parallel; default single-device")
     p.add_argument("--cpu-devices", type=int, default=0,
-                   help="1: run on the CPU through the kernels' plain "
-                        "versions (default: the card); more than one device "
-                        "is not ported yet (ROADMAP.md Queue 1 item 11a)")
+                   help="run on the CPU through the kernels' plain versions "
+                        "(default: the card); N > 1 with --mesh spawns N "
+                        "CPU processes joined over gloo")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host: not ported yet (ROADMAP.md Queue 1 "
-                        "item 11a)")
+                   help="join the world torchrun describes (RANK, "
+                        "WORLD_SIZE, LOCAL_RANK, MASTER_ADDR/PORT)")
     p.add_argument("--log-dir", default=None,
                    help="TensorBoard + JSONL metrics directory")
     p.add_argument("--profile-dir", default=None,
@@ -77,19 +90,45 @@ def _add_common(p):
 
 
 def _device(args):
-    """--cpu-devices / --mesh / --distributed -> the torch device."""
+    """--cpu-devices / --distributed -> the torch device: the CPU, or the
+    card (this rank's under torchrun, whose world main() has joined)."""
     import torch
 
-    if args.mesh or args.distributed or args.cpu_devices > 1:
-        raise NotImplementedError(
-            "--mesh, --distributed and --cpu-devices > 1 are not ported "
-            "yet: ROADMAP.md Queue 1 item 11a (parallel/*)"
-        )
-    if args.cpu_devices == 1:
+    if args.cpu_devices >= 1:
         return torch.device("cpu")
     from cocodr_tpu_torch.ops._device import resolve_device
 
-    return resolve_device("cuda")
+    dev = resolve_device("cuda")
+    if getattr(args, "distributed", False):
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _build_mesh(args, dev):
+    """--mesh spec -> a DeviceMesh over the world (core/mesh.py), or None
+    for single-device."""
+    spec = getattr(args, "mesh", None)
+    if not spec:
+        return None
+    from cocodr_tpu_torch.core.mesh import MeshConfig, create_mesh, is_writer
+
+    if spec == "auto":
+        cfg = MeshConfig()
+    else:
+        try:
+            d, m = spec.lower().split("x")
+            cfg = MeshConfig(data=int(d), model=int(m))
+        except ValueError:
+            raise SystemExit(
+                f"bad --mesh '{spec}': expected DATAxMODEL or auto")
+    mesh = create_mesh(cfg, dev)
+    if not is_writer(mesh):  # rank 0 alone prints
+        sys.stdout = open(os.devnull, "w")
+    return mesh
+
+
+# how long a spawned CPU world may run (a command's whole run)
+_WORLD_TIMEOUT = 30 * 86400.0
 
 
 def _parse_buckets(spec):
@@ -99,8 +138,10 @@ def _parse_buckets(spec):
     return tuple(int(x) for x in spec.split(","))
 
 
-def _metrics_logger(args):
-    if not getattr(args, "log_dir", None):
+def _metrics_logger(args, mesh=None):
+    from cocodr_tpu_torch.core.mesh import is_writer
+
+    if not getattr(args, "log_dir", None) or not is_writer(mesh):
         return None
     from cocodr_tpu_torch.utils.logging import MetricsLogger
 
@@ -111,8 +152,8 @@ def _metrics_logger(args):
     )
 
 
-def _log(args, metrics):
-    logger = _metrics_logger(args)
+def _log(args, metrics, mesh=None):
+    logger = _metrics_logger(args, mesh)
     if logger is not None:
         logger.log(0, metrics, prefix=f"{args.cmd}/")
         logger.close()
@@ -262,6 +303,7 @@ def cmd_encode(args):
     writes one row a chunk and the row -> record map as OUT.rows.npy."""
     import numpy as np
 
+    from cocodr_tpu_torch.core.mesh import is_writer
     from cocodr_tpu_torch.data.records import TokenCache
     from cocodr_tpu_torch.pipelines.encode import (
         EncodeConfig,
@@ -271,10 +313,11 @@ def cmd_encode(args):
     )
 
     dev = _device(args)
+    mesh = _build_mesh(args, dev)
     model = _load_model(args.checkpoint, args.model_type, dev,
                         int8_encode=args.int8_encode)
     cache = TokenCache(args.records)
-    enc = Encoder(model, is_query=args.queries,
+    enc = Encoder(model, mesh=mesh, is_query=args.queries,
                   noise_level=args.noise_level, device=dev)
     del model
     ecfg = EncodeConfig(batch_size=args.batch_size,
@@ -284,14 +327,16 @@ def cmd_encode(args):
     if chunk_len and cache.max_len > chunk_len:
         emb, row2doc = encode_cache_multivector(enc, cache, ecfg,
                                                 chunk_len=chunk_len)
-        np.save(args.out + ".rows.npy", row2doc)
+        if is_writer(mesh):
+            np.save(args.out + ".rows.npy", row2doc)
     else:
         emb = encode_cache(enc, cache, ecfg)
     seconds = time.perf_counter() - t0
-    np.save(args.out + ".tmp.npy", emb)
-    os.replace(args.out + ".tmp.npy", args.out)
+    if is_writer(mesh):
+        np.save(args.out + ".tmp.npy", emb)
+        os.replace(args.out + ".tmp.npy", args.out)
     _log(args, {"records": len(cache), "seconds": seconds,
-                "records_per_s": len(cache) / max(seconds, 1e-9)})
+                "records_per_s": len(cache) / max(seconds, 1e-9)}, mesh)
     print(json.dumps({
         "out": args.out, "n": int(emb.shape[0]), "dim": int(emb.shape[1]),
     }))
@@ -332,8 +377,8 @@ def _serve_bulk(args, service):
     t0 = time.perf_counter()
     qi = 0
     with contextlib.ExitStack() as stack:
-        out = (stack.enter_context(open(args.output, "w")) if args.output
-               else sys.stdout)
+        out = (stack.enter_context(open(args.output, "w"))
+               if args.output else sys.stdout)
         for vals, ids in service.search_stream(batches,
                                                depth=args.stream_depth):
             for r in range(len(ids)):
@@ -355,9 +400,15 @@ def cmd_serve(args):
     `encode`) or are encoded at startup from --records."""
     import numpy as np
 
-    from cocodr_tpu_torch.pipelines.serve import RetrievalService, ServeConfig
+    from cocodr_tpu_torch.core.mesh import is_writer
+    from cocodr_tpu_torch.pipelines.serve import (
+        Lockstep,
+        RetrievalService,
+        ServeConfig,
+    )
 
     dev = _device(args)
+    mesh = _build_mesh(args, dev)
     model = _load_model(args.checkpoint, args.model_type, dev,
                         int8_encode=args.int8_encode)
     tokenizer = _load_tokenizer(args.tokenizer or args.checkpoint)
@@ -372,7 +423,7 @@ def cmd_serve(args):
         )
 
         corpus_emb = encode_cache(
-            Encoder(model, is_query=False, device=dev),
+            Encoder(model, mesh=mesh, is_query=False, device=dev),
             TokenCache(args.records), EncodeConfig(batch_size=args.batch_size))
     doc_ids = None
     if args.id_map:
@@ -380,16 +431,28 @@ def cmd_serve(args):
 
         off2id = {v: k for k, v in load_id_map(args.id_map).items()}
         doc_ids = [off2id.get(i, i) for i in range(corpus_emb.shape[0])]
-    service = RetrievalService(
+    # over a mesh, rank 0 sends each query batch to the other ranks
+    service = (RetrievalService if mesh is None else Lockstep)(
         model, tokenizer, corpus_emb, doc_ids=doc_ids,
         cfg=ServeConfig(top_k=args.top_k, fast_search=args.fast,
                         quantize_int8=args.int8, exact_fp32=args.exact_fp32,
                         ivf=args.search_method == "ivf",
                         ivf_nprobe=args.ivf_nprobe),
-        device=dev,
+        mesh=mesh, device=dev,
     )
     del model
     n_docs = int(corpus_emb.shape[0])
+    if mesh is not None:
+        if not is_writer(mesh):
+            return service.follow()
+        try:
+            return _serve_modes(args, service, n_docs)
+        finally:
+            service.close()
+    return _serve_modes(args, service, n_docs)
+
+
+def _serve_modes(args, service, n_docs):
     if args.http:
         return _serve_http(args, service, n_docs)
     if args.queries:
@@ -431,28 +494,30 @@ def cmd_presets(args):
 def cmd_eval_beir(args):
     """A BEIR task directory -> nDCG / recall / MRR (the reference's 3-stage
     eval pipeline); records are tokenized into --work-dir on first use."""
+    from cocodr_tpu_torch.core.mesh import is_writer
     from cocodr_tpu_torch.pipelines.eval_beir import eval_beir
 
     dev = _device(args)
+    mesh = _build_mesh(args, dev)
     model = _load_model(args.checkpoint, args.model_type, dev,
                         int8_encode=args.int8_encode)
     tokenizer = _load_tokenizer(args.tokenizer or args.checkpoint)
     task = args.task or os.path.basename(os.path.normpath(args.data_dir))
     metrics = eval_beir(
         model, args.data_dir, args.work_dir, tokenizer, task=task,
-        device=dev, batch_size=args.batch_size, top_k=args.top_k,
+        mesh=mesh, device=dev, batch_size=args.batch_size, top_k=args.top_k,
         exact_fp32=args.exact_fp32,
         length_buckets=_parse_buckets(args.length_buckets),
         search_method=args.search_method, ivf_nprobe=args.ivf_nprobe,
         **_len_kw(args))
-    if args.result_dir:
+    if args.result_dir and is_writer(mesh):
         # the per-BEIR-task group curves the ANCE trainer reads
         # (reference ANCE/drivers/run_ann.py:270-284)
         from cocodr_tpu_torch.pipelines.ance import write_group_ndcg
 
         write_group_ndcg(args.result_dir, task, args.result_num,
                          metrics["ndcg_cut_10"], checkpoint=args.checkpoint)
-    logger = _metrics_logger(args)
+    logger = _metrics_logger(args, mesh)
     if logger:
         logger.log(args.result_num, metrics, prefix=f"beir/{task}/")
         logger.close()
@@ -616,13 +681,14 @@ def cmd_warmup(args):
         build_train_step,
     )
     from cocodr_tpu_torch.pipelines.warmup import WarmupConfig, run_warmup
-    from cocodr_tpu_torch.utils.train_state import TrainState
 
     cfg = _preset(args, WarmupStageConfig.base)
     dev = _device(args)
+    mesh = _build_mesh(args, dev)
     model = _load_model(args.checkpoint, cfg.model_type, dev)
     tokenizer = _load_tokenizer(args.tokenizer or args.checkpoint)
-    state = TrainState(model, cfg.optimizer.build(model.parameters()))
+    state, device_put = _train_state(mesh, model,
+                                     cfg.optimizer.build(model.parameters()))
     step = build_train_step(TrainStepConfig(loss_kind="nll"))
     eval_fn = _warmup_eval(args, model, dev) if args.eval_data_dir else None
     wcfg = WarmupConfig(
@@ -634,18 +700,31 @@ def cmd_warmup(args):
         eval_every_steps=args.eval_every,
         log_every=args.log_every,
     )
-    logger = _metrics_logger(args)
+    logger = _metrics_logger(args, mesh)
     saver = _saver(args)
     log_fn = _step_logger(logger, "warmup/", "triplets", wcfg.batch_size,
                           _resume_step(args.ckpt_dir))
     run_warmup(state, step, args.triples, tokenizer, wcfg, args.ckpt_dir,
                eval_fn=eval_fn, log_fn=log_fn,
                dropout_seed=None if args.no_dropout else args.seed,
-               saver=saver)
+               saver=saver, device_put=device_put)
     if saver:
         saver.close()
     if logger:
         logger.close()
+
+
+def _train_state(mesh, model, optimizer, extra=None):
+    """-> (TrainState, device_put): data-parallel over a mesh
+    (parallel/sharded_train.py::shard_train_init), else one device's state
+    and None."""
+    if mesh is not None:
+        from cocodr_tpu_torch.parallel.sharded_train import shard_train_init
+
+        return shard_train_init(mesh, model, optimizer, extra=extra)
+    from cocodr_tpu_torch.utils.train_state import TrainState
+
+    return TrainState(model, optimizer, extra=extra), None
 
 
 def _int8_variant(model):
@@ -747,18 +826,18 @@ def _ance_setup(args):
     from cocodr_tpu_torch.data.records import TokenCache, load_qrels
     from cocodr_tpu_torch.losses.dro import dro_greedy_init
     from cocodr_tpu_torch.utils.train_state import (
-        TrainState,
         latest_checkpoint,
         load_checkpoint,
     )
 
     cfg = _ance_config(args)
     dev = _device(args)
+    mesh = _build_mesh(args, dev)
     model = _load_model(args.checkpoint, cfg.model_type, dev)
     extra = (dro_greedy_init(cfg.dro, device=dev)
              if cfg.loss_kind != "nll" else None)
-    state = TrainState(model, cfg.optimizer.build(model.parameters()),
-                       extra=extra)
+    state, device_put = _train_state(
+        mesh, model, cfg.optimizer.build(model.parameters()), extra)
     if not args.no_resume:
         ck = latest_checkpoint(args.ckpt_dir)
         if ck:
@@ -771,7 +850,7 @@ def _ance_setup(args):
     train_qrels = load_qrels(os.path.join(d, "train-qrel.tsv"))
     positives = {q: max(docs, key=docs.get) for q, docs in train_qrels.items()}
     dev_qrels = load_qrels(os.path.join(d, "dev-qrel.tsv"))
-    return cfg, dev, state, caches, positives, dev_qrels
+    return cfg, dev, state, caches, positives, dev_qrels, device_put
 
 
 def _ance_step(cfg):
@@ -794,12 +873,13 @@ def cmd_ance(args):
     from cocodr_tpu_torch.pipelines.ance import ance_round, get_latest_ann_data
     from cocodr_tpu_torch.utils.train_state import save_checkpoint
 
-    cfg, dev, state, caches, positives, dev_qrels = _ance_setup(args)
+    cfg, dev, state, caches, positives, dev_qrels, device_put = \
+        _ance_setup(args)
     step = _ance_step(cfg)
     batcher = TripletBatcher(caches["train-query"], caches["passages"])
     mine_cfg = _mine_config(args, cfg)
     mine_model = _int8_variant(state.model) if args.int8_encode else None
-    logger = _metrics_logger(args)
+    logger = _metrics_logger(args, state.mesh)
     work_dir = os.path.join(args.ckpt_dir, "ann_data")
     # resume at the round after the newest ann file (the reference's
     # restarts find the newest checkpoint and ann data the same way,
@@ -815,7 +895,8 @@ def cmd_ance(args):
             mine_cfg, batch_size=args.batch_size or cfg.per_device_batch,
             steps_per_round=args.steps_per_round,
             dropout_seed=None if args.no_dropout else args.seed,
-            device=dev, mine_model=mine_model)
+            mesh=state.mesh, device_put=device_put, device=dev,
+            mine_model=mine_model)
         rec = {"round": rnd, "steps": steps,
                **{k: float(v) for k, v in dev_metrics.items()},
                "seconds": time.perf_counter() - t0}
@@ -836,7 +917,7 @@ def cmd_ance_mine(args):
         mine_loop,
     )
 
-    cfg, dev, state, caches, positives, dev_qrels = _ance_setup(args)
+    cfg, dev, state, caches, positives, dev_qrels, _ = _ance_setup(args)
     model = _int8_variant(state.model) if args.int8_encode else state.model
     mine_loop(
         model, checkpoint_params_loader(args.ckpt_dir, state),
@@ -845,7 +926,7 @@ def cmd_ance_mine(args):
         passage_cache=caches["passages"],
         train_query_cache=caches["train-query"], train_positives=positives,
         dev_query_cache=caches["dev-query"], dev_qrels=dev_qrels,
-        cfg=_mine_config(args, cfg), device=dev)
+        cfg=_mine_config(args, cfg), mesh=state.mesh, device=dev)
 
 
 def cmd_ance_train(args):
@@ -854,8 +935,9 @@ def cmd_ance_train(args):
     from cocodr_tpu_torch.data.streams import TripletBatcher
     from cocodr_tpu_torch.pipelines.ance import train_loop
 
-    cfg, dev, state, caches, positives, dev_qrels = _ance_setup(args)
-    logger = _metrics_logger(args)
+    cfg, dev, state, caches, positives, dev_qrels, device_put = \
+        _ance_setup(args)
+    logger = _metrics_logger(args, state.mesh)
     saver = _saver(args)
     t0 = time.perf_counter()
 
@@ -876,7 +958,7 @@ def cmd_ance_train(args):
         resume=not args.no_resume,
         dropout_seed=None if args.no_dropout else args.seed,
         metrics_logger=logger, group_result_dir=args.result_dir,
-        saver=saver)
+        saver=saver, device_put=device_put)
     if saver:
         saver.close()
     if logger:
@@ -1070,13 +1152,13 @@ def cmd_coco(args):
         run_coco_pretrain,
     )
     from cocodr_tpu_torch.utils.train_state import (
-        TrainState,
         latest_checkpoint,
         load_checkpoint,
     )
 
     cfg = _preset(args, CocoStageConfig.base)
     dev = _device(args)
+    mesh = _build_mesh(args, dev)
     model = _load_condenser(args.checkpoint, cfg, dev, args.seed)
     tokenizer = _load_tokenizer(args.tokenizer or args.checkpoint)
     collator = CoCondenserCollator(
@@ -1095,7 +1177,8 @@ def cmd_coco(args):
         opt_cfg = dataclasses.replace(
             opt_cfg, warmup_steps=cfg.warmup_steps_for(total_steps),
             total_steps=total_steps)
-    state = TrainState(model, opt_cfg.build(model.parameters()))
+    state, device_put = _train_state(mesh, model,
+                                     opt_cfg.build(model.parameters()))
     # resume from the newest DONE checkpoint (the reference resumes through
     # the HF Trainer's model_path, COCO/run_coco_pre_training.py:146-152)
     if not args.no_resume and args.ckpt_dir:
@@ -1109,7 +1192,7 @@ def cmd_coco(args):
     step = build_coco_train_step(CocoConfig(
         cache_chunk_size=args.cache_chunk_size,
         max_grad_norm=opt_cfg.max_grad_norm))
-    logger = _metrics_logger(args)
+    logger = _metrics_logger(args, mesh)
     saver = _saver(args)
     log_fn = _step_logger(logger, "coco/", "spans", 2 * docs_per_batch,
                           state.step)
@@ -1117,7 +1200,8 @@ def cmd_coco(args):
     run_coco_pretrain(state, step, batches, args.seed,
                       max_steps=args.max_steps, log_fn=log_fn,
                       log_every=args.log_every, ckpt_dir=args.ckpt_dir,
-                      save_steps=args.save_steps, saver=saver)
+                      save_steps=args.save_steps, saver=saver,
+                      device_put=device_put)
     if saver:
         saver.close()
     if logger:
@@ -1421,6 +1505,24 @@ def main(argv=None):
     sp.set_defaults(fn=cmd_convert_hf)
 
     args = p.parse_args(argv)
+    if getattr(args, "distributed", False):
+        from cocodr_tpu_torch.core.mesh import init_world
+
+        init_world("gloo" if getattr(args, "cpu_devices", 0) else None)
+    elif getattr(args, "cpu_devices", 0) > 1 and getattr(args, "mesh", None):
+        import torch.distributed as dist
+
+        if not dist.is_initialized():  # the launcher: spawn the ranks
+            from cocodr_tpu_torch.core.mesh import spawn
+
+            store = tempfile.mkdtemp(prefix="cocodr-world-")
+            try:
+                spawn(main, args.cpu_devices, store,
+                      sys.argv[1:] if argv is None else list(argv),
+                      timeout=_WORLD_TIMEOUT)
+            finally:
+                shutil.rmtree(store, ignore_errors=True)
+            return 0
     if getattr(args, "profile_dir", None):
         from cocodr_tpu_torch.utils.logging import profile_trace
 

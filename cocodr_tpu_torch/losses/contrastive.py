@@ -6,15 +6,17 @@ Each document contributes two consecutive spans, so the targets pair rows
 batch is a candidate, the span itself excepted (its column is set to
 -inf). The similarity is a float32 [B, B] product of the CLS embeddings.
 
-The explicit-collective form of the JAX package (`axis_name=`, the
-all-gathered candidates of a shard_map) waits for the multi-device port:
-ROADMAP.md Queue 1 item 11.
+With `axis_name` (a process group, or a DeviceMesh's data axis) each
+rank scores its own rows against the candidates all-gathered from every
+rank (the JAX package's shard_map form, reference COCO/modeling.py:182-190,
+244-248), through a differentiable all-gather.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 
@@ -29,13 +31,20 @@ def co_contrastive_loss(cls_emb: torch.Tensor, axis_name: Optional[str] = None,
     """Contrastive loss over span CLS embeddings [B, D] (two consecutive
     spans a document): the mean over rows of the cross-entropy of each
     row's float32 similarities, its own column masked to -inf, against
-    its pair's column; reduction="none" gives the [B] per-row losses."""
+    its pair's column; reduction="none" gives the [B] per-row losses.
+
+    With axis_name, cls_emb is this rank's [B_local, D] rows (B_local
+    even: pairs never straddle ranks); its candidates are every rank's
+    rows, all-gathered with gradients (torch.distributed.nn), and its
+    targets and masked column are offset by rank * B_local. The value is
+    the mean over ranks of the ranks' means (JAX's pmean); the gradient is
+    that of this rank's own mean, whose all-gather backward sums every
+    rank's term into each rank's rows: W times the global mean's
+    gradient, which a data-parallel step's mean all-reduce of the
+    parameter gradients divides by W again (DDP's convention,
+    parallel/sharded_train.py)."""
     if axis_name is not None:
-        raise NotImplementedError(
-            "co_contrastive_loss(axis_name=...) (candidates gathered over "
-            "devices) is not ported yet: ROADMAP.md Queue 1 item 11 "
-            "(multi-device)"
-        )
+        return _gathered_loss(cls_emb.float(), axis_name, reduction)
     f32 = cls_emb.float()
     n = f32.shape[0]
     sim = f32 @ f32.T
@@ -46,3 +55,28 @@ def co_contrastive_loss(cls_emb: torch.Tensor, axis_name: Optional[str] = None,
     if reduction == "none":
         return loss
     return loss.mean()
+
+
+def _gathered_loss(f32, axis, reduction):
+    import torch.distributed.nn.functional as dist_nn
+
+    from cocodr_tpu_torch.core.mesh import axis_group
+
+    group = axis_group(axis)
+    W = dist.get_world_size(group)
+    B = f32.shape[0]
+    off = dist.get_rank(group) * B
+    cands = torch.cat(dist_nn.all_gather(f32, group=group))
+    sim = f32 @ cands.T
+    rows = torch.arange(B, device=f32.device)
+    own = torch.zeros(sim.shape, dtype=torch.bool, device=f32.device)
+    own[rows, off + rows] = True
+    sim = sim.masked_fill(own, float("-inf"))
+    loss = F.cross_entropy(sim, off + flipped_pair_targets(B, f32.device),
+                           reduction="none")
+    if reduction == "none":
+        return loss
+    local = loss.mean()
+    mean = local.detach().clone()
+    dist.all_reduce(mean, group=group)
+    return local + (mean / W - local.detach())

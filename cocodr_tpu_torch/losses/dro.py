@@ -14,9 +14,11 @@ the step's own graph. The JAX package batches those G pullbacks with
 `vmap`; the port's kernels (K1, K5, K8) are launched inside
 `torch.autograd.Function`s that `torch.func.vmap` cannot batch through.
 
-`axis_name` (the JAX package's all-gather / psum over a mesh axis) has no
-single-device meaning: passing one raises, naming ROADMAP.md Queue 1
-item 11.
+`axis_name` (a process group, or a DeviceMesh's data axis) is the JAX
+package's collective form: DRO-greedy all-gathers the groups and the
+detached losses before the group statistics, iDRO sums the per-group
+gradients, the counts and the weighted group losses over the ranks, so
+that every rank computes the same new DroState.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cocodr_tpu_torch.core.mesh import gather_rows, psum
 from cocodr_tpu_torch.ops._device import resolve_device
 
 # columns of the [G, P] rows a Gram or norm pass turns to float32 at a time
@@ -67,12 +70,6 @@ def dro_greedy_init(cfg: DroConfig, device="cuda") -> DroState:
 idro_init = dro_greedy_init
 
 
-def _no_axis(axis_name):
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name (a reduction over a mesh axis) is not ported yet: "
-            "ROADMAP.md Queue 1 item 11 (parallel/*)"
-        )
 
 
 def _onehot(groups, n: int):
@@ -119,8 +116,9 @@ def dro_greedy_loss(losses, groups, state: DroState, cfg: DroConfig,
     losses [B] per sample (gradients flow), groups [B] int, weights [B]
     optional. -> (robust_loss, new_state, (group_losses, group_counts)),
     the group statistics being this batch's means and counts, as the
-    reference returns them."""
-    _no_axis(axis_name)
+    reference returns them. With axis_name the state's statistics come
+    from every rank's groups and detached losses, all-gathered; the
+    returned statistics stay this rank's."""
     if weights is not None:
         losses = losses * weights
     B = losses.shape[0]
@@ -132,17 +130,26 @@ def dro_greedy_loss(losses, groups, state: DroState, cfg: DroConfig,
     means = _segment_sum(l_det, groups, G) / counts.clamp_min(1.0)
     new_state = state
     if training:
+        counts_agg, means_agg = counts, means
+        if axis_name is not None:
+            s_agg = gather_rows(torch.as_tensor(groups, device=l_det.device),
+                                axis_name)
+            l_agg = gather_rows(l_det, axis_name)
+            counts_agg = _segment_sum(torch.ones_like(l_agg), s_agg, G)
+            means_agg = (_segment_sum(l_agg, s_agg, G)
+                         / counts_agg.clamp_min(1.0))
         sum_losses = torch.where(
-            counts > 0, state.sum_losses * (1 - cfg.ema) + means * cfg.ema,
+            counts_agg > 0,
+            state.sum_losses * (1 - cfg.ema) + means_agg * cfg.ema,
             state.sum_losses)
-        count_cat = state.count_cat * (1 - cfg.ema) + counts * cfg.ema
+        count_cat = state.count_cat * (1 - cfg.ema) + counts_agg * cfg.ema
         interim = DroState(state.h_fun, sum_losses, count_cat)
         new_state = interim.replace(h_fun=_greedy_h_fun(cfg, interim))
     return robust, new_state, (means, counts)
 
 
 def per_group_grads(losses, params: Sequence[torch.Tensor], groups,
-                    n_groups: int, store_dtype=None):
+                    n_groups: int, store_dtype=None, counts=None):
     """Gradients of each group's mean loss against `params`, flattened ->
     [G, P] (P the params' total size), in store_dtype (default float32).
 
@@ -156,16 +163,21 @@ def per_group_grads(losses, params: Sequence[torch.Tensor], groups,
     at a time beside the [G, P] rows; the JAX lane pass's chunks
     (`lane_chunk`) bound the products its vmap holds at once and have no
     counterpart here. A group with no sample in the batch keeps a zero row
-    without a product (its JAX row is exactly zero)."""
+    without a product (its JAX row is exactly zero).
+
+    counts [G]: the denominators of the cotangents in place of this
+    batch's counts; a data-parallel step passes the counts of the global
+    batch, so that the sum of the ranks' rows is the global batch's row."""
     params = list(params)
     onehot = _onehot(groups, n_groups).to(losses.device)  # [B, G]
-    counts = onehot.sum(0)
-    cotangents = (onehot / counts.clamp_min(1.0)).t().to(losses.dtype)
+    present = onehot.sum(0)
+    denom = present if counts is None else counts
+    cotangents = (onehot / denom.clamp_min(1.0)).t().to(losses.dtype)
     sizes = [p.numel() for p in params]
     out = torch.zeros((n_groups, sum(sizes)),
                       dtype=store_dtype or torch.float32,
                       device=losses.device)
-    for g in torch.nonzero(counts > 0).flatten().tolist():
+    for g in torch.nonzero(present > 0).flatten().tolist():
         row = torch.autograd.grad(losses, params, grad_outputs=cotangents[g],
                                   retain_graph=True, allow_unused=True)
         off = 0
@@ -213,8 +225,13 @@ def idro_loss(losses, groups, state: DroState, cfg: DroConfig,
     Gram matrix): the update reads the gradients only through their norms
     and normalised inner products. The robust loss uses the PRE-update
     h_fun; the new weights apply from the next step (the torch module's
-    buffer semantics)."""
-    _no_axis(axis_name)
+    buffer semantics).
+
+    With axis_name the rows, the counts and the count-weighted group
+    losses are summed over the ranks before the update (the returned
+    statistics are those sums), as the reference all-reduces its
+    gradients (dro_loss.py:232); the Gram form refuses an axis, the Gram
+    of a sum of rows having cross-rank terms a sum of Grams lacks."""
     if (group_grads is None) == (group_gram is None):
         raise ValueError("pass exactly one of group_grads / group_gram")
     G = cfg.n_groups
@@ -222,6 +239,15 @@ def idro_loss(losses, groups, state: DroState, cfg: DroConfig,
     gl = _segment_sum(losses, groups, G) / counts.clamp_min(1.0)
     robust = (gl * state.h_fun.detach()).sum()
     gl_det = gl.detach()
+    if axis_name is not None:
+        if group_gram is not None:
+            raise ValueError("group_gram is single-replica only: pass "
+                             "group_grads with axis_name")
+        # bf16 rows are summed in float32 and cast back
+        group_grads = psum(group_grads, axis_name).to(group_grads.dtype)
+        agg = psum(torch.stack([counts, gl_det * counts]), axis_name)
+        counts = agg[0]
+        gl_det = agg[1] / counts.clamp_min(1.0)
 
     if group_gram is not None:
         m = group_gram.detach().float()

@@ -24,9 +24,12 @@ emb cache `corpus_{ckpt}_mv.npy` with the row -> document map beside it
 in `.rows.npy`); the searches run over the rows, and their ids map back to
 documents before the dev metrics (deduped) and the negatives. With
 `search_method="ivf"` one IVF index a round, built from the placed,
-unpadded rows, serves both searches. Not ported yet, each raising
-NotImplementedError naming its ROADMAP.md Queue 1 item: a mesh and
-`device_put` (item 11).
+unpadded rows, serves both searches. With a mesh whose data axis is
+above 1 the encoders shard each batch over the ranks, the corpus stays on
+the host and each search shards it (parallel/topk.py::mips_topk_sharded,
+exact for 'ivf' too, as in the JAX package), and rank 0 writes the files;
+`device_put` (parallel/sharded_train.py's put_batch) trains
+data-parallel.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from cocodr_tpu_torch.core.mesh import barrier, data_rank, data_size, is_writer
 from cocodr_tpu_torch.data.prefetch import prefetch
 from cocodr_tpu_torch.data.streams import (
     shuffled_ann_lines,
@@ -312,13 +316,17 @@ def mine(
     `.rows.npy` map) gives the rows, `place_corpus` places them (n_real
     the row count), and the top ids map to documents before the dev
     metrics (deduped) and the negatives; a corpus_emb the caller passes
-    is searched as documents, as in the JAX package."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mining over a mesh is not ported yet: ROADMAP.md Queue 1 "
-            "item 11 (parallel/*)"
-        )
+    is searched as documents, as in the JAX package.
+
+    mesh: a DeviceMesh (core/mesh.py) of the ranks that mine together:
+    every rank calls mine, the encoders shard each batch over its data
+    axis (pipelines/encode.py), the searches shard the corpus when the
+    axis is above 1 (the corpus is then not placed whole on any device),
+    and only rank 0 writes the emb cache, the ann file and the ndcg file;
+    every rank returns the metrics."""
     dev = resolve_device(device)
+    sharded = data_size(mesh) > 1
+    writer = is_writer(mesh)
     os.makedirs(out_dir, exist_ok=True)
     timings: Dict[str, float] = {}
     _t = time.time()
@@ -335,7 +343,7 @@ def mine(
     if params is not None:
         model = copy.deepcopy(model)
         model.load_state_dict(params)
-    q_enc = Encoder(model, is_query=True, device=dev)
+    q_enc = Encoder(model, mesh=mesh, is_query=True, device=dev)
     chunk_len = model.cfg.chunk_len
     multivector = bool(chunk_len) and passage_cache.max_len > chunk_len
     row2doc = None
@@ -353,28 +361,31 @@ def mine(
             if multivector:
                 row2doc = np.load(emb_file.replace(".npy", ".rows.npy"))
         else:
-            d_enc = Encoder(model, is_query=False, device=dev)
+            d_enc = Encoder(model, mesh=mesh, is_query=False, device=dev)
             if multivector:
                 corpus_emb, row2doc = encode_cache_multivector(
                     d_enc, passage_cache, ecfg, chunk_len=chunk_len)
             else:
                 corpus_emb = encode_cache(d_enc, passage_cache, ecfg)
             del d_enc
-            if emb_file:
+            if emb_file and writer:
                 np.save(emb_file + ".tmp.npy", corpus_emb)
                 os.replace(emb_file + ".tmp.npy", emb_file)
                 if multivector:
                     np.save(emb_file.replace(".npy", ".rows.npy"), row2doc)
-        if emb_file and cfg.emb_cache_keep > 0:
+        if emb_file and cfg.emb_cache_keep > 0 and writer:
             _prune_emb_cache(cfg.emb_cache_dir, cfg.emb_cache_keep)
     _mark("corpus_encode")
 
-    corpus, n_real = place_corpus(corpus_emb, cfg.search_method,
-                                  cfg.exact_fp32, dev)
+    if sharded:  # each search places this rank's shard
+        corpus, n_real = corpus_emb, 0
+    else:
+        corpus, n_real = place_corpus(corpus_emb, cfg.search_method,
+                                      cfg.exact_fp32, dev)
     n_docs = n_real or corpus.shape[0]
     _mark("corpus_to_device")
     ivf_index = None
-    if cfg.search_method == "ivf" and not cfg.exact_fp32:
+    if cfg.search_method == "ivf" and not cfg.exact_fp32 and not sharded:
         # one index a round for both searches, from the unpadded rows
         ivf_index = build_ivf_index(corpus, dtype=torch.bfloat16, device=dev)
         _mark("ivf_build")
@@ -382,7 +393,8 @@ def mine(
     def search(queries, k):
         """-> top ids as documents (a multi-chunk corpus's rows mapped)."""
         _, top = search_topk(
-            queries, corpus, k, q_chunk=cfg.q_chunk, tile=cfg.mips_tile,
+            queries, corpus, k, mesh=mesh, q_chunk=cfg.q_chunk,
+            tile=cfg.mips_tile,
             exact_fp32=cfg.exact_fp32, method=cfg.search_method,
             ivf_index=ivf_index, ivf_nprobe=cfg.ivf_nprobe,
             n_real=n_real, device=dev)
@@ -431,15 +443,17 @@ def mine(
         weights = {q: 1.0 for q in clusters}  # the reference writes 1
     _mark("cluster")
 
-    write_ann_data(ann_data_path(out_dir, output_num), negatives,
-                   train_positives, cfg, rng, clusters=clusters,
-                   weights=weights)
-    ndcg_path = ann_ndcg_path(out_dir, output_num)
-    with open(ndcg_path + ".tmp", "w") as f:
-        json.dump({"ndcg": dev_metrics["ndcg_cut_10"],
-                   "mrr": dev_metrics["recip_rank"],
-                   "checkpoint": checkpoint_name}, f)
-    os.replace(ndcg_path + ".tmp", ndcg_path)
+    if writer:
+        write_ann_data(ann_data_path(out_dir, output_num), negatives,
+                       train_positives, cfg, rng, clusters=clusters,
+                       weights=weights)
+        ndcg_path = ann_ndcg_path(out_dir, output_num)
+        with open(ndcg_path + ".tmp", "w") as f:
+            json.dump({"ndcg": dev_metrics["ndcg_cut_10"],
+                       "mrr": dev_metrics["recip_rank"],
+                       "checkpoint": checkpoint_name}, f)
+        os.replace(ndcg_path + ".tmp", ndcg_path)
+    barrier(mesh)
     _mark("write")
     for phase, secs in timings.items():
         dev_metrics[f"time_{phase}"] = secs
@@ -474,14 +488,11 @@ def train_on_ann_file(state, train_step: Callable, batcher, ann_file: str,
     (train_step.dropout_generators; the JAX package folds the step into
     one key); None trains in eval mode, without dropout. metrics_cb(step,
     metrics) after every step, metrics being the DRO kinds' dict or
-    {"loss", "acc"} for 'nll'. device_put (the JAX package's placement
-    over a mesh) raises: ROADMAP.md Queue 1 item 11."""
-    if device_put is not None:
-        raise NotImplementedError(
-            "device_put (sharded placement) is not ported yet: ROADMAP.md "
-            "Queue 1 item 11 (parallel/*)"
-        )
+    {"loss", "acc"} for 'nll'. device_put: a data-parallel state's
+    put_batch (parallel/sharded_train.py), which gives this rank its rows
+    of each global batch; each rank's generators fold in its rank."""
     dev = next(state.model.parameters()).device
+    rank = data_rank(state.mesh)
     with open(ann_file) as f:
         lines = shuffled_ann_lines(f.readlines(), seed)
 
@@ -492,10 +503,14 @@ def train_on_ann_file(state, train_step: Callable, batcher, ann_file: str,
 
     steps = 0
     for arrays in prefetch(collate_stream(), depth=2,
-                           device_put=dev.type == "cuda"):
-        batch = {k: torch.as_tensor(v).to(dev) for k, v in arrays.items()}
+                           device_put=device_put is None
+                           and dev.type == "cuda"):
+        if device_put is not None:
+            batch = device_put(arrays)
+        else:
+            batch = {k: torch.as_tensor(v).to(dev) for k, v in arrays.items()}
         gens = (None if dropout_seed is None
-                else dropout_generators(dropout_seed, state.step, dev))
+                else dropout_generators(dropout_seed, state.step, dev, rank))
         out = train_step(state, batch, gens)
         steps += 1
         if metrics_cb:
@@ -651,12 +666,9 @@ def train_loop(
     file's steps and the DRO state's scalars. saver: a
     utils.train_state.AsyncSaver, which writes the progress record after
     the checkpoint's DONE marker (None: both written synchronously);
-    device_put raises: item 11."""
-    if device_put is not None:
-        raise NotImplementedError(
-            "device_put (sharded placement) is not ported yet: ROADMAP.md "
-            "Queue 1 item 11 (parallel/*)"
-        )
+    device_put: a data-parallel state's put_batch, handed on to
+    train_on_ann_file (rank 0 writes the checkpoints and the progress
+    record)."""
     seen = -1
     if resume:
         ck = latest_checkpoint(ckpt_dir)
@@ -680,7 +692,7 @@ def train_loop(
         state, steps = train_on_ann_file(
             state, train_step, batcher, data_path, batch_size,
             max_steps=steps_per_file, seed=n, metrics_cb=metrics_cb,
-            dropout_seed=dropout_seed,
+            dropout_seed=dropout_seed, device_put=device_put,
         )
         if metrics_logger is not None:
             rec = {"ann_file": n, "steps": steps}
@@ -699,7 +711,8 @@ def train_loop(
                        on_complete=lambda n=n: _write_progress(ckpt_dir, n))
         else:
             save_checkpoint(ckpt_dir, state, keep=3)
-            _write_progress(ckpt_dir, n)
+            if is_writer(state.mesh):
+                _write_progress(ckpt_dir, n)
         consumed += 1
     if saver is not None:
         saver.wait()

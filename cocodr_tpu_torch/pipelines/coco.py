@@ -24,8 +24,16 @@ uninterrupted one. Pass 2 makes each chunk's generator anew from the same
 seed, so it starts from the state pass 1 started from; the backbone draws
 first in both passes (models/condenser.py), so pass 2's CLS is pass 1's.
 
-Sharded placement (`device_put`) waits for the multi-device port: ROADMAP.md
-Queue 1 item 11.
+Data parallelism (a state of parallel/sharded_train.py, `device_put` its
+put_batch): each rank holds its rows of the global batch and the step is
+the global batch's. The contrastive candidates are every rank's spans
+(the direct step: losses/contrastive.py's gathered form; the cache step:
+the CLS rows all-gathered after pass 1, the float32 loss and cotangents
+taken on all of them, each rank keeping its slice); the MLM term is the
+global token mean (each rank's mean weighted by its share of the masked
+tokens); the gradients are averaged over the ranks before the clip, so
+each rank's terms are scaled by W. Rank r > 0 draws dropout from a child
+seed sequence (`coco_generator(rank=)`), rank 0 the single-device masks.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from cocodr_tpu_torch.core.mesh import data_rank, data_size, gather_rows, psum
 from cocodr_tpu_torch.data.prefetch import prefetch
 from cocodr_tpu_torch.losses.contrastive import co_contrastive_loss
 from cocodr_tpu_torch.models.condenser import IGNORE_INDEX
@@ -51,13 +60,15 @@ class CocoConfig:
 
 
 def coco_generator(seed: int, step: int, device,
-                   chunk: Optional[int] = None) -> torch.Generator:
+                   chunk: Optional[int] = None,
+                   rank: int = 0) -> torch.Generator:
     """A dropout generator on `device` seeded from (seed, step): the direct
-    step's; with `chunk`, from (seed, step, chunk): a cache chunk's."""
+    step's; with `chunk`, from (seed, step, chunk): a cache chunk's. A
+    data-parallel rank > 0 seeds from the child sequence `rank`."""
     key = [seed, step] + ([] if chunk is None else [chunk])
+    ss = np.random.SeedSequence(key, spawn_key=(rank,) if rank else ())
     g = torch.Generator(device=device)
-    g.manual_seed(int(np.random.SeedSequence(key).generate_state(
-        1, np.uint64)[0] >> 1))
+    g.manual_seed(int(ss.generate_state(1, np.uint64)[0] >> 1))
     return g
 
 
@@ -69,6 +80,13 @@ def contrastive_cotangents(cls):
     co_loss = co_contrastive_loss(cls32)
     (grads,) = torch.autograd.grad(co_loss, cls32)
     return co_loss.detach(), grads
+
+
+def _masked_share(labels, mesh):
+    """This rank's share of the global batch's masked tokens, a 0-dim
+    float32 tensor (1.0 exactly without a mesh or in a world of one)."""
+    own = (labels != IGNORE_INDEX).sum().float()
+    return own / psum(own, mesh).clamp_min(1)
 
 
 def build_coco_train_step(cfg: CocoConfig) -> Callable:
@@ -83,17 +101,22 @@ def build_coco_train_step(cfg: CocoConfig) -> Callable:
         def step(state: TrainState, batch, dropout_seed=None):
             model = state.model
             model.train(dropout_seed is not None)
+            mesh = state.mesh
             gen = (None if dropout_seed is None else coco_generator(
-                dropout_seed, state.step, batch["input_ids"].device))
+                dropout_seed, state.step, batch["input_ids"].device,
+                rank=data_rank(mesh)))
             state.optimizer.zero_grad(set_to_none=True)
-            loss, aux = model.loss_with_contrastive(
-                batch["input_ids"], batch["attention_mask"], batch["labels"],
-                generator=gen)
-            loss.backward()
+            mlm, aux = model(batch["input_ids"], batch["attention_mask"],
+                             batch["labels"], generator=gen)
+            co = co_contrastive_loss(aux["cls"], axis_name=mesh)
+            share = _masked_share(batch["labels"], mesh)
+            (mlm * (share * data_size(mesh)) + co).backward()
             apply_gradients(state, cfg.max_grad_norm)
-            return {"loss": loss.detach(),
-                    "mlm_loss": aux["head_mlm_loss"].detach(),
-                    "co_loss": aux["co_loss"].detach()}
+            parts = psum(torch.stack([mlm.detach() * share,
+                                      aux["head_mlm_loss"].detach() * share]),
+                         mesh)
+            return {"loss": parts[0] + co.detach(), "mlm_loss": parts[1],
+                    "co_loss": co.detach()}
 
         return step
 
@@ -102,6 +125,8 @@ def build_coco_train_step(cfg: CocoConfig) -> Callable:
     def step(state: TrainState, batch, dropout_seed=None):
         model = state.model
         model.train(dropout_seed is not None)
+        mesh = state.mesh
+        W, rank = data_size(mesh), data_rank(mesh)
         ids, mask, labels = (batch["input_ids"], batch["attention_mask"],
                              batch["labels"])
         B = ids.shape[0]
@@ -114,25 +139,29 @@ def build_coco_train_step(cfg: CocoConfig) -> Callable:
         def generators():
             if dropout_seed is None:
                 return [None] * n_chunks
-            return [coco_generator(dropout_seed, state.step, ids.device, c)
-                    for c in range(n_chunks)]
+            return [coco_generator(dropout_seed, state.step, ids.device, c,
+                                   rank) for c in range(n_chunks)]
 
         # pass 1: the chunks' CLS without gradients
         with torch.no_grad():
             cls = torch.cat([model.cls_emb(ids[sl], mask[sl], generator=g)
                              for sl, g in zip(chunks, generators())])
-        co_loss, cls_grads = contrastive_cotangents(cls)
+        # every rank's spans; this rank's cotangents
+        co_loss, cls_grads = contrastive_cotangents(gather_rows(cls, mesh))
+        cls_grads = cls_grads[rank * B:(rank + 1) * B] * W
         # pass 2: each chunk forward and back through the surrogate
-        total_masked = (labels != IGNORE_INDEX).sum().clamp_min(1).float()
+        total_masked = psum((labels != IGNORE_INDEX).sum().float(),
+                            mesh).clamp_min(1)
         state.optimizer.zero_grad(set_to_none=True)
         mlm_loss = torch.zeros((), device=ids.device)
         for sl, g in zip(chunks, generators()):
             w = (labels[sl] != IGNORE_INDEX).sum().float() / total_masked
             mlm, aux = model(ids[sl], mask[sl], labels[sl], generator=g)
             surrogate = (cls_grads[sl] * aux["cls"].float()).sum()
-            (mlm * w + surrogate).backward()
+            (mlm * (w * W) + surrogate).backward()
             mlm_loss = mlm_loss + (mlm * w).detach()
         apply_gradients(state, cfg.max_grad_norm)
+        mlm_loss = psum(mlm_loss, mesh)
         return {"loss": mlm_loss + co_loss, "mlm_loss": mlm_loss,
                 "co_loss": co_loss}
 
@@ -157,18 +186,19 @@ def run_coco_pretrain(state: TrainState, train_step: Callable,
     mlm_loss, co_loss} as floats) every log_every steps; a checkpoint every
     save_steps steps and at the end, keeping keep_checkpoints. saver: a
     utils.train_state.AsyncSaver for checkpoints written in the background
-    (None: written synchronously); the run waits for the last one."""
-    if device_put is not None:
-        raise NotImplementedError(
-            "device_put (sharded placement) is not ported yet: ROADMAP.md "
-            "Queue 1 item 11 (parallel/*)"
-        )
+    (None: written synchronously); the run waits for the last one.
+    device_put: the put_batch of parallel/sharded_train.py (a data-parallel
+    state), which gives this rank its rows of each host batch."""
     save = saver.save if saver is not None else save_checkpoint
     dev = next(state.model.parameters()).device
     saved_step = None
     for batch in prefetch(span_batches, depth=2,
-                          device_put=dev.type == "cuda"):
-        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+                          device_put=device_put is None
+                          and dev.type == "cuda"):
+        if device_put is not None:
+            batch = device_put(batch)
+        else:
+            batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
         metrics = train_step(state, batch, dropout_seed)
         step = state.step
         if log_fn and step % log_every == 0:

@@ -13,8 +13,10 @@ package's `to_host` field is not carried over: the JAX function ignores it
 and always returns host arrays, as this one does.
 `encode_cache_multivector` encodes multi-chunk documents (a
 `rdot_nll_multi_chunk` model's body tower) into one row a real chunk and
-the row -> document map. A mesh with sharding comes with ROADMAP.md
-Queue 1 item 11.
+the row -> document map. With a mesh (core/mesh.py) each rank encodes
+its rows of every batch (the batch padded to a multiple of the data axis
+by copies of its last row) and an all-gather gives every rank the whole
+batch's embeddings in order: the outputs equal a single device's.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from cocodr_tpu_torch.core.mesh import data_rank, data_size, gather_rows
 from cocodr_tpu_torch.data.prefetch import prefetch
 from cocodr_tpu_torch.models.bert import cast_matmul_weights
 from cocodr_tpu_torch.ops._device import resolve_device
@@ -67,16 +70,19 @@ class Encoder:
     build a new Encoder. noise_level > 0 adds the reference's Gaussian
     embedding perturbation, drawn fresh for every batch from one
     generator seeded `noise_seed` (the JAX package folds the batch number
-    into one key)."""
+    into one key).
+
+    mesh: a DeviceMesh whose data axis shards every batch: this rank
+    encodes rows [r * B' / W, (r + 1) * B' / W) of the batch padded to B'
+    rows, a multiple of W, and the embeddings are all-gathered, the
+    padding dropped; the noise is drawn after the gather, on the whole
+    batch, so every rank holds the same embeddings. Every rank of the
+    mesh calls the encoder with the same batches."""
 
     def __init__(self, model, mesh=None, is_query: bool = False,
                  noise_level: float = 0.0, noise_seed: int = 0,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded encoding is not ported yet: ROADMAP.md Queue 1 "
-                "item 11 (parallel/*)"
-            )
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.model = inference_copy(model, self.device)
         self._method = (self.model.query_emb if is_query
@@ -90,10 +96,29 @@ class Encoder:
     def __call__(self, ids, mask):
         """ids, mask [B, S] (numpy or tensors) -> embeddings [B, D] on the
         device, in the compute dtype; returns before the card finishes."""
+        if self.mesh is not None:
+            return self._sharded(ids, mask)
         ids = torch.as_tensor(ids).to(self.device, non_blocking=True)
         mask = torch.as_tensor(mask).to(self.device, non_blocking=True)
         with torch.inference_mode():
             emb = self._method(ids, mask)
+            if self._gen is not None:
+                emb = add_embedding_noise(emb, self._gen, self.noise_level)
+        return emb
+
+    def _sharded(self, ids, mask):
+        W, r = data_size(self.mesh), data_rank(self.mesh)
+        ids, mask = torch.as_tensor(ids), torch.as_tensor(mask)
+        B = ids.shape[0]
+        pad = (-B) % W
+        if pad:
+            ids = torch.cat([ids, ids[-1:].expand(pad, -1)])
+            mask = torch.cat([mask, mask[-1:].expand(pad, -1)])
+        n = (B + pad) // W
+        ids = ids[r * n:(r + 1) * n].to(self.device, non_blocking=True)
+        mask = mask[r * n:(r + 1) * n].to(self.device, non_blocking=True)
+        with torch.inference_mode():
+            emb = gather_rows(self._method(ids, mask), self.mesh)[:B]
             if self._gen is not None:
                 emb = add_embedding_noise(emb, self._gen, self.noise_level)
         return emb

@@ -16,8 +16,9 @@ evaluate_beir.py:132-134).
 
 The functions take the port's model module where the JAX ones take
 (model, params), and read records with data.records.TokenCache (the JAX
-package's native reader only adds speed). A mesh is not ported yet and
-raises NotImplementedError (ROADMAP.md Queue 1 item 11).
+package's native reader only adds speed). A mesh (core/mesh.py) shards
+the encodes and, when its data axis is above 1, the search; rank 0
+tokenizes a task first and the other ranks read its records.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from cocodr_tpu_torch.core.mesh import rank_zero_first
 from cocodr_tpu_torch.data.preprocess import (
     load_beir_qrels,
     tokenize_beir_corpus,
@@ -163,7 +165,8 @@ def eval_beir(model, data_dir: str, work_dir: str, tokenizer,
     queries.jsonl, qrels/test.tsv); cfg_kw are BeirEvalConfig fields."""
     task = task or os.path.basename(os.path.normpath(data_dir))
     cfg = BeirEvalConfig.for_task(task, **cfg_kw)
-    corpus_path, query_path, d2o, q2o, qrels = prepare_beir_task(
-        data_dir, work_dir, tokenizer, cfg)
+    with rank_zero_first(mesh):
+        corpus_path, query_path, d2o, q2o, qrels = prepare_beir_task(
+            data_dir, work_dir, tokenizer, cfg)
     return evaluate_beir_task(model, corpus_path, query_path, d2o, q2o,
                               qrels, cfg, mesh=mesh, device=device)

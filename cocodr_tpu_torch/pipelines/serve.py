@@ -27,6 +27,15 @@ construction, to the search's tile multiple, and the search is told the
 real row count (`n_real`); the JAX service lets each search pad its own
 copy. Results are the same.
 
+With a mesh (core/mesh.py) the service is sharded, as the JAX one is: the
+query tower runs on every rank, each rank holds its shard of the corpus
+(bf16, or float32 with exact_fp32; the corpus first padded to a multiple
+of the data axis with copies of its last row), searches it by the
+single-device kernels (`fast_search` honoured) and the ranks' candidates
+merge by parallel/topk.py::distributed_topk; quantize_int8 and ivf take
+the sharded float path there, as in the JAX package. Every rank calls
+search with the same queries and gets the same answer.
+
 PyTorch launches asynchronously: `dispatch` returns while the card works,
 and `collect` / `collect_many` wait by copying the [batch, k] results to
 the host, so `search_stream` keeps `depth` batches in flight. The IVF
@@ -50,6 +59,7 @@ from cocodr_tpu_torch.ops.mips_hier import (
     mips_topk_hierarchical,
 )
 from cocodr_tpu_torch.ops.mips_int8 import mips_topk_int8, quantize_corpus_int8
+from cocodr_tpu_torch.parallel.topk import place_shard, sharded_mips_topk
 from cocodr_tpu_torch.pipelines.encode import inference_copy
 
 SEARCH_TILE = 2048  # corpus row multiple of the kernel searches' sweeps
@@ -96,21 +106,25 @@ class RetrievalService:
         (texts, padding="max_length", truncation=True, max_length=...,
         return_tensors="np") -> {"input_ids", "attention_mask"};
         corpus_emb: [N, D] numpy array or tensor (a tensor already on the
-        device is used without a host round trip)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded serving is not ported yet: ROADMAP.md Queue 1 "
-                "item 11 (parallel/*)"
-            )
+        device is used without a host round trip); mesh: a DeviceMesh to
+        shard the corpus over (every rank passes the whole corpus and
+        keeps its shard)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.doc_ids = doc_ids
+        self.mesh = mesh
         corpus = torch.as_tensor(corpus_emb)
         self.n_docs = int(corpus.shape[0])
         self.dim_scale = None
         self.ivf_index = None
-        if cfg.exact_fp32:
+        if mesh is not None:
+            # the kernel searches' shard is padded to their tile (n_real)
+            dtype = torch.float32 if cfg.exact_fp32 else torch.bfloat16
+            (self.corpus, self._offset, self._n_valid, self._pad,
+             self._n_real) = place_shard(corpus, mesh, dtype, self.device,
+                                         not cfg.exact_fp32)
+        elif cfg.exact_fp32:
             self.corpus = corpus.to(self.device, torch.float32).contiguous()
         elif cfg.ivf:
             self.ivf_index = build_ivf_index(
@@ -167,6 +181,14 @@ class RetrievalService:
     def _search(self, emb, k: int):
         """The configured search of query embeddings -> (scores, ids)."""
         cfg = self.cfg
+        if self.mesh is not None:
+            rows = self._n_real or self.corpus.shape[0]
+            return sharded_mips_topk(
+                emb, self.corpus, self._offset, min(k, self.n_docs),
+                self.mesh, tile=min(16384, rows), exact_fp32=cfg.exact_fp32,
+                n_valid=self._n_valid,
+                method="fast" if cfg.fast_search else "auto",
+                k_local=k + self._pad, n_real=self._n_real)
         if cfg.exact_fp32:
             return mips_topk(emb, self.corpus, k, exact_fp32=True)
         if self.ivf_index is not None:
@@ -221,3 +243,36 @@ class RetrievalService:
                 inflight.clear()
         if inflight:
             yield from self.collect_many(inflight)
+
+
+class Lockstep(RetrievalService):
+    """A sharded RetrievalService served through rank 0: every dispatch
+    first sends its queries to the other ranks (torch.distributed's
+    broadcast_object_list), whose `follow` loop runs the same search, so
+    that the search's collectives meet. `close` ends the followers. search,
+    search_stream and collect are the service's, over this dispatch, so the
+    REPL, the bulk run and the HTTP server of the CLI serve through it
+    unchanged."""
+
+    @staticmethod
+    def _exchange(msg=None):
+        import torch.distributed as dist
+
+        box = [msg]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def dispatch(self, queries: List[str], k: int):
+        self._exchange((list(queries), k))
+        return super().dispatch(queries, k)
+
+    def close(self) -> None:
+        self._exchange(None)
+
+    def follow(self) -> None:
+        """A rank other than 0: run rank 0's searches until it closes."""
+        while True:
+            msg = self._exchange()
+            if msg is None:
+                return
+            self.collect(super().dispatch(*msg))

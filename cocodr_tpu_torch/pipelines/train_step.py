@@ -41,8 +41,20 @@ activations, as the JAX package's group pass runs with remat=False.
 Dropout: a step takes three torch.Generators, one per tower, as the JAX
 step folds the tower index 0/1/2 into its key, so the positive and
 negative towers draw independent masks; `dropout_generators` seeds them
-from (seed, step, tower). Without generators the model runs in eval mode
-(the JAX step's deterministic=True) and draws nothing.
+from (seed, step, tower), and on a data-parallel rank r > 0 from a child
+sequence of those seeds, so that ranks draw different masks while rank 0
+draws the single-device ones. Without generators the model runs in eval
+mode (the JAX step's deterministic=True) and draws nothing.
+
+Data parallelism: a state made by parallel/sharded_train.py carries its
+mesh, each rank holds its rows of the global batch, and the step computes
+the global batch's math, as the JAX step does under a mesh: the gradients'
+mean over the ranks before the clip ('nll' and DRO-greedy: each rank's
+mean loss; iDRO: the cotangents h_pre[g_i] / count[g_i] of the global
+counts, times W); DRO-greedy's state from the all-gathered losses and
+groups; iDRO's rows against the global counts, summed over the ranks
+(losses/dro.py's axis forms; the rows take float32 rows, not the Gram);
+the metrics those of the global batch.
 
 Every loss kind reaches every parameter of the dual encoder (both towers
 and poolers of a two-tower model), so the port's Lamb, which skips a None
@@ -58,14 +70,20 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from cocodr_tpu_torch.core.mesh import data_size, psum
 from cocodr_tpu_torch.losses.dro import (
     DroConfig,
+    _segment_sum,
     dro_greedy_loss,
     gram,
     idro_loss,
     per_group_grads,
 )
 from cocodr_tpu_torch.losses.nll import triplet_nll, triplet_nll_multichunk
+from cocodr_tpu_torch.parallel.sharded_train import (
+    average_gradients,
+    mean_over_ranks,
+)
 from cocodr_tpu_torch.utils.train_state import TrainState
 
 DRO_KINDS = ("dro-greedy", "idro")
@@ -89,13 +107,15 @@ class TrainStepConfig:
     idro_lane_grad_dtype: str = "bfloat16"
 
 
-def dropout_generators(seed: int, step: int, device) -> tuple:
+def dropout_generators(seed: int, step: int, device, rank: int = 0) -> tuple:
     """Three torch.Generators on `device`, one per tower, seeded from
     (seed, step, tower): a resumed run draws the same masks at the same
-    step."""
+    step. rank > 0 (a data-parallel rank) seeds from the child sequence
+    `rank` of each; rank 0 draws the single-device masks."""
     gens = []
     for tower in range(3):
-        ss = np.random.SeedSequence([seed, step, tower])
+        ss = np.random.SeedSequence([seed, step, tower],
+                                    spawn_key=(rank,) if rank else ())
         g = torch.Generator(device=device)
         g.manual_seed(int(ss.generate_state(1, np.uint64)[0] >> 1))
         gens.append(g)
@@ -179,7 +199,11 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
 def apply_gradients(state: TrainState, max_grad_norm: float) -> None:
     """Clip the model's gradients, take one optimizer step (an update, or
     with optim.MultiSteps an accumulation that updates every k-th time),
-    count the micro-batch."""
+    count the micro-batch. A data-parallel state first replaces the
+    gradients by their mean over the ranks, so that the clip's global norm
+    is the global batch's."""
+    if state.mesh is not None:
+        average_gradients(state.model.parameters(), state.mesh)
     if max_grad_norm > 0:
         clip_by_global_norm_(state.model.parameters(), max_grad_norm)
     state.optimizer.step()
@@ -254,13 +278,39 @@ def idro_group_pass(model, losses, groups, dstate, cfg: TrainStepConfig):
                      group_gram=group_gram(model, losses, groups, cfg))
 
 
-def idro_backward(losses, groups, h_pre, group_counts) -> None:
+def idro_backward(losses, groups, h_pre, group_counts,
+                  scale: float = 1.0) -> None:
     """The training gradient of the iDRO robust loss sum_g gl_g h_pre[g]:
     one backward of the per-sample losses with the cotangent
-    h_pre[g_i] / count[g_i], the pre-update weights."""
+    h_pre[g_i] / count[g_i], the pre-update weights (times `scale`: a
+    data-parallel step's W, which the mean over the ranks divides out)."""
     g = torch.as_tensor(groups, device=losses.device).long()
     ct = h_pre[g] / group_counts.clamp_min(1.0)[g]
+    if scale != 1.0:
+        ct = ct * scale
     losses.backward(ct.to(losses.dtype))
+
+
+def idro_group_pass_dp(model, losses, groups, dstate, cfg: TrainStepConfig,
+                       mesh):
+    """The data-parallel iDRO weight update: the global counts, each
+    rank's rows against them (per_group_grads(counts=)), and
+    losses/dro.py::idro_loss over the data axis, which sums the rows (in
+    float32), the counts and the weighted group losses -> (global robust
+    loss, new DroState, (global group losses, global counts)). The lane
+    models keep each rank's rows, and their sum, in idro_lane_grad_dtype;
+    the others float32 rows (the Gram form takes no axis)."""
+    G = cfg.dro.n_groups
+    counts = _segment_sum(torch.ones_like(losses.detach()), groups, G)
+    store = (getattr(torch, cfg.idro_lane_grad_dtype)
+             if lane_group_pass(model, cfg) else None)
+    rows = per_group_grads(
+        losses, last_k_layers(model, cfg.idro_last_k_layers), groups, G,
+        store_dtype=store, counts=psum(counts, mesh))
+    _, new_state, (gl_agg, gc) = idro_loss(losses.detach(), groups, dstate,
+                                           cfg.dro, group_grads=rows,
+                                           axis_name=mesh)
+    return (gl_agg * dstate.h_fun).sum(), new_state, (gl_agg, gc)
 
 
 def build_train_step(cfg: TrainStepConfig = TrainStepConfig()) -> Callable:
@@ -282,6 +332,8 @@ def build_train_step(cfg: TrainStepConfig = TrainStepConfig()) -> Callable:
             loss, acc = nll_loss(state.model, batch, generators)
             loss.backward()
             apply_gradients(state, cfg.max_grad_norm)
+            if state.mesh is not None:
+                return mean_over_ranks(state.mesh, loss.detach(), acc)
             return loss.detach(), acc
 
         return train_step
@@ -295,6 +347,13 @@ def build_train_step(cfg: TrainStepConfig = TrainStepConfig()) -> Callable:
         return {"loss": loss.detach(), "acc": acc, "group_losses": gl,
                 "group_counts": gc}
 
+    def global_metrics(mesh, loss, acc, gl, gc):
+        """The global batch's metrics from the ranks': mean loss and
+        accuracy, summed counts, count-weighted group means."""
+        loss, acc = mean_over_ranks(mesh, loss.detach(), acc)
+        agg = psum(torch.stack([gc, gl * gc]), mesh)
+        return metrics(loss, acc, agg[1] / agg[0].clamp_min(1.0), agg[0])
+
     if cfg.loss_kind == "dro-greedy":
         def train_step(state: TrainState, batch, generators=None):
             _require_chunks(cfg.loss_kind, state.model, batch, False)
@@ -302,10 +361,12 @@ def build_train_step(cfg: TrainStepConfig = TrainStepConfig()) -> Callable:
             losses, acc = triplet_losses(state.model, batch, generators)
             robust, dstate, (gl, gc) = dro_greedy_loss(
                 losses, batch["groups"], state.extra, cfg.dro,
-                weights=batch.get("weights"))
+                weights=batch.get("weights"), axis_name=state.mesh)
             robust.backward()
             apply_gradients(state, cfg.max_grad_norm)
             state.extra = dstate
+            if state.mesh is not None:
+                return global_metrics(state.mesh, robust, acc, gl, gc)
             return metrics(robust, acc, gl, gc)
 
         return train_step
@@ -314,9 +375,16 @@ def build_train_step(cfg: TrainStepConfig = TrainStepConfig()) -> Callable:
         state.optimizer.zero_grad(set_to_none=True)
         with no_remat_last(state.model, cfg.idro_last_k_layers):
             losses, acc = triplet_losses(state.model, batch, generators)
-        robust, dstate, (gl, gc) = idro_group_pass(
-            state.model, losses, batch["groups"], state.extra, cfg)
-        idro_backward(losses, batch["groups"], state.extra.h_fun, gc)
+        if state.mesh is None:
+            robust, dstate, (gl, gc) = idro_group_pass(
+                state.model, losses, batch["groups"], state.extra, cfg)
+        else:
+            robust, dstate, (gl, gc) = idro_group_pass_dp(
+                state.model, losses, batch["groups"], state.extra, cfg,
+                state.mesh)
+            (acc,) = mean_over_ranks(state.mesh, acc)
+        idro_backward(losses, batch["groups"], state.extra.h_fun, gc,
+                      scale=float(data_size(state.mesh)))
         apply_gradients(state, cfg.max_grad_norm)
         state.extra = dstate
         return metrics(robust, acc, gl, gc)

@@ -9,8 +9,9 @@ is by line index.
 The tokenizer is any callable with the HuggingFace call signature
 (texts, padding=, truncation=, max_length=, return_tensors="np"); the port
 does not import `transformers`. `saver` (utils/train_state.py::AsyncSaver)
-writes the checkpoints on a background thread. Sharded placement
-(`device_put`) is not carried over yet: ROADMAP.md Queue 1 item 11.
+writes the checkpoints on a background thread. `device_put` (the put_batch
+of parallel/sharded_train.py) trains data-parallel: every rank reads the
+same global batches and keeps its rows.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from cocodr_tpu_torch.core.mesh import data_rank
 from cocodr_tpu_torch.data.prefetch import prefetch
 from cocodr_tpu_torch.data.streams import parse_triples_tsv_line
 from cocodr_tpu_torch.pipelines.train_step import dropout_generators
@@ -84,7 +86,8 @@ def run_warmup(state: TrainState, train_step: Callable, triples_path: str,
                tokenizer, cfg: WarmupConfig, ckpt_dir: str,
                eval_fn: Optional[Callable] = None,
                log_fn: Optional[Callable] = None, resume: bool = True,
-               dropout_seed: Optional[int] = 0, saver=None) -> TrainState:
+               dropout_seed: Optional[int] = 0, saver=None,
+               device_put: Optional[Callable] = None) -> TrainState:
     """Train `state` (model and optimizer, updated in place) with
     train_step (pipelines/train_step.py::build_train_step) -> state.
 
@@ -96,7 +99,10 @@ def run_warmup(state: TrainState, train_step: Callable, triples_path: str,
     draws the same masks; None trains in eval mode, without dropout.
     saver: a utils.train_state.AsyncSaver for checkpoints written in the
     background (None: written synchronously); the run waits for the last
-    one before it returns."""
+    one before it returns. device_put: a data-parallel state's put_batch
+    (parallel/sharded_train.py::shard_train_init), which gives this rank
+    its rows of each global batch; each rank's dropout generators fold in
+    its rank."""
     save = saver.save if saver is not None else save_checkpoint
     os.makedirs(ckpt_dir, exist_ok=True)
     if resume:
@@ -122,11 +128,16 @@ def run_warmup(state: TrainState, train_step: Callable, triples_path: str,
                 yield epoch, batcher.collate(triples)
 
     saved_step = None
+    rank = data_rank(state.mesh)
     for _epoch, arrays in prefetch(collate_stream(), depth=2,
-                                   device_put=dev.type == "cuda"):
-        batch = {k: torch.as_tensor(v).to(dev) for k, v in arrays.items()}
+                                   device_put=device_put is None
+                                   and dev.type == "cuda"):
+        if device_put is not None:
+            batch = device_put(arrays)
+        else:
+            batch = {k: torch.as_tensor(v).to(dev) for k, v in arrays.items()}
         gens = (None if dropout_seed is None
-                else dropout_generators(dropout_seed, state.step, dev))
+                else dropout_generators(dropout_seed, state.step, dev, rank))
         loss, acc = train_step(state, batch, gens)
         step = state.step
         if log_fn and step % cfg.log_every == 0:

@@ -26,6 +26,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from cocodr_tpu_torch.core.mesh import barrier, is_writer
 from cocodr_tpu_torch.losses.dro import DroState
 
 CKPT_PREFIX = "checkpoint-"
@@ -41,12 +42,16 @@ class TrainState:
     gradient accumulation (optim.MultiSteps) the parameters move on every
     k-th of them, and the optimizer's schedule count once a k; `extra` is
     the DRO kinds' losses.dro.DroState (None for 'nll'), which each of
-    their steps replaces, on every micro-batch."""
+    their steps replaces, on every micro-batch; `mesh` is the DeviceMesh
+    of a data-parallel run (parallel/sharded_train.py::shard_train_init),
+    None on one device: its steps all-reduce the gradients, and only rank
+    0 writes its checkpoints."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
     extra: Optional[DroState] = None
+    mesh: Optional[object] = None
 
 
 def _ckpt_dir(root: str, step: int) -> str:
@@ -83,10 +88,12 @@ def _commit(root: str, path: str, payload: dict, keep: int) -> None:
 
 def save_checkpoint(root: str, state: TrainState, keep: int = 0) -> str:
     """Payload first, DONE marker last; then keep only the newest `keep`
-    checkpoints (0 keeps all)."""
-    path = _fresh_dir(root, state.step)
-    _commit(root, path, _payload(state), keep)
-    return path
+    checkpoints (0 keeps all). In a data-parallel run rank 0 writes and
+    every rank waits for it at a barrier."""
+    if is_writer(state.mesh):
+        _commit(root, _fresh_dir(root, state.step), _payload(state), keep)
+    barrier(state.mesh)
+    return _ckpt_dir(root, state.step)
 
 
 def _host_copy(obj):
@@ -120,8 +127,11 @@ class AsyncSaver:
              on_complete: Optional[Callable[[], None]] = None) -> str:
         """on_complete() runs after the DONE marker is written: bookkeeping
         that must never run ahead of a valid checkpoint (the ANCE loop's
-        ann-progress record) goes there."""
+        ann-progress record) goes there. In a data-parallel run only rank
+        0 writes (and runs on_complete)."""
         self.wait()
+        if not is_writer(state.mesh):
+            return _ckpt_dir(root, state.step)
         path = _fresh_dir(root, state.step)
         payload = _host_copy(_payload(state))
 

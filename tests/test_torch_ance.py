@@ -5,6 +5,7 @@ package's on the same tiny dual encoder and batches, dropout off, float32
 on the CPU. Queries are shorter than documents, as in the reference (64
 against 128 tokens). Tolerances: 1e-5 in losses, params and h_fun (sums
 in another order), except where a test says otherwise."""
+import copy
 import dataclasses
 import os
 
@@ -35,7 +36,9 @@ from cocodr_tpu_torch.models.dual_encoder import MODEL_REGISTRY, DualEncoder
 from cocodr_tpu_torch.optim import Lamb, warmup_linear
 from cocodr_tpu_torch.pipelines import ance as tance
 from cocodr_tpu_torch.pipelines import train_step as ts
+from cocodr_tpu_torch.parallel.sharded_train import shard_train_init
 from cocodr_tpu_torch.utils import train_state as tstate
+import torch_mesh_workers as workers
 
 torch.set_num_threads(1)
 
@@ -357,9 +360,13 @@ def test_train_on_ann_file_dropout_generators(tmp_path):
 
 
 def test_what_mining_leaves_names_its_item(tmp_path):
-    """What the mining half still leaves raises NotImplementedError naming
-    its ROADMAP.md Queue 1 item: a mesh and device_put (item 11).
-    search_method='ivf' raised here until ops/ivf.py was ported; it now
+    """A mesh and device_put (item 11a) raised here until the multi-device
+    slice; in a world of one process they now give the single-device
+    results bit for bit: mine(mesh=) the same ann file, train_on_ann_file
+    and train_loop with a DP state's put_batch the same parameters (the
+    ranks' sharded paths at W = 2 and 4 are tests/test_torch_sharded_*.py
+    and tests/test_torch_cli_mesh.py). search_method='ivf' raised here
+    until ops/ivf.py was ported; it now
     mines, with its index's build time as time_ivf_build (with exact_fp32
     the search is exact, as before; the IVF negatives are held against an
     exact mine in tests/test_torch_mine.py). A multi-chunk model (item 3) now mines: over records of one
@@ -380,15 +387,29 @@ def test_what_mining_leaves_names_its_item(tmp_path):
     tance.mine(model, None, *args, tance.MineConfig(
         search_method="ivf", exact_fp32=True, batch_size=8), device="cpu")
     assert os.path.exists(tance.ann_data_path(str(tmp_path / "m"), 0))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tance.mine(model, None, *args, mesh=object(), device="cpu")
-    state = tstate.TrainState(model, Lamb(model.parameters(), 1e-3))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tance.train_loop(state, None, None, str(tmp_path),
-                         str(tmp_path / "ck"), 1, device_put=lambda b: b)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tance.train_on_ann_file(None, None, None, "x", 1,
-                                device_put=lambda b: b)
+    with workers.world_of_one() as mesh:
+        tance.mine(model, None, *args[:-2], str(tmp_path / "mesh"), 0,
+                   tance.MineConfig(search_method="ivf", exact_fp32=True,
+                                    batch_size=8), mesh=mesh, device="cpu")
+        assert (open(tance.ann_data_path(str(tmp_path / "mesh"), 0)).read()
+                == open(tance.ann_data_path(str(tmp_path / "m"), 0)).read())
+        ann_file = tance.ann_data_path(str(tmp_path / "m"), 0)
+        batcher = tstreams.TripletBatcher(qc, pc)
+        step = ts.build_train_step()
+        m1, m2 = copy.deepcopy(model), copy.deepcopy(model)
+        plain = tstate.TrainState(m1, Lamb(m1.parameters(), 1e-3))
+        tance.train_on_ann_file(plain, step, batcher, ann_file, 1,
+                                dropout_seed=None)
+        dp, put = shard_train_init(mesh, m2, Lamb(m2.parameters(), 1e-3))
+        tance.train_on_ann_file(dp, step, batcher, ann_file, 1,
+                                dropout_seed=None, device_put=put)
+        assert dp.step == plain.step > 0
+        for a, b in zip(dp.model.parameters(), plain.model.parameters()):
+            assert torch.equal(a, b)
+        tance.train_loop(dp, step, batcher, str(tmp_path / "m"),
+                         str(tmp_path / "ck"), 1, max_ann_files=1,
+                         dropout_seed=None, device_put=put)
+        assert tstate.latest_checkpoint(str(tmp_path / "ck")) is not None
     chunked = DualEncoder(MODEL_REGISTRY["rdot_nll_multi_chunk"](
         BertConfig.tiny(), base_len=pc.max_len))
     chunked.load_state_dict(model.state_dict())

@@ -364,18 +364,30 @@ def test_load_model_heads_towers_and_weights(hf_checkpoint, tmp_path):
 
 def test_what_the_cli_leaves_raises(hf_checkpoint, encoded, monkeypatch,
                                    capsys):
-    """--mesh, --distributed and --cpu-devices 2 name ROADMAP.md Queue 1
-    item 11a; without a card and without --cpu-devices 1 the commands
-    raise instead of running on the CPU; every one of the JAX CLI's
-    subcommands is registered (tests/test_torch_cli_surface.py holds
-    their flags)."""
+    """--mesh, --distributed and --cpu-devices 2 raised here until the
+    multi-device slice (item 11a): a model axis above 1 now names item
+    11c, --distributed outside torchrun's environment raises for want of
+    its RANK, and --cpu-devices 2 without a mesh runs on the CPU, one
+    process, as the JAX CLI leaves its extra devices unused (the mesh
+    runs: tests/test_torch_cli_mesh.py); without a card and without
+    --cpu-devices the commands raise instead of running on the CPU; every
+    one of the JAX CLI's subcommands is registered
+    (tests/test_torch_cli_surface.py holds their flags)."""
+    import torch.distributed as dist
+
     _, rec, npy, _ = encoded
     base = ["encode", "--checkpoint", hf_checkpoint, "--records",
             rec + "/passages", "--out", npy + ".x"]
-    for extra in (["--mesh", "2x1"], ["--distributed"],
-                  ["--cpu-devices", "2"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11a"):
-            cli.main(base + extra)
+    with pytest.raises(NotImplementedError, match="item 11c"):
+        cli.main(base + ["--mesh", "4x2", "--cpu-devices", "1"])
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="RANK"):
+        cli.main(base + ["--distributed", "--cpu-devices", "1"])
+    assert not dist.is_initialized()
+    cli.main(base + ["--cpu-devices", "2"])
+    assert np.load(npy + ".x").shape == np.load(npy).shape
+    capsys.readouterr()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(base)

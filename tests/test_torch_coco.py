@@ -567,8 +567,11 @@ def test_killed_coco_run_resumes_bit_for_bit_through_async_saver(
 def test_run_coco_pretrain_logs_saves_and_names_what_waits(tmp_path,
                                                            tokenizer):
     """log_fn every log_every steps with float metrics; a save every
-    save_steps and at the end, keep_checkpoints kept; device_put raises
-    naming ROADMAP item 11."""
+    save_steps and at the end, keep_checkpoints kept; device_put (which
+    raised naming ROADMAP item 11 until the multi-device slice): a state
+    of shard_train_init over a world of one process and its put_batch
+    train to the same parameters bit for bit (the ranks at W = 2 and 4:
+    tests/test_torch_sharded_train.py)."""
     sf = write_span_corpus(tmp_path / "spans.jsonl")
     collator = coco_collator.CoCondenserCollator(tokenizer,
                                                  max_seq_length=12)
@@ -586,9 +589,20 @@ def test_run_coco_pretrain_logs_saves_and_names_what_waits(tmp_path,
                       (4, ["co_loss", "loss", "mlm_loss"])]
     assert [os.path.basename(p) for p in ts.list_checkpoints(
         str(tmp_path / "ck"))] == ["checkpoint-4", "checkpoint-5"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        coco.run_coco_pretrain(state, None, iter([]), 0, 1,
-                               device_put=lambda b: b)
+    from cocodr_tpu_torch.parallel.sharded_train import shard_train_init
+    import torch_mesh_workers as workers
+
+    model2 = port_model(seed=6)
+    with workers.world_of_one() as mesh:
+        dp, put = shard_train_init(mesh, model2,
+                                   AdamW(model2.parameters(), 1e-3))
+        coco.run_coco_pretrain(
+            dp, coco.build_coco_train_step(coco.CocoConfig()),
+            coco_spans.span_batches([sf], collator, 4, num_epochs=2), None,
+            max_steps=5, device_put=put)
+    assert dp.step == 5
+    for a, b in zip(model2.parameters(), model.parameters()):
+        assert torch.equal(a, b)
 
 
 def small_state(seed=0):

@@ -104,8 +104,22 @@ def test_contrastive_loss_values_and_gradients_match_jax():
 
 
 def test_contrastive_axis_name_names_its_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        co_contrastive_loss(torch.zeros(4, 2), axis_name="data")
+    """axis_name raised naming item 11 until the multi-device slice; over
+    a world of one process the gathered form's loss and gradient equal the
+    global form's bit for bit (W = 2 and 4 against JAX's shard_map form:
+    tests/test_torch_sharded_train.py)."""
+    import torch_mesh_workers as workers
+
+    x = torch.from_numpy(np.random.RandomState(1).randn(6, 4)
+                         .astype(np.float32))
+    a, b = x.clone().requires_grad_(), x.clone().requires_grad_()
+    want = co_contrastive_loss(a)
+    want.backward()
+    with workers.world_of_one() as mesh:
+        got = co_contrastive_loss(b, axis_name=mesh)
+        got.backward()
+    assert torch.equal(got.detach(), want.detach())
+    assert torch.equal(b.grad, a.grad)
 
 
 def test_mlm_cross_entropy_ignore_index_matches_jax():

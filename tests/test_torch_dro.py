@@ -203,14 +203,30 @@ def test_dro_state_summary_matches_jax():
 
 
 def test_axis_name_and_missing_card_raise(monkeypatch):
+    """axis_name raised naming item 11 until the multi-device slice; over
+    a world of one process the collective forms give the single-replica
+    state bit for bit, and the Gram form refuses an axis, as the JAX
+    assert does (W = 2 and 4: tests/test_torch_sharded_train.py). Without
+    a card the inits raise."""
+    import torch_mesh_workers as workers
+
     cfg = td.DroConfig(n_groups=G)
     st = td.dro_greedy_init(cfg, "cpu")
-    l, g = torch.ones(4), torch.zeros(4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        td.dro_greedy_loss(l, g, st, cfg, axis_name="data")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        td.idro_loss(l, g, st, cfg, group_gram=torch.eye(G),
-                     axis_name="data")
+    rng = np.random.RandomState(0)
+    l = torch.from_numpy(rng.rand(6).astype(np.float32))
+    g = torch.from_numpy(rng.randint(0, G, 6))
+    rows = torch.from_numpy(rng.randn(G, 5).astype(np.float32))
+    with workers.world_of_one() as mesh:
+        for fn, kw in ((td.dro_greedy_loss, {}),
+                       (td.idro_loss, {"group_grads": rows})):
+            want = fn(l, g, st, cfg, **kw)
+            got = fn(l, g, st, cfg, axis_name=mesh, **kw)
+            assert torch.equal(got[0], want[0])
+            for f in ("h_fun", "sum_losses", "count_cat"):
+                assert torch.equal(getattr(got[1], f), getattr(want[1], f))
+        with pytest.raises(ValueError, match="group_gram"):
+            td.idro_loss(l, g, st, cfg, group_gram=torch.eye(G),
+                         axis_name=mesh)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         td.idro_init(cfg)

@@ -186,8 +186,18 @@ def test_add_embedding_noise_keeps_dtype():
 
 
 def test_mesh_raises(pair):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        tenc.Encoder(pair[1](), mesh=object(), device="cpu")
+    """A mesh raised here until the multi-device slice; over a world of
+    one process Encoder(mesh=) encodes bit for bit as without one (W = 2
+    and 4: tests/test_torch_sharded_train.py)."""
+    import torch_mesh_workers as workers
+
+    rng = np.random.RandomState(0)
+    ids = rng.randint(3, 100, size=(5, 12))
+    mask = np.ones_like(ids)
+    want = tenc.Encoder(pair[1](), device="cpu")(ids, mask)
+    with workers.world_of_one() as mesh:
+        got = tenc.Encoder(pair[1](), mesh=mesh, device="cpu")(ids, mask)
+    assert torch.equal(got, want)
 
 
 def test_encoder_without_cuda_raises(pair, monkeypatch):

@@ -37,6 +37,8 @@ MODULES = [
     "cocodr_tpu_torch.models.condenser",
     "cocodr_tpu_torch.parallel",
     "cocodr_tpu_torch.parallel.topk",
+    "cocodr_tpu_torch.parallel.multihost",
+    "cocodr_tpu_torch.parallel.sharded_train",
     "cocodr_tpu_torch.pipelines.encode",
     "cocodr_tpu_torch.pipelines.serve",
     "cocodr_tpu_torch.pipelines.train_step",
@@ -71,6 +73,7 @@ MODULES = [
     "cocodr_tpu_torch.core",
     "cocodr_tpu_torch.core.configs",
     "cocodr_tpu_torch.core.precision",
+    "cocodr_tpu_torch.core.mesh",
     "cocodr_tpu_torch.utils",
     "cocodr_tpu_torch.utils.logging",
     "cocodr_tpu_torch.utils.misc",
@@ -126,6 +129,34 @@ def test_cli_subcommands_leave_jax_out():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_a_spawned_rank_leaves_jax_out(tmp_path):
+    """A rank of core/mesh.py::spawn, started from this process (which has
+    JAX and the JAX package loaded), runs tests/torch_mesh_workers.py with
+    no JAX, flax, optax, transformers or JAX package module in its
+    sys.modules."""
+    import torch_mesh_workers as workers
+    from cocodr_tpu_torch.core.mesh import spawn
+
+    assert spawn(workers.foreign_modules, 2, str(tmp_path)) == [[], []]
+
+
+def test_mesh_entry_points_raise_without_cuda(monkeypatch):
+    """Without a card, a mesh or a world asked for without device='cpu'
+    raises before any world is made."""
+    import torch.distributed as dist
+
+    from cocodr_tpu_torch.core.mesh import create_mesh
+    from cocodr_tpu_torch.parallel.multihost import hybrid_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    was = dist.is_initialized()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        hybrid_mesh()
+    assert dist.is_initialized() == was
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)

@@ -213,26 +213,29 @@ def test_search_topk_exact_fp32_and_n_real(search_data):
     np.testing.assert_array_equal(ii, it)
 
 
-class _Mesh:
-    def __init__(self, n):
-        self.n = n
-
-    def size(self):
-        return self.n
-
-
 def test_search_topk_raises_where_not_ported(search_data, monkeypatch):
+    """A mesh of several devices raised here until the multi-device slice
+    (its sharded search: tests/test_torch_sharded_search.py); over a world
+    of one process a mesh searches on the one device, and the sharded
+    search forced at W = 1 gives the same ids."""
+    import torch_mesh_workers as workers
+    from cocodr_tpu_torch.parallel.topk import mips_topk_sharded
+
     q, c, _, _ = search_data
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        search_topk(q, c, 5, mesh=_Mesh(2), device="cpu")
+    with workers.world_of_one() as mesh:
+        vm, im = search_topk(q, c, 5, mesh=mesh, device="cpu")
+        vs, i_s = mips_topk_sharded(q, c, 5, mesh, device="cpu")
+    v0, i0 = search_topk(q, c, 5, device="cpu")
+    np.testing.assert_array_equal(im, i0)
+    np.testing.assert_array_equal(i_s, i0)
+    np.testing.assert_array_equal(vs, v0)
     # ivf, which raised here until ops/ivf.py was ported, searches: at
     # full probe it equals the flat search of the same bf16 operands
     vi, ii = search_topk(q, c, 5, method="ivf", ivf_nprobe=10_000,
                          device="cpu")
     vf, i_f = search_topk(q, c, 5, method="pallas", device="cpu")
     _same_topk(vi, ii, vf, i_f, tol=1e-5)
-    v, _ = search_topk(q, c, 5, mesh=_Mesh(1), device="cpu")
-    assert v.shape == (SEARCH_Q, 5)
+    assert vm.shape == (SEARCH_Q, 5)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         search_topk(q, c, 5)

@@ -138,19 +138,29 @@ def test_dispatch_collect_many_and_row_ids(services):
 
 @pytest.mark.parametrize("mode", ["ivf", "mesh"])
 def test_modes_not_ported_raise(tower, mode):
-    """A mesh still raises, naming its ROADMAP.md item. ivf, which raised
-    here until ops/ivf.py was ported, now serves: at full probe its ids
-    equal the JAX default service's (an exact search of bf16 operands) up
-    to near-ties, tolerance 1e-3 as in test_search_matches_jax_service,
-    with no flat corpus held."""
+    """A mesh raised here, naming its ROADMAP.md item, until the
+    multi-device slice: over a world of one process the sharded service
+    (its shard padded to the sweeps' tile, distributed_topk's merge)
+    answers as the plain one, scores and external ids equal, in the
+    default and the fast_search modes (W = 2 and 4:
+    tests/test_torch_sharded_search.py). ivf, which raised here until
+    ops/ivf.py was ported, now serves: at full probe its ids equal the
+    JAX default service's (an exact search of bf16 operands) up to
+    near-ties, tolerance 1e-3 as in test_search_matches_jax_service, with
+    no flat corpus held."""
     if mode == "mesh":
-        model = DualEncoder(
-            MODEL_REGISTRY["rdot_nll_condenser"](BertConfig.tiny()))
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 11"):
-            RetrievalService(model, tokenizer, np.zeros((4, 32), np.float32),
-                             cfg=ServeConfig(), device="cpu",
-                             mesh=object())
+        import torch_mesh_workers as workers
+
+        for fast in (False, True):
+            want = _port_service(tower, fast_search=fast).search(QUERIES)
+            with workers.world_of_one() as mesh:
+                got = RetrievalService(
+                    tower[2], tokenizer, tower[3], doc_ids=DOC_IDS,
+                    cfg=ServeConfig(top_k=5, max_query_len=8, max_batch=8,
+                                    fast_search=fast),
+                    mesh=mesh, device="cpu").search(QUERIES)
+            np.testing.assert_array_equal(got[0], want[0])
+            assert got[1] == want[1]
         return
     jmodel, params, _, corpus = tower
     jsvc = JaxService(jmodel, params, tokenizer, corpus, doc_ids=DOC_IDS,

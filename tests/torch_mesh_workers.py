@@ -1,0 +1,361 @@
+"""What the spawned ranks of the port's multi-process tests run
+(cocodr_tpu_torch/core/mesh.py::spawn): module-level functions a child
+process imports by name. This module imports neither JAX nor the JAX
+package, so that a rank starts quickly and its sys.modules stays clean
+(tests/test_torch_isolation.py checks it).
+
+`run_cases(cases)` runs a list of (name, kwargs) on every rank of one
+world, so that a test module pays for one world and not one a test; each
+case returns numpy data (the rank's own view) for the test to compare.
+"""
+import contextlib
+import hashlib
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from cocodr_tpu_torch.core.mesh import (
+    MeshConfig,
+    create_mesh,
+    data_group,
+    shard_batch,
+)
+
+LR, WARMUP, TOTAL, HEAD_DIM = 1e-3, 2, 10, 16
+
+
+def _mesh():
+    return create_mesh(MeshConfig(), device="cpu")
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """In the calling process: a gloo world of one (core/mesh.py's
+    HashStore world) and its (1, 1) mesh, torn down on exit."""
+    mesh = _mesh()
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_cases(cases):
+    return [globals()[name](**kw) for name, kw in cases]
+
+
+# --- core/mesh.py ---------------------------------------------------------
+
+def world():
+    mesh = _mesh()
+    return {"rank": dist.get_rank(), "size": dist.get_world_size(),
+            "data": mesh["data"].size()}
+
+
+def shard_rows(batch):
+    return shard_batch(_mesh(), batch)
+
+
+def shard_error(batch):
+    try:
+        shard_batch(_mesh(), batch)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def foreign_modules():
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                         "transformers", "cocodr_tpu"))
+
+
+def die_on_rank_1():
+    if dist.get_rank() == 1:
+        raise RuntimeError("rank 1 fails on purpose")
+    dist.barrier()
+
+
+def hang_on_rank_1():
+    if dist.get_rank() == 1:
+        time.sleep(3600)
+    dist.barrier()
+
+
+# --- parallel/topk.py and parallel/multihost.py ----------------------------
+
+def search(queries, corpus, k, **kw):
+    from cocodr_tpu_torch.parallel.topk import search_topk
+
+    return search_topk(queries, corpus, k, mesh=_mesh(), device="cpu", **kw)
+
+
+def sharded(queries, corpus, k, **kw):
+    from cocodr_tpu_torch.parallel.topk import mips_topk_sharded
+
+    return mips_topk_sharded(queries, corpus, k, _mesh(), device="cpu", **kw)
+
+
+def dtopk(vals, ids, k):
+    """vals, ids [W, Q, k']: this rank merges its own slice."""
+    from cocodr_tpu_torch.parallel.topk import distributed_topk
+
+    r = dist.get_rank()
+    v, i = distributed_topk(torch.from_numpy(vals[r]),
+                            torch.from_numpy(ids[r]), k, _mesh())
+    return v.numpy(), i.numpy()
+
+
+def two_level(queries, corpus, k):
+    """The corpus in equal shards over (replica, data), as
+    tests/test_multihost.py places it; -> (vals, ids) of the two-level
+    merge of each shard's exact top-k."""
+    from cocodr_tpu_torch.parallel.multihost import hybrid_mesh, two_level_topk
+
+    mesh = hybrid_mesh(model=1, force_replicas=2, device="cpu")
+    r = dist.get_rank()
+    per = corpus.shape[0] // dist.get_world_size()
+    q = torch.from_numpy(queries)
+    c = torch.from_numpy(corpus[r * per:(r + 1) * per])
+    v, i = torch.topk(q @ c.T, k, dim=1)
+    v, i = two_level_topk(v, i + r * per, k, mesh)
+    return v.numpy(), i.numpy()
+
+
+def sharded_2level(queries, corpus, k, tile):
+    from cocodr_tpu_torch.parallel.multihost import (
+        hybrid_mesh,
+        sharded_mips_topk_2level,
+    )
+
+    mesh = hybrid_mesh(model=1, force_replicas=2, device="cpu")
+    r = dist.get_rank()
+    per = corpus.shape[0] // dist.get_world_size()
+    v, i = sharded_mips_topk_2level(
+        torch.from_numpy(queries),
+        torch.from_numpy(corpus[r * per:(r + 1) * per]), r * per, k, mesh,
+        tile=tile)
+    return v.numpy(), i.numpy()
+
+
+def hybrid_shape():
+    from cocodr_tpu_torch.parallel.multihost import hybrid_mesh, n_slices
+
+    m = hybrid_mesh(model=1, force_replicas=2, device="cpu")
+    return {"slices": n_slices(), "shape": tuple(m.shape),
+            "names": tuple(m.mesh_dim_names)}
+
+
+# --- training -------------------------------------------------------------
+
+def _dual_encoder(model_type, sd):
+    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.models.dual_encoder import (
+        MODEL_REGISTRY,
+        DualEncoder,
+    )
+
+    cfg = MODEL_REGISTRY[model_type](BertConfig.tiny(), head_dim=HEAD_DIM)
+    model = DualEncoder(cfg)
+    model.load_state_dict(sd)
+    return model
+
+
+def train(kind, model_type, sd, batches, n_groups=0, total=TOTAL):
+    """Data-parallel steps of pipelines/train_step.py from the state dict
+    sd, LAMB with a linear warmup, dropout off -> the losses, each step's
+    digest of the parameters and the DroState, the final state dict and
+    h_fun."""
+    from cocodr_tpu_torch.losses.dro import DroConfig, idro_init
+    from cocodr_tpu_torch.optim import Lamb, warmup_linear
+    from cocodr_tpu_torch.parallel.sharded_train import shard_train_init
+    from cocodr_tpu_torch.pipelines.train_step import (
+        TrainStepConfig,
+        build_train_step,
+    )
+
+    model = _dual_encoder(model_type, sd)
+    opt = Lamb(model.parameters(), warmup_linear(LR, WARMUP, total),
+               eps=1e-6)
+    dro = DroConfig(n_groups=n_groups) if kind != "nll" else None
+    extra = idro_init(dro, device="cpu") if dro else None
+    state, put = shard_train_init(_mesh(), model, opt, extra)
+    step = build_train_step(TrainStepConfig(loss_kind=kind, dro=dro))
+    losses, digests = [], []
+    for b in batches:
+        out = step(state, put(b))
+        loss = out["loss"] if isinstance(out, dict) else out[0]
+        losses.append(float(loss))
+        tensors = list(state.model.parameters())
+        if state.extra is not None:
+            tensors += [state.extra.h_fun, state.extra.sum_losses,
+                        state.extra.count_cat]
+        digests.append(_digest(tensors))
+    return {"losses": losses, "digests": digests,
+            "params": {k: v.numpy() for k, v in model.state_dict().items()},
+            "h_fun": None if state.extra is None
+            else state.extra.h_fun.numpy()}
+
+
+def broadcast_from_rank_0(batch):
+    """Every rank builds its own weights (seeded by its rank) and DroState
+    (h_fun = rank + 1): shard_train_init gives each rank rank 0's. Then a
+    state trained one plain step on this rank's own rows of `batch` (its
+    own parameters and LAMB moments): shard_train_setup gives each rank
+    rank 0's parameters and moments -> (digest after init, digest after
+    setup)."""
+    from cocodr_tpu_torch.losses.dro import DroConfig, idro_init
+    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.models.dual_encoder import (
+        MODEL_REGISTRY,
+        DualEncoder,
+    )
+    from cocodr_tpu_torch.optim import Lamb
+    from cocodr_tpu_torch.parallel.sharded_train import (
+        shard_train_init,
+        shard_train_setup,
+    )
+    from cocodr_tpu_torch.pipelines.train_step import build_train_step
+    from cocodr_tpu_torch.utils.train_state import TrainState
+
+    mesh, r = _mesh(), dist.get_rank()
+    cfg = MODEL_REGISTRY["rdot_nll"](BertConfig.tiny(), head_dim=HEAD_DIM)
+    torch.manual_seed(r)
+    model = DualEncoder(cfg)
+    extra = idro_init(DroConfig(n_groups=4), device="cpu")
+    extra.h_fun.fill_(r + 1.0)
+    state, _ = shard_train_init(mesh, model, Lamb(model.parameters(), 1e-3),
+                                extra)
+    init = _digest(list(model.parameters()) + [extra.h_fun])
+    torch.manual_seed(10 + r)
+    model = DualEncoder(cfg)
+    state = TrainState(model, Lamb(model.parameters(), 1e-3))
+    build_train_step()(state, {k: torch.from_numpy(v)
+                               for k, v in shard_batch(mesh, batch).items()})
+    state, _ = shard_train_setup(mesh, state)
+    moments = [v for st in state.optimizer.state.values()
+               for v in st.values() if isinstance(v, torch.Tensor)]
+    return init, _digest(list(model.parameters()) + moments)
+
+
+def contrastive(cls_all):
+    """This rank's rows of cls_all [B, D] through
+    co_contrastive_loss(axis_name=) -> (loss, the rows' gradient)."""
+    from cocodr_tpu_torch.losses.contrastive import co_contrastive_loss
+
+    mesh = _mesh()
+    rows = shard_batch(mesh, {"x": torch.from_numpy(cls_all)})["x"]
+    rows = rows.clone().requires_grad_()
+    loss = co_contrastive_loss(rows, axis_name=data_group(mesh))
+    loss.backward()
+    return float(loss), rows.grad.numpy()
+
+
+def coco(sd, batches, chunk, late_mlm=True, heads=1, skip=1):
+    """Data-parallel COCO steps (pipelines/coco.py) from the state dict sd,
+    AdamW as tests/test_torch_coco.py builds it, dropout off -> metrics a
+    step, the digests and the final state dict."""
+    from cocodr_tpu_torch.core import configs
+    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.models.condenser import CoCondenserForPretraining
+    from cocodr_tpu_torch.parallel.sharded_train import shard_train_init
+    from cocodr_tpu_torch.pipelines import coco as tcoco
+
+    model = CoCondenserForPretraining(BertConfig.tiny(), heads, skip,
+                                      late_mlm)
+    model.load_state_dict(sd)
+    opt = configs.OptimizerConfig(
+        name="adamw", lr=1e-3, warmup_steps=2, total_steps=10,
+        weight_decay=0.01).build(model.parameters())
+    state, put = shard_train_init(_mesh(), model, opt)
+    step = tcoco.build_coco_train_step(tcoco.CocoConfig(
+        cache_chunk_size=chunk, max_grad_norm=1.0))
+    metrics, digests = [], []
+    for b in batches:
+        m = step(state, put(b))
+        metrics.append({k: float(v) for k, v in m.items()})
+        digests.append(_digest(model.parameters()))
+    return {"metrics": metrics, "digests": digests,
+            "params": {k: v.numpy() for k, v in model.state_dict().items()}}
+
+
+# --- encoding -------------------------------------------------------------
+
+class ArrayCache:
+    """The TokenCache surface encode_cache reads, over arrays in memory."""
+
+    def __init__(self, ids, mask):
+        self.ids, self.mask = ids, mask
+        self.max_len = ids.shape[1]
+
+    def __len__(self):
+        return len(self.ids)
+
+    def lengths(self):
+        return self.mask.sum(1)
+
+    def batch_with_mask(self, idx):
+        return self.ids[idx], self.mask[idx]
+
+
+def encode(model_type, sd, ids, mask, batch_size, buckets=(), chunk_len=0,
+           mesh=True):
+    """encode_cache (or encode_cache_multivector with chunk_len) of the
+    records through Encoder(mesh=) -> the embeddings (and row map)."""
+    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.models.dual_encoder import (
+        MODEL_REGISTRY,
+        DualEncoder,
+    )
+    from cocodr_tpu_torch.pipelines.encode import (
+        EncodeConfig,
+        Encoder,
+        encode_cache,
+        encode_cache_multivector,
+    )
+
+    kw = {"base_len": chunk_len} if chunk_len else {}
+    cfg = MODEL_REGISTRY[model_type](BertConfig.tiny(), head_dim=HEAD_DIM,
+                                     **kw)
+    model = DualEncoder(cfg)
+    model.load_state_dict(sd)
+    enc = Encoder(model, mesh=_mesh() if mesh else None, device="cpu")
+    ecfg = EncodeConfig(batch_size=batch_size, length_buckets=buckets)
+    cache = ArrayCache(ids, mask)
+    if chunk_len:
+        return encode_cache_multivector(enc, cache, ecfg, chunk_len=chunk_len)
+    return encode_cache(enc, cache, ecfg)
+
+
+def serve(corpus, queries, k, fast=False, exact_fp32=False):
+    """The sharded RetrievalService over corpus embeddings, queried with
+    token-id strings through a whitespace tokenizer -> (scores, ids)."""
+    from cocodr_tpu_torch.pipelines.serve import RetrievalService, ServeConfig
+
+    model = _dual_encoder("rdot_nll", queries["sd"])
+    svc = RetrievalService(
+        model, _ids_tokenizer, corpus,
+        cfg=ServeConfig(top_k=k, max_query_len=8, fast_search=fast,
+                        exact_fp32=exact_fp32),
+        mesh=_mesh(), device="cpu")
+    return svc.search(queries["texts"])
+
+
+def _ids_tokenizer(texts, padding, truncation, max_length, return_tensors):
+    """'3 17 9' -> ids [3, 17, 9] padded with 0 to max_length."""
+    ids = np.zeros((len(texts), max_length), np.int64)
+    mask = np.zeros_like(ids)
+    for i, t in enumerate(texts):
+        toks = [int(x) for x in t.split()][:max_length]
+        ids[i, :len(toks)] = toks
+        mask[i, :len(toks)] = 1
+    return {"input_ids": ids, "attention_mask": mask}
