@@ -40,6 +40,13 @@ Phases, each printed with its elapsed seconds:
      2,048-row corpus, at D = 96 (a k tail; K6 at D = 192, half an int8
      stage), and bit for bit on integer inputs with repeated rows; the
      sweep kernels without a stack frame in nvcc's report;
+     the split forms of tensor parallelism at M = 2 (half of F and of
+     the heads a model rank; K8 at 6 heads): K1's at the encode path's T
+     at bert-base and bert-large
+     widths, K5's at the training path's T, each rank's float32 partial
+     against its plain version, the finish after the halves' sum against
+     the plain finish and against the unsplit kernel's output (K1's and
+     K5's bounds), timed beside the unsplit kernel at the same T;
   4. search: search_topk over 1,024 row-normalised bf16 queries x the
      corpus at k = 100 with each method (pallas, exact2, fast, blockmax,
      refined, naive), plus mips_topk_int8 and mips_topk_blockmax_pallas:
@@ -287,8 +294,20 @@ Phases, each printed with its elapsed seconds:
      corpus, ids equal to (a)'s, launches as (a)'s; 3 data-parallel
      warmup steps without dropout (K1 36 a step), the ranks' parameters
      bit-equal, the first step's averaged gradients and every loss held
-     to a world of one's by the card-against-CPU bounds.
-     W = 4 is the CPU tests' (gloo).
+     to a world of one's by the card-against-CPU bounds; (h) tensor
+     parallelism, a world of two gloo processes on the card as mesh
+     1 x 2, beside (c)-(g): a BERT-base warmup step of 16 triplets with
+     dropout (the split K5, 36 a rank) and one without, fused attention
+     (the split K1 and K8 at 6 heads, 36 each a rank), each held to a
+     world of one's unsplit step from the same weights, batch and masks
+     by the averaged, clipped gradients gathered
+     whole (cosine 0.998, worst tensor 0.98; the loss by CMP_LOSS_RTOL,
+     as (g)'s every loss); the checkpoint the split
+     state wrote loaded at a world of one bit-equal to the parameters
+     and LAMB moments it gathered; split encode forwards of bert-base and
+     of bert-large's widths at 4 layers (the split K1 at K4's widths)
+     against the unsplit forwards, every row's cosine >= 0.999.
+     W = 4 and a model axis of 2 over data 2 are the CPU tests' (gloo).
 Each phase's seconds print on a line of their own as it ends
 (`phase seconds NAME: S`), and all of them together before the kernel
 summary.
@@ -744,6 +763,155 @@ def check_k5(ffn, gen, dev):
     return out
 
 
+# the split forms (tensor parallelism): the model axis of the checks and of
+# mesh leg (h)
+TP_M = 2
+
+
+def split_weights(w1, b1, w2, m, M=TP_M):
+    """Model rank m's slices of an FFN's weights (nn.Linear layout): rows
+    of w1 and b1, columns of w2, contiguous."""
+    k = w1.shape[0] // M
+    return (w1[m * k:(m + 1) * k].contiguous(),
+            b1[m * k:(m + 1) * k].contiguous(),
+            w2[:, m * k:(m + 1) * k].contiguous())
+
+
+def check_partials(name, kern, plain, args_of, what):
+    """Each model rank's float32 partial from the kernel against its plain
+    version (two bf16 ulps of the largest partial: h rounds to bf16 after
+    float32 sums in another order; the partial itself is never rounded)
+    -> (the partials' sum from the kernel, from the plain version, max
+    abs err)."""
+    ys, yps, err = 0, 0, 0.0
+    for m in range(TP_M):
+        y, yp = kern(*args_of(m)), plain(*args_of(m))
+        y, yp = (y[0], yp[0]) if isinstance(y, tuple) else (y, yp)
+        torch.cuda.synchronize()
+        e = (y - yp).abs().max().item()
+        tol = 2.0 ** -6 * yp.abs().max().item()
+        phase(f"  {name} partial of model rank {m} {what}: max_abs_err="
+              f"{e:.3e} tol={tol:.3e}")
+        if not e <= tol or not torch.isfinite(y).all():
+            raise AssertionError(f"{name}: a partial disagrees with its "
+                                 f"plain version: max abs err {e}")
+        ys, yps, err = ys + y, yps + yp, max(err, e)
+    return ys, yps, err
+
+
+def check_split_k1(ffn, gen, dev, T, H, F, name, replaces, loops):
+    """The split K1 at M = TP_M: each rank's partial (LN1, up GEMM, partial
+    down GEMM) against its plain version; the finish (residual + LN2)
+    on the kernels' sum against the plain finish on the plain sum, and on
+    one y against the plain finish of the same y; the split result against
+    the unsplit K1 kernel's output: each by check_ffn's bounds (K1's share
+    limit). Timed by loops: one rank's partial, the finish, and the
+    unsplit K1 at the same T -> the summary entry."""
+    args = ffn_inputs(gen, dev, T, H, F)
+    r, s1, c1, w1, b1, w2, b2, s2, c2 = args
+    what = f"T={T} H={H} F/{TP_M}={F // TP_M}"
+
+    def part_args(m):
+        return (r, s1, c1, *split_weights(w1, b1, w2, m))
+
+    y, yp, err = check_partials(name, ffn.fused_ffn_block_partial,
+                                ffn.ffn_block_partial_reference, part_args,
+                                what)
+    _, stats = ffn.fused_ffn_block_partial(*part_args(0))
+    _, stats_p = ffn.ffn_block_partial_reference(*part_args(0))
+    fin = (r, stats, s1, c1, y, b2, s2, c2)
+    got = ffn.fused_ffn_block_finish(*fin)
+    errs = [err, check_ffn(
+        name, lambda *a: got, lambda *a: ffn.ffn_block_finish_reference(
+            r, stats_p, s1, c1, yp, b2, s2, c2), (), what + ", finished",
+        K1_MAX_SHARE)]
+    errs.append(check_ffn(name + " finish", ffn.fused_ffn_block_finish,
+                          ffn.ffn_block_finish_reference, fin,
+                          what + ", the same y", K1_MAX_SHARE))
+    errs.append(check_ffn(name + " against the unsplit K1",
+                          lambda *a: got, ffn.fused_ffn_block, args, what,
+                          K1_MAX_SHARE))
+    ms_p = device_ms(lambda: ffn.fused_ffn_block_partial(*part_args(0)),
+                     loops)
+    ms_f = device_ms(lambda: ffn.fused_ffn_block_finish(*fin), loops)
+    ms_1 = device_ms(lambda: ffn.fused_ffn_block(*args), loops)
+    def plain_split():  # one rank's partial and the finish
+        yy, st = ffn.ffn_block_partial_reference(*part_args(0))
+        return ffn.ffn_block_finish_reference(r, st, s1, c1, yy, b2, s2, c2)
+
+    plain = time_ms(plain_split)
+    k = F // TP_M
+    # partial: r in, this rank's weights and b1, y out (float32), stats;
+    # finish: r, y and stats in, out, b2 and four LayerNorm vectors
+    nbytes = (2 * T * H + 2 * 2 * H * k + 2 * k + 4 * T * H + 8 * T
+              + 2 * T * H + 4 * T * H + 8 * T + 2 * T * H + 2 * H + 16 * H)
+    b_ms, b_by = bound(nbytes, 4 * T * H * k, BF16_FLOP_PER_S)
+    phase(f"  {name} {what}: one rank's partial {ms_p:.4f} ms + finish "
+          f"{ms_f:.4f} ms = {ms_p + ms_f:.4f} ms (loops of {loops}); the "
+          f"unsplit K1 at this T {ms_1:.4f} ms; plain split {plain:.4f} ms; "
+          f"bound {b_ms:.4f} ms ({b_by})")
+    return dict(name=name, route="cuda",
+                source="cocodr_tpu_torch/csrc/ffn_block.cu",
+                replaces=replaces, max_abs_err=max(errs), ms=ms_p + ms_f,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def check_split_k5(ffn, gen, dev, T):
+    """The split K5 at M = TP_M, bert-base widths: each rank's partial
+    against its plain version; the finish (y + b2, rounded once) on the
+    kernels' sum against the plain finish on the plain sum, and the split
+    result against the unsplit K5 kernel's, by check_ffn's bounds (K5's
+    share limit); timed as check_split_k1 -> the summary entry."""
+    H, F = 768, 3072
+    x, _, _, w1, b1, w2, b2, _, _ = ffn_inputs(gen, dev, T, H, F)
+    what = f"T={T} H={H} F/{TP_M}={F // TP_M}"
+
+    def part_args(m):
+        return (x, *split_weights(w1, b1, w2, m))
+
+    y, yp, err = check_partials("K5 split", ffn.fused_ffn_partial,
+                                ffn.ffn_partial_reference, part_args, what)
+    got = ffn.fused_ffn_finish(y, b2)
+    errs = [err, check_ffn("K5 split", lambda *a: got,
+                           lambda *a: ffn.ffn_finish_reference(yp, b2), (),
+                           what + ", finished", K5_MAX_SHARE)]
+    errs.append(check_ffn("K5 split against the unsplit K5",
+                          lambda *a: got, ffn.fused_ffn,
+                          (x, w1, b1, w2, b2), what, K5_MAX_SHARE))
+    ms_p = device_ms(lambda: ffn.fused_ffn_partial(*part_args(0)), 50)
+    ms_f = device_ms(lambda: ffn.fused_ffn_finish(y, b2), 50)
+    ms_1 = device_ms(lambda: ffn.fused_ffn(x, w1, b1, w2, b2), 50)
+    plain = time_ms(lambda: ffn.ffn_finish_reference(
+        ffn.ffn_partial_reference(*part_args(0)), b2))
+    k = F // TP_M
+    nbytes = (2 * T * H + 2 * 2 * H * k + 2 * k + 4 * T * H
+              + 4 * T * H + 2 * H + 2 * T * H)
+    b_ms, b_by = bound(nbytes, 4 * T * H * k, BF16_FLOP_PER_S)
+    phase(f"  K5 split {what}: one rank's partial {ms_p:.4f} ms + finish "
+          f"{ms_f:.4f} ms = {ms_p + ms_f:.4f} ms; the unsplit K5 at this T "
+          f"{ms_1:.4f} ms; plain split {plain:.4f} ms; bound {b_ms:.4f} ms "
+          f"({b_by})")
+    return dict(name="K5_ffn_split", route="cuda",
+                source="cocodr_tpu_torch/csrc/ffn_block.cu",
+                replaces="cocodr_tpu/ops/pallas_ffn.py:62",
+                max_abs_err=max(errs), ms=ms_p + ms_f, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def check_splits(ffn, gen, dev):
+    """The split forms of K1 (bert-base, and K4's bert-large widths) at the
+    encode path's T and of K5 at the training path's T -> their summary
+    entries."""
+    return [check_split_k1(ffn, gen, dev, ENC_TOKENS, 768, 3072,
+                           "K1_ffn_block_split",
+                           "cocodr_tpu/ops/pallas_ffn.py:130", 20),
+            check_split_k1(ffn, gen, dev, ENC_TOKENS, 1024, 4096,
+                           "K4_ffn_block_chunked_split",
+                           "cocodr_tpu/ops/pallas_ffn.py:156", 20),
+            check_split_k5(ffn, gen, dev, TRAIN_T)]
+
+
 def check_k7(ffn, gen, dev):
     """K7 at FFN_CHECK_T at bert-base and bert-large widths; timed by loops
     of back-to-back launches (time_ffn, the one-launch time beside) at
@@ -843,7 +1011,9 @@ def check_map_cache(ffn, gen, dev):
 
 def check_k8(att, gen, dev):
     """K8 at the encode shape B = 256, S = 128, N = 12, D = 64, with a
-    padding bias (lengths 16..128), and at a COCO step's B = 400, timed
+    padding bias (lengths 16..128), at N = 6 (one model rank's heads of
+    bert-base split over TP_M = 2, as mesh (h) runs it), and at a COCO
+    step's B = 400, timed
     (the encode shape) in turns with
     scaled_dot_product_attention on the same inputs (time_turns; SDPA is
     timed only: it defers no rounding the way K8 does). Also odd shapes:
@@ -864,7 +1034,7 @@ def check_k8(att, gen, dev):
 
     err = 0.0
     for B, S, N in ((ENC_BATCH, ENC_LEN, 12), (COCO_SPANS, COCO_LEN, 12),
-                    (ENC_BATCH, 32, 12),
+                    (ENC_BATCH, ENC_LEN, 12 // TP_M), (ENC_BATCH, 32, 12),
                     (ENC_BATCH, 64, 16), (8, 200, 16), (4, 384, 12),
                     (4, 392, 12), (4, 512, 16), (3, 40, 3),
                     (4 * VAR_BATCH, VAR_CHUNK, 12)):
@@ -931,11 +1101,12 @@ def check_k8(att, gen, dev):
               f"launches an event pair: {ms / lib:.2f}x); one launch per "
               f"event pair {single:.4f} ms; plain {plain:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it")
-        entry = dict(name="K8_attention", route="cuda",
-                     source="cocodr_tpu_torch/csrc/attention.cu",
-                     replaces="cocodr_tpu/ops/pallas_attention.py:41",
-                     ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=lib)
+        if N == 12:  # the summary's shape: a whole layer's heads
+            entry = dict(name="K8_attention", route="cuda",
+                         source="cocodr_tpu_torch/csrc/attention.cu",
+                         replaces="cocodr_tpu/ops/pallas_attention.py:41",
+                         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib)
     entry["max_abs_err"] = err
     return entry
 
@@ -1976,6 +2147,10 @@ def kernel_counters():
 
     return {"K1_ffn_block": (ffn.fused_ffn_block, "launches"),
             "K5_ffn": (ffn.fused_ffn, "launches"),
+            "K1_split_partial": (ffn.fused_ffn_block_partial, "launches"),
+            "K1_split_finish": (ffn.fused_ffn_block_finish, "launches"),
+            "K5_split_partial": (ffn.fused_ffn_partial, "launches"),
+            "K5_split_finish": (ffn.fused_ffn_finish, "launches"),
             "K2_dual_sweep": (mips_hier.dual_sweep, "launches"),
             "K2_dual_sweep_packed": (mips_hier.dual_sweep, "pack_launches"),
             "K3_topk": (mips_hier.topk, "launches"),
@@ -7311,6 +7486,307 @@ def mesh_gloo_finish(args, dev, root, started, searched, search_counts,
     return counts1
 
 
+# (h): tensor parallelism over a world of TP_M gloo processes on the one
+# card (data 1 x model TP_M; NCCL takes one rank a card). The split steps
+# are held to a world of one's unsplit steps by the averaged and clipped
+# gradients' global cosine and the worst tensor's (key biases left out,
+# step_agreement) at (g)'s measured agreement of two bf16 orders of one
+# step, and by (g)'s loss bound, CMP_LOSS_RTOL: with random weights the
+# triplet scores are ~745 +- a few, and a bf16 ulp of each of the 768
+# embedding elements moves a score by ~0.05-0.1, so a split forward's loss
+# lands 4e-3-3e-2 from the unsplit one's (H100 80GB HBM3, 700 W) while
+# its gradients agree to a cosine of 0.999
+TP_BATCH = 16  # triplets of each split warmup step (TRAIN_LEN tokens)
+TP_ENC_BATCH = 64  # records of the split encode forwards
+TP_LARGE_LAYERS = 4  # bert-large's depth in its split forward (widths whole)
+TP_LOSS_RTOL = CMP_LOSS_RTOL
+TP_GLOBAL_COSINE = 0.998
+TP_TENSOR_COSINE = 0.98
+TP_ENC_COSINE = 0.999  # every row of a split forward against the unsplit
+# (h)'s steps: (tag, dropout, attention_impl, the split launches a rank,
+# the world of one's), at bert-base's 12 layers x 3 towers
+TP_STEPS = (
+    ("dropout", True, "einsum", {"K5_split_partial": 36,
+                                 "K5_split_finish": 36}, {"K5_ffn": 36}),
+    ("no dropout", False, "fused", {"K1_split_partial": 36,
+                                    "K1_split_finish": 36,
+                                    "K8_attention": 36},
+     {"K1_ffn_block": 36, "K8_attention": 36}))
+
+
+def tp_arrays(seed):
+    """TP_ENC_BATCH triplets of hashed words (HashTokenizer, TRAIN_LEN
+    tokens), each sequence's first token drawn at random (as
+    random_first_token: a shared [CLS] makes the gradient a difference of
+    near-equal terms) -> the arrays; a step takes the first TP_BATCH."""
+    from cocodr_tpu_torch.pipelines.warmup import TripleTextBatcher
+
+    rng = np.random.default_rng([seed, 20])
+
+    def text(lo, hi):
+        return " ".join(f"w{x}" for x in rng.integers(0, 50000,
+                                                       rng.integers(lo, hi)))
+
+    triples = [(text(4, 16), text(30, 120), text(30, 120))
+               for _ in range(TP_ENC_BATCH)]
+    arrays = TripleTextBatcher(HashTokenizer(), TRAIN_LEN).collate(triples)
+    return random_first_token(argparse.Namespace(seed=seed), arrays)
+
+
+def tp_bert(attention_impl, large=False):
+    from cocodr_tpu_torch.models.bert import BertConfig
+
+    if large:
+        return BertConfig.large(dtype=torch.bfloat16,
+                                attention_impl=attention_impl,
+                                num_hidden_layers=TP_LARGE_LAYERS)
+    return BertConfig.base(dtype=torch.bfloat16,
+                           attention_impl=attention_impl)
+
+
+def tp_step(seed, arrays, bert, dropout, dev, path, mesh=None):
+    """One warmup (nll) step at TP_BATCH from the seed's weights, dropout
+    0.1 from step 0's generators or off, split over the mesh's model axis
+    (shard_train_init) or on one device -> (loss, {name: the averaged and
+    clipped gradient, whole, float32 on the host}, the launches, the
+    state)."""
+    from cocodr_tpu_torch.core.configs import OptimizerConfig
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+    from cocodr_tpu_torch.parallel.sharded_train import shard_train_init
+    from cocodr_tpu_torch.parallel.tp import gather_tensor
+    from cocodr_tpu_torch.pipelines.train_step import (
+        build_train_step,
+        dropout_generators,
+    )
+    from cocodr_tpu_torch.utils.train_state import TrainState
+
+    model = build_dual_encoder(
+        "rdot_nll_condenser", bert, device=dev,
+        generator=torch.Generator().manual_seed(seed))
+    opt = OptimizerConfig(lr=2e-4, warmup_steps=5, total_steps=100
+                          ).build(model.parameters())
+    batch = {k: v[:TP_BATCH] for k, v in arrays.items()}
+    if mesh is None:
+        state = TrainState(model, opt)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    else:
+        state, put = shard_train_init(mesh, model, opt)
+        batch = put(batch)
+    gens = dropout_generators(seed, 0, dev) if dropout else None
+    zero_counts()
+    loss, _ = build_train_step()(state, batch, gens)
+    synchronize(dev)
+    counts = read_counts(path, [])
+    grads = {k: gather_tensor(p, p.grad).float().cpu()
+             for k, p in model.named_parameters()}
+    return loss.item(), grads, counts, state
+
+
+def tp_forward(seed, arrays, bert, dev, path, mesh=None):
+    """The body tower's embeddings of the arrays' TP_ENC_BATCH positives
+    in inference, from the seed's weights, split over the mesh's model
+    axis (shard_params_tp) or whole -> (embeddings on the host, launches).
+    """
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+    from cocodr_tpu_torch.parallel.tp import shard_params_tp
+
+    model = build_dual_encoder(
+        "rdot_nll_condenser", bert, device=dev,
+        generator=torch.Generator().manual_seed(seed + 20)).eval()
+    if mesh is not None:
+        shard_params_tp(model, mesh)
+    ids, mask = (torch.from_numpy(arrays[k]).to(dev)
+                 for k in ("pos_ids", "pos_mask"))
+    zero_counts()
+    with torch.inference_mode():
+        emb = model.body_emb(ids, mask).float().cpu()
+    synchronize(dev)
+    return emb, read_counts(path, [])
+
+
+def tp_rank(seed, arrays, work, dev_type):
+    """(h), one rank of TP_M joined over gloo on the one card (core/mesh.py
+    ::spawn), mesh 1 x TP_M: the two TP_STEPS (a checkpoint saved after
+    the second, its payload gathered whole), then the split encode
+    forwards of bert-base and of bert-large's widths -> {tag: (loss,
+    gradients on rank 0)}, the launches and seconds of each leg, and on
+    rank 0 the checkpoint's path with the gathered parameters and LAMB
+    moments, and every rank's embeddings."""
+    import torch.distributed as dist
+
+    from cocodr_tpu_torch.core.mesh import MeshConfig, create_mesh
+    from cocodr_tpu_torch.parallel.tp import (
+        gather_optimizer_state,
+        gather_params_tp,
+    )
+    from cocodr_tpu_torch.utils.train_state import save_checkpoint
+
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else \
+        torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = create_mesh(MeshConfig(1, TP_M), dev)
+    rank = dist.get_rank()
+    out = {"counts": {}, "seconds": {}}
+    for tag, dropout, impl, _, _ in TP_STEPS:
+        t = time.perf_counter()
+        loss, grads, out["counts"][tag], state = tp_step(
+            seed, arrays, tp_bert(impl), dropout, dev,
+            f"mesh (h) rank {rank} {tag} step", mesh)
+        out[tag] = (loss, grads if rank == 0 else None)
+        if not dropout:
+            path = save_checkpoint(os.path.join(work, "ckpt"), state)
+            params = {k: v.cpu() for k, v in
+                      gather_params_tp(state.model).items()}
+            names = [n for n, _ in state.model.named_parameters()]
+            osd = gather_optimizer_state(state.optimizer,
+                                         state.optimizer.state_dict())
+            moments = {names[i]: {k: v.cpu() for k, v in st.items()}
+                       for i, st in osd["state"].items()}
+            if rank == 0:
+                out["ckpt"] = (path, params, moments)
+        del state, grads
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out["seconds"][tag] = time.perf_counter() - t
+    for tag, large in (("encode base", False), ("encode large", True)):
+        t = time.perf_counter()
+        out[tag], out["counts"][tag] = tp_forward(
+            seed, arrays, tp_bert("fused", large), dev,
+            f"mesh (h) rank {rank} {tag}", mesh)
+        out["seconds"][tag] = time.perf_counter() - t
+    return out
+
+
+def mesh_tp_start(args, root, dev_type):
+    """(h), started: the world of TP_M gloo processes on a thread, so that
+    it runs beside (c)-(g) -> (thread, its outcome dict)."""
+    import threading
+
+    from cocodr_tpu_torch.core.mesh import spawn
+
+    work = os.path.join(root, "tp")
+    outcome = {"arrays": tp_arrays(args.seed)}
+
+    def run():
+        t = time.perf_counter()
+        try:
+            outcome["ranks"] = spawn(tp_rank, TP_M,
+                                     os.path.join(work, "store"), args.seed,
+                                     outcome["arrays"], work, dev_type,
+                                     timeout=600)
+        except BaseException as e:  # raised again by mesh_tp_finish
+            outcome["error"] = e
+        outcome["seconds"] = time.perf_counter() - t
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, outcome
+
+
+def mesh_tp_finish(args, dev, started, card):
+    """(h), read: each rank's split launches; each TP step against a world
+    of one's unsplit step from the same weights, batch and masks (this
+    process, while the world runs) by TP_LOSS_RTOL, TP_GLOBAL_COSINE and
+    TP_TENSOR_COSINE; the TP checkpoint loaded at a world of one (a plain
+    state) bit-equal to the parameters and LAMB moments the TP state
+    gathered; each split forward's rows against the unsplit forward's by
+    TP_ENC_COSINE, the ranks' embeddings bit-equal -> the split launches
+    a rank, by leg."""
+    from cocodr_tpu_torch.core.configs import OptimizerConfig
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+    from cocodr_tpu_torch.utils.train_state import TrainState, load_checkpoint
+
+    thread, outcome = started
+    arrays, on_card = outcome["arrays"], dev.type == "cuda"
+    ones = {}
+    for tag, dropout, impl, _, expect_one in TP_STEPS:
+        loss, grads, counts, state = tp_step(
+            args.seed, arrays, tp_bert(impl), dropout, dev,
+            f"mesh (h) world of one {tag} step")
+        if on_card:
+            check_counts(f"mesh (h) world of one {tag}", counts, expect_one)
+        ones[tag] = (loss, grads)
+        del state
+    enc_one = {tag: tp_forward(args.seed, arrays, tp_bert("fused", large),
+                               dev, f"mesh (h) world of one {tag}")[0]
+               for tag, large in (("encode base", False),
+                                  ("encode large", True))}
+    thread.join(660)
+    if thread.is_alive():
+        raise AssertionError("mesh (h): the gloo world has not ended")
+    if "error" in outcome:
+        raise AssertionError("mesh (h): the gloo world failed") \
+            from outcome["error"]
+    ranks = outcome["ranks"]
+    layers, large_layers = 12, TP_LARGE_LAYERS
+    expect = {tag: e for tag, _, _, e, _ in TP_STEPS}
+    for tag, n in (("encode base", layers), ("encode large", large_layers)):
+        expect[tag] = {"K1_split_partial": n, "K1_split_finish": n,
+                       "K8_attention": n}
+    for r, res in enumerate(ranks):
+        for tag, want in expect.items():
+            if on_card:
+                check_counts(f"mesh (h) rank {r} {tag}", res["counts"][tag],
+                             want)
+    lines, ok = [], True
+    for tag, _, _, _, _ in TP_STEPS:
+        (loss_tp, grads_tp), (loss1, grads1) = ranks[0][tag], ones[tag]
+        rel, glob, worst, cos = step_agreement(loss_tp, grads_tp, loss1,
+                                               grads1)
+        ok &= (rel <= TP_LOSS_RTOL and glob >= TP_GLOBAL_COSINE
+               and cos >= TP_TENSOR_COSINE)
+        lines.append(f"{tag}: loss {loss_tp:.6f} against {loss1:.6f} (rel "
+                     f"{rel:.2e}, bound {TP_LOSS_RTOL}), gradients cosine "
+                     f"{glob:.6f} (bound {TP_GLOBAL_COSINE}), worst tensor "
+                     f"{worst} {cos:.6f} (bound {TP_TENSOR_COSINE}), "
+                     f"{ranks[0]['seconds'][tag]:.2f} s a rank")
+    path, params, moments = ranks[0]["ckpt"]
+    model = build_dual_encoder("rdot_nll_condenser", tp_bert("fused"),
+                               device=dev)
+    state = load_checkpoint(path, TrainState(model, OptimizerConfig(
+        lr=2e-4, warmup_steps=5, total_steps=100).build(model.parameters())))
+    same_state_dicts("mesh (h) checkpoint's parameters",
+                     {k: v.cpu() for k, v in model.state_dict().items()},
+                     params)
+    opt_sd = state.optimizer.state_dict()["state"]
+    names = [n for n, _ in model.named_parameters()]
+    for i, st in opt_sd.items():
+        same_state_dicts(f"mesh (h) checkpoint's moments of {names[i]}",
+                         {k: v.cpu() for k, v in st.items()},
+                         moments[names[i]])
+    if len(opt_sd) != len(moments):
+        raise AssertionError("mesh (h): the checkpoint's moments are not "
+                             "the TP state's")
+    for tag, one in enc_one.items():
+        embs = [res[tag] for res in ranks]
+        if any(not torch.equal(e, embs[0]) for e in embs[1:]):
+            raise AssertionError(f"mesh (h) {tag}: the ranks' embeddings "
+                                 "differ")
+        cos = torch.nn.functional.cosine_similarity(
+            embs[0].double(), one.double(), dim=1)
+        err = (embs[0] - one).abs().max().item()
+        ok &= cos.min().item() >= TP_ENC_COSINE
+        lines.append(f"{tag}: rows' cosine min {cos.min().item():.6f} "
+                     f"(bound {TP_ENC_COSINE}), max |diff| {err:.3e}, "
+                     f"{ranks[0]['seconds'][tag]:.2f} s a rank")
+    phase(f"  mesh (h) tensor parallelism, {TP_M} gloo processes on the "
+          f"one card (mesh 1 x {TP_M}), {outcome['seconds']:.2f} s beside "
+          f"(c)-(g); against a world of one's unsplit steps and forwards: "
+          + "; ".join(lines) + f"; the checkpoint written by the split "
+          f"state loads at a world of one bit-equal to the parameters and "
+          f"moments it gathered; launches a rank by leg "
+          f"{ {t: {k: v for k, v in c.items() if v} for t, c in ranks[0]['counts'].items()} } [{card}]")
+    if not ok:
+        raise AssertionError("mesh (h): the split run strays from the world "
+                             "of one")
+    total = {}
+    for tag in ("dropout", "no dropout", "encode base"):
+        for k, v in ranks[0]["counts"][tag].items():
+            total[k] = total.get(k, 0) + v
+    return {"tp": total, "tp_large": ranks[0]["counts"]["encode large"]}
+
+
 def mesh(args, dev):
     """Phase 18: the data-parallel paths on a world of one nccl process
     (core/mesh.py::create_mesh makes it; the card's machine has one card),
@@ -7319,7 +7795,9 @@ def mesh(args, dev):
     warmup through shard_train_init, (d) the COCO steps with the span
     contrastive over the world, (e) mine(mesh=), (f) eval-beir --mesh auto
     in a subprocess; on the card also (g), a world of two gloo processes
-    beside (c)-(f). Each path's launch counts equal the plain path's."""
+    beside (c)-(f); and (h), tensor parallelism over a world of TP_M gloo
+    processes beside (c)-(g). Each data-parallel path's launch counts
+    equal the plain path's; (h)'s are the split kernels'."""
     import torch.distributed as dist
 
     from cocodr_tpu_torch.core.mesh import MeshConfig, create_mesh
@@ -7347,6 +7825,7 @@ def mesh(args, dev):
             stack.callback(job["run"].kill_all)
             gloo = (mesh_gloo_start(args, root) if dev.type == "cuda"
                     else None)
+            tp = mesh_tp_start(args, root, dev.type)
             counts["warmup"] = mesh_warmup(args, dev, mesh_, root, card)
             torch.cuda.empty_cache()
             counts["coco"] = mesh_coco(args, dev, mesh_, card)
@@ -7357,6 +7836,7 @@ def mesh(args, dev):
             if gloo is not None:
                 counts["gloo"] = mesh_gloo_finish(
                     args, dev, root, gloo, searched, counts["search"], card)
+            counts.update(mesh_tp_finish(args, dev, tp, card))
     finally:
         dist.destroy_process_group()
     return counts
@@ -7418,6 +7898,7 @@ def main() -> None:
         kernels.append(check_k7(ffn, gen, dev))
         check_map_cache(ffn, gen, dev)
         kernels.append(check_k8(attention, gen, dev))
+        kernels += check_splits(ffn, gen, dev)
         corpus_i8, dim_scale = mips_int8.quantize_corpus_int8(corpus)
         sweeps = check_sweeps(gen, dev, corpus, corpus_i8, dim_scale)
         check_sweep_shapes(gen, dev, corpus, corpus_i8)
@@ -7451,6 +7932,8 @@ def main() -> None:
             encode_counts = out
         elif name == "train":
             train_counts = out
+        elif name == "mesh":
+            mesh_counts = out
         torch.cuda.empty_cache()
     phase(f"phase seconds (host clock): {clock.summary()} [{smi}]")
     if run != PHASES:
@@ -7476,7 +7959,11 @@ def main() -> None:
              "K8_attention": (encode_counts["c_fused_attention"],
                               "K8_attention"),
              "K9_top2_sweep": (search_counts, "K9_top2_sweep"),
-             "K10_block32_sweep": (search_counts, "K10_block32_sweep")}
+             "K10_block32_sweep": (search_counts, "K10_block32_sweep"),
+             "K1_ffn_block_split": (mesh_counts["tp"], "K1_split_partial"),
+             "K4_ffn_block_chunked_split": (mesh_counts["tp_large"],
+                                            "K1_split_partial"),
+             "K5_ffn_split": (mesh_counts["tp"], "K5_split_partial")}
     sources = {
         "K2_dual_sweep_packed": ("mips_sweep.cu", "pallas_mips.py:100",
                                  BATCH),

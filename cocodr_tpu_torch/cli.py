@@ -37,7 +37,11 @@ state are float32. `--compile-cache` and coco's `--dropout-rng` are
 accepted for the JAX command lines and have no effect.
 
 Several devices (core/mesh.py): `--mesh DATAxMODEL|auto` runs a command
-data-parallel over a world of processes, one a device. `--distributed`
+over a world of processes, one a device: data-parallel over DATA, and the
+training commands (warmup, ance, ance-train, coco) split every BERT
+layer's weights over MODEL (tensor parallelism, parallel/tp.py), as the
+JAX CLI's shard_train_init does; the inference commands run data-parallel
+with whole weights on every rank, as the JAX CLI replicates them there. `--distributed`
 joins the world torchrun made (`torchrun --nproc-per-node N -m
 cocodr_tpu_torch.cli CMD ... --distributed --mesh auto`: nccl, a card a
 process); `--cpu-devices N` with N > 1 and a mesh spawns N CPU processes
@@ -48,8 +52,7 @@ each process of a --distributed world runs the command on its own card,
 as each process of the JAX CLI does. `serve` over a mesh answers through rank 0, which sends
 each query batch to the other ranks (pipelines/serve.py::Lockstep): its
 REPL reads rank 0's stdin, which a spawned CPU rank does not have, so
-there use --queries or --http. A model axis above 1 raises (ROADMAP.md
-Queue 1 item 11c).
+there use --queries or --http.
 """
 from __future__ import annotations
 
@@ -73,8 +76,10 @@ def _add_common(p):
                         "ignored: the port has no compile cache (its kernels "
                         "are built once per checkout by nvcc)")
     p.add_argument("--mesh", default=None,
-                   help="device mesh 'DATAxMODEL' (e.g. 8x1) or 'auto' for "
-                        "all devices data-parallel; default single-device")
+                   help="device mesh 'DATAxMODEL' (e.g. 8x1, 4x2: MODEL > 1 "
+                        "splits the layers of a training command) or 'auto' "
+                        "for all devices data-parallel; default "
+                        "single-device")
     p.add_argument("--cpu-devices", type=int, default=0,
                    help="run on the CPU through the kernels' plain versions "
                         "(default: the card); N > 1 with --mesh spawns N "

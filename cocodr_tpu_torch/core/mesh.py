@@ -19,8 +19,12 @@ Axes:
          DDP). Each rank holds rows [r * B / W, (r + 1) * B / W) of a
          global batch of B rows (`shard_batch`), the rows a
          `jax.device_put(x, NamedSharding(mesh, P("data")))` gives device r.
-  model  tensor parallelism: only 1 here; more raises, naming ROADMAP.md
-         Queue 1 item 11c.
+  model  tensor parallelism (parallel/tp.py): the Megatron split of every
+         BERT layer's weights over M ranks. The device layout is the JAX
+         package's reshape(data, model): global rank = d * M + m, so the M
+         ranks of one data index are consecutive and get the same rows of
+         a batch; the data axis of model rank m (its "model column") is
+         the ranks m, M + m, 2M + m, ...
 
 Only rank 0 writes files (checkpoints, ann files, eval outputs, logs);
 the others wait at a barrier (`rank_zero_first`, `is_writer`).
@@ -85,20 +89,18 @@ def ensure_world(device="cuda") -> torch.device:
 
 def create_mesh(config: MeshConfig = MeshConfig(), device="cuda"):
     """A (data, model) DeviceMesh over the current world, on `device`'s
-    type (the card unless the caller passes device="cpu"). With no world
-    yet, a world of one is made here (nccl on the card, gloo on the CPU).
-    A model axis above 1 raises NotImplementedError; a shape that does not
-    fill the world raises MeshConfig.resolve's ValueError. Every rank must
-    call it, in the same order (its groups are made collectively)."""
+    type (the card unless the caller passes device="cpu"): global rank
+    d * model + m sits at (d, m), as the JAX package's
+    devices.reshape(data, model). With no world yet, a world of one is made
+    here (nccl on the card, gloo on the CPU). A shape that does not fill
+    the world raises MeshConfig.resolve's ValueError before any world is
+    made. Every rank must call it, in the same order (its groups are made
+    collectively)."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    if config.model > 1:
-        raise NotImplementedError(
-            f"a model axis of {config.model} (tensor parallelism) is not "
-            "ported: ROADMAP.md Queue 1 item 11c"
-        )
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    data, model = config.resolve(n)
     dev = ensure_world(device)
-    data, model = config.resolve(dist.get_world_size())
     return init_device_mesh(dev.type, (data, model),
                             mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
 
@@ -113,6 +115,22 @@ def axis_group(axis):
     if hasattr(axis, "get_group"):
         return data_group(axis)
     return axis
+
+
+def model_group(mesh):
+    """The process group of the mesh's model axis: the M ranks that hold
+    the slices of one set of weights."""
+    return mesh.get_group(MODEL_AXIS)
+
+
+def model_size(mesh) -> int:
+    """Ranks on the model axis; 1 without a mesh."""
+    return 1 if mesh is None else mesh[MODEL_AXIS].size()
+
+
+def model_rank(mesh) -> int:
+    """This process's place on the model axis; 0 without a mesh."""
+    return 0 if mesh is None else mesh.get_local_rank(MODEL_AXIS)
 
 
 def data_size(mesh) -> int:
@@ -176,8 +194,10 @@ def rank_zero_first(mesh=None):
 
 def shard_batch(mesh, batch: dict) -> dict:
     """This rank's rows of a global host batch (numpy arrays or tensors):
-    rows [r * B / W, (r + 1) * B / W) of each. A batch that W does not
-    divide raises, as a jax.device_put onto P("data") does."""
+    rows [r * B / W, (r + 1) * B / W) of each, r the data rank and W the
+    data axis's size; the ranks of one data index (its model axis) get the
+    same rows, as P("data") replicates them over "model". A batch that W
+    does not divide raises, as a jax.device_put onto P("data") does."""
     W, r = data_size(mesh), data_rank(mesh)
     out = {}
     for k, v in batch.items():

@@ -59,6 +59,21 @@
 // operations (77.3 GFLOP at T = 8192, bert-base: 0.078 ms at 989 TFLOP/s)
 // against ~35 MB of x, weights and out, so the tensor cores bound it, as
 // for K1.
+//
+// The split forms (tensor parallelism over M model ranks, parallel/tp.py):
+// each rank holds F/M rows of W1 and b1 and F/M columns of W2 and runs the
+// same up GEMM on them; its down GEMM writes a float32 partial
+// y_m = bf16(h_m) . W2_m^T [T, H] with no bias and no residual
+// (PartialEpi), never rounded before the sum. The caller all-reduces the
+// partials over the model axis, then a row pass finishes:
+//   K1 split: out = bf16(LN2((u32 + y) + b2)), u32 recomputed from r and
+//             the kept LN1 statistics, as ResidualEpi does
+//             (residual_ln2_kernel);
+//   K5 split: out = bf16(y + b2) (bias_round_kernel).
+// b2 and the residual enter once, after the sum. The split K1 covers K4's
+// widths (H 1024, F/M 2048 at M = 2). Entry points:
+// cocodr_ffn_block_partial_bf16 / cocodr_ffn_block_finish_bf16 and
+// cocodr_ffn_partial_bf16 / cocodr_ffn_finish_bf16.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -186,6 +201,69 @@ struct BiasEpi {
   }
 };
 
+// y[t, c..c+1] = acc, float32 [T, H]: the split forms' down GEMM epilogue
+// (a partial sum over this rank's F/M, no bias, no residual)
+struct PartialEpi {
+  float* y;
+  int H;
+  __device__ void load_col(int, float*, int) const {}
+  __device__ float2 row_param(int) const { return make_float2(0.0f, 0.0f); }
+  __device__ void operator()(int t, int c, float v0, float v1, const float*,
+                             int, float2) const {
+    *reinterpret_cast<float2*>(&y[static_cast<size_t>(t) * H + c]) =
+        make_float2(v0, v1);
+  }
+};
+
+// out = bf16(LN2((u32 + y) + b2)) with u32 = (r - mean) * rstd * s1 + c1
+// from LN1's kept statistics, y the all-reduced float32 partials: the
+// split K1's row pass after the sum. One warp per row.
+__global__ void __launch_bounds__(kThreads)
+residual_ln2_kernel(const __nv_bfloat16* __restrict__ r,
+                    const float* __restrict__ stats,
+                    const float* __restrict__ s1, const float* __restrict__ c1,
+                    const float* __restrict__ y,
+                    const __nv_bfloat16* __restrict__ b2,
+                    const float* __restrict__ s2, const float* __restrict__ c2,
+                    __nv_bfloat16* __restrict__ out, int T, int H, float eps) {
+  const int t = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (t >= T) return;  // warp-uniform; no barrier in this kernel
+  const size_t at = static_cast<size_t>(t) * H;
+  const float m1 = stats[2 * t], rs1 = stats[2 * t + 1];
+  auto load8 = [&](int c, float* f) {
+    float x[8], yy[8], sc[8], bi[8], bb[8];
+    unpack8(*reinterpret_cast<const uint4*>(&r[at + c]), x);
+    load8_f32(&y[at + c], yy);
+    load8_f32(&s1[c], sc);
+    load8_f32(&c1[c], bi);
+    unpack8(*reinterpret_cast<const uint4*>(&b2[c]), bb);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float u = (x[e] - m1) * rs1 * sc[e] + bi[e];
+      f[e] = (u + yy[e]) + bb[e];
+    }
+  };
+  ln2_row(load8, out + at, s2, c2, H, eps);
+}
+
+// out = bf16(y + b2), y [T, H] float32: the split K5's pass after the sum.
+// One thread per 8 columns of a row.
+__global__ void __launch_bounds__(kThreads)
+bias_round_kernel(const float* __restrict__ y,
+                  const __nv_bfloat16* __restrict__ b2,
+                  __nv_bfloat16* __restrict__ out, size_t n8, int H) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n8) return;
+  const size_t at = i * 8;
+  const int c = static_cast<int>(at % H);
+  float f[8], bb[8];
+  load8_f32(&y[at], f);
+  unpack8(*reinterpret_cast<const uint4*>(&b2[c]), bb);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) f[e] += bb[e];
+  *reinterpret_cast<uint4*>(&out[at]) = pack8(f);
+}
+
 // The bf16 GEMM of [T, K] activations by an [N, K] weight, its tile picked
 // by waves over the SMs (gemm_wgmma.cuh), with a pairwise epilogue.
 template <class Epi>
@@ -268,5 +346,74 @@ extern "C" int cocodr_ffn_block_bf16(const void* r, const void* s1, const void* 
   ln2_kernel<<<rows, kThreads, 0, s>>>(zf, static_cast<const float*>(s2),
                                        static_cast<const float*>(c2),
                                        static_cast<__nv_bfloat16*>(out), T, H, eps);
+  return cudaGetLastError();
+}
+
+// The split K1's part before the all-reduce: r [T, H] bf16, this rank's
+// w1 [F, H], b1 [F], w2 [H, F] (F its share) -> y [T, H] float32 partial
+// and LN1's statistics [T, 2], through the scratch buffers u [T, H] and
+// h [T, F] bf16. H % 128 == 0, F % 128 == 0, every pointer 16-byte aligned.
+extern "C" int cocodr_ffn_block_partial_bf16(
+    const void* r, const void* s1, const void* c1, const void* w1,
+    const void* b1, const void* w2, void* u, void* stats, void* h, void* y,
+    int T, int H, int F, int act, float eps, void* stream) {
+  if (bad_shape(T, H, F, act)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* ub = static_cast<__nv_bfloat16*>(u);
+  auto* hb = static_cast<__nv_bfloat16*>(h);
+  ln1_kernel<<<row_blocks(T), kThreads, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(r), static_cast<const float*>(s1),
+      static_cast<const float*>(c1), ub, static_cast<float*>(stats), T, H,
+      eps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = launch_up(ub, w1, b1, hb, T, H, F, act, s);
+  if (e != cudaSuccess) return e;
+  return gemm(hb, w2, T, H, F, PartialEpi{static_cast<float*>(y), H}, s);
+}
+
+// The split K1's part after the all-reduce: y [T, H] float32 (the sum of
+// the ranks' partials), r, LN1's statistics and parameters, b2 [H] bf16,
+// LN2's parameters -> out [T, H] bf16.
+extern "C" int cocodr_ffn_block_finish_bf16(
+    const void* r, const void* stats, const void* s1, const void* c1,
+    const void* y, const void* b2, const void* s2, const void* c2, void* out,
+    int T, int H, float eps, void* stream) {
+  if (bad_shape(T, H, 128, kGelu)) return cudaErrorInvalidValue;
+  residual_ln2_kernel<<<row_blocks(T), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(r), static_cast<const float*>(stats),
+      static_cast<const float*>(s1), static_cast<const float*>(c1),
+      static_cast<const float*>(y), static_cast<const __nv_bfloat16*>(b2),
+      static_cast<const float*>(s2), static_cast<const float*>(c2),
+      static_cast<__nv_bfloat16*>(out), T, H, eps);
+  return cudaGetLastError();
+}
+
+// The split K5's part before the all-reduce: x [T, H] bf16, this rank's
+// w1, b1, w2 -> y [T, H] float32 partial, through h [T, F] bf16.
+extern "C" int cocodr_ffn_partial_bf16(const void* x, const void* w1,
+                                       const void* b1, const void* w2,
+                                       void* h, void* y, int T, int H, int F,
+                                       int act, void* stream) {
+  if (bad_shape(T, H, F, act)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* hb = static_cast<__nv_bfloat16*>(h);
+  cudaError_t e = launch_up(static_cast<const __nv_bfloat16*>(x), w1, b1, hb,
+                            T, H, F, act, s);
+  if (e != cudaSuccess) return e;
+  return gemm(hb, w2, T, H, F, PartialEpi{static_cast<float*>(y), H}, s);
+}
+
+// The split K5's part after the all-reduce: y [T, H] float32, b2 [H] bf16
+// -> out = bf16(y + b2) [T, H].
+extern "C" int cocodr_ffn_finish_bf16(const void* y, const void* b2,
+                                      void* out, int T, int H, void* stream) {
+  if (bad_shape(T, H, 128, kGelu)) return cudaErrorInvalidValue;
+  const size_t n8 = static_cast<size_t>(T) * H / 8;
+  const unsigned blocks = static_cast<unsigned>((n8 + kThreads - 1) / kThreads);
+  bias_round_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(y), static_cast<const __nv_bfloat16*>(b2),
+      static_cast<__nv_bfloat16*>(out), n8, H);
   return cudaGetLastError();
 }

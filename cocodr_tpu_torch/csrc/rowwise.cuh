@@ -157,19 +157,14 @@ __device__ __forceinline__ void normalize_row(float (&f)[kRowVec][8], int H,
   }
 }
 
-// out = bf16(LN2(z)), z [T, H] float32; one warp per row, held in
-// registers when H <= kRowVec * 256. Static: each kernel source that
-// includes this header has its own copy.
-static __global__ void __launch_bounds__(kThreads)
-ln2_kernel(const float* __restrict__ z, const float* __restrict__ s2,
-           const float* __restrict__ c2, __nv_bfloat16* __restrict__ out,
-           int T, int H, float eps) {
-  const int t = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (t >= T) return;  // warp-uniform; no barrier in this kernel
+// orow = bf16(LN2(z)) of one row, z read 8 values at a time by load8(c, f)
+// (twice when the row does not fit in registers); the calling warp owns
+// the row.
+template <class Load8>
+__device__ __forceinline__ void ln2_row(Load8 load8, __nv_bfloat16* orow,
+                                        const float* s2, const float* c2,
+                                        int H, float eps) {
   const int lane = threadIdx.x & 31;
-  const float* row = z + static_cast<size_t>(t) * H;
-  __nv_bfloat16* orow = out + static_cast<size_t>(t) * H;
-  auto load8 = [&](int c, float* f) { load8_f32(&row[c], f); };
   auto store8 = [&](int c, const float* f) {
     *reinterpret_cast<uint4*>(&orow[c]) = pack8(f);
   };
@@ -189,6 +184,20 @@ ln2_kernel(const float* __restrict__ z, const float* __restrict__ s2,
     for (int e = 0; e < 8; ++e) f[e] = (f[e] - m) * rs * s2[c + e] + c2[c + e];
     store8(c, f);
   }
+}
+
+// out = bf16(LN2(z)), z [T, H] float32; one warp per row, held in
+// registers when H <= kRowVec * 256. Static: each kernel source that
+// includes this header has its own copy.
+static __global__ void __launch_bounds__(kThreads)
+ln2_kernel(const float* __restrict__ z, const float* __restrict__ s2,
+           const float* __restrict__ c2, __nv_bfloat16* __restrict__ out,
+           int T, int H, float eps) {
+  const int t = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (t >= T) return;  // warp-uniform; no barrier in this kernel
+  const float* row = z + static_cast<size_t>(t) * H;
+  auto load8 = [&](int c, float* f) { load8_f32(&row[c], f); };
+  ln2_row(load8, out + static_cast<size_t>(t) * H, s2, c2, H, eps);
 }
 
 inline int row_blocks(int T) { return (T + kRowsPerBlock - 1) / kRowsPerBlock; }

@@ -35,7 +35,7 @@ def co_contrastive_loss(cls_emb: torch.Tensor, axis_name: Optional[str] = None,
 
     With axis_name, cls_emb is this rank's [B_local, D] rows (B_local
     even: pairs never straddle ranks); its candidates are every rank's
-    rows, all-gathered with gradients (torch.distributed.nn), and its
+    rows, all-gathered with gradients (`_GatherRows`), and its
     targets and masked column are offset by rank * B_local. The value is
     the mean over ranks of the ranks' means (JAX's pmean); the gradient is
     that of this rank's own mean, whose all-gather backward sums every
@@ -57,16 +57,38 @@ def co_contrastive_loss(cls_emb: torch.Tensor, axis_name: Optional[str] = None,
     return loss.mean()
 
 
-def _gathered_loss(f32, axis, reduction):
-    import torch.distributed.nn.functional as dist_nn
+class _GatherRows(torch.autograd.Function):
+    """The group's rows [W * B, D] in rank order; the backward sums the
+    whole gradient over the group (one all-reduce) and keeps this rank's
+    rows. (torch.distributed.nn's all_gather backward takes, over gloo,
+    group ranks for global ones, and fails on a group that is not the
+    whole world, as a data axis beside a model axis is.)"""
 
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        B = grad.shape[0] // dist.get_world_size(ctx.group)
+        r = dist.get_rank(ctx.group)
+        return grad[r * B:(r + 1) * B], None
+
+
+def _gathered_loss(f32, axis, reduction):
     from cocodr_tpu_torch.core.mesh import axis_group
 
     group = axis_group(axis)
     W = dist.get_world_size(group)
     B = f32.shape[0]
     off = dist.get_rank(group) * B
-    cands = torch.cat(dist_nn.all_gather(f32, group=group))
+    cands = _GatherRows.apply(f32, group)
     sim = f32 @ cands.T
     rows = torch.arange(B, device=f32.device)
     own = torch.zeros(sim.shape, dtype=torch.bool, device=f32.device)

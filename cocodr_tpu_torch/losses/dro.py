@@ -18,7 +18,10 @@ the step's own graph. The JAX package batches those G pullbacks with
 package's collective form: DRO-greedy all-gathers the groups and the
 detached losses before the group statistics, iDRO sums the per-group
 gradients, the counts and the weighted group losses over the ranks, so
-that every rank computes the same new DroState.
+that every rank computes the same new DroState. `split` (n, model axis):
+the first n columns of the rows are the gradients of parameters split
+over a model axis (parallel/tp.py), so their part of every row norm and
+Gram entry is summed over that axis, and the other columns' counted once.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from cocodr_tpu_torch.core.mesh import gather_rows, psum
@@ -189,33 +193,58 @@ def per_group_grads(losses, params: Sequence[torch.Tensor], groups,
     return out
 
 
-def _row_norms(rows) -> torch.Tensor:
-    """|row| of [G, P] rows in float32 sums, a block of columns at a time
-    (no float32 copy of bf16 rows) -> [G, 1]."""
+def _split_sum(part, rest, split):
+    """part (from the split columns) summed over the model axis, plus rest
+    (from the replicated columns)."""
+    if split is not None:
+        dist.all_reduce(part, group=split[1].group)
+    return part + rest
+
+
+def _row_sq(rows, lo, hi):
     acc = torch.zeros((rows.shape[0], 1), dtype=torch.float32,
                       device=rows.device)
-    for c in range(0, rows.shape[1], _GRAM_COLUMNS):
-        acc += rows[:, c:c + _GRAM_COLUMNS].float().square().sum(
+    for c in range(lo, hi, _GRAM_COLUMNS):
+        acc += rows[:, c:min(c + _GRAM_COLUMNS, hi)].float().square().sum(
             -1, keepdim=True)
-    return acc.sqrt()
+    return acc
 
 
-def gram(rows) -> torch.Tensor:
-    """rows @ rows.T in float32 sums of the rows' products, a block of
-    columns at a time -> [G, G] float32 (bf16 rows: the products of bf16
-    values are exact in float32, the sums float32, as the JAX package's
-    matmul with preferred_element_type=float32)."""
+def _row_norms(rows, split=None) -> torch.Tensor:
+    """|row| of [G, P] rows in float32 sums, a block of columns at a time
+    (no float32 copy of bf16 rows) -> [G, 1]."""
+    P = rows.shape[1]
+    if split is None:
+        return _row_sq(rows, 0, P).sqrt()
+    n = split[0]
+    return _split_sum(_row_sq(rows, 0, n), _row_sq(rows, n, P), split).sqrt()
+
+
+def _gram_cols(rows, lo, hi):
     acc = torch.zeros((rows.shape[0], rows.shape[0]), dtype=torch.float32,
                       device=rows.device)
-    for c in range(0, rows.shape[1], _GRAM_COLUMNS):
-        blk = rows[:, c:c + _GRAM_COLUMNS].float()
+    for c in range(lo, hi, _GRAM_COLUMNS):
+        blk = rows[:, c:min(c + _GRAM_COLUMNS, hi)].float()
         acc += blk @ blk.t()
     return acc
 
 
+def gram(rows, split=None) -> torch.Tensor:
+    """rows @ rows.T in float32 sums of the rows' products, a block of
+    columns at a time -> [G, G] float32 (bf16 rows: the products of bf16
+    values are exact in float32, the sums float32, as the JAX package's
+    matmul with preferred_element_type=float32). split: the module
+    docstring."""
+    P = rows.shape[1]
+    if split is None:
+        return _gram_cols(rows, 0, P)
+    n = split[0]
+    return _split_sum(_gram_cols(rows, 0, n), _gram_cols(rows, n, P), split)
+
+
 def idro_loss(losses, groups, state: DroState, cfg: DroConfig,
               group_grads=None, axis_name: Optional[str] = None,
-              group_gram=None):
+              group_gram=None, split=None):
     """iDRO robust loss and its multiplicative exponentiated weight update
     (reference dro_loss.py:216-254) -> (robust_loss, new_state,
     (group_losses, group_counts)).
@@ -231,7 +260,8 @@ def idro_loss(losses, groups, state: DroState, cfg: DroConfig,
     losses are summed over the ranks before the update (the returned
     statistics are those sums), as the reference all-reduces its
     gradients (dro_loss.py:232); the Gram form refuses an axis, the Gram
-    of a sum of rows having cross-rank terms a sum of Grams lacks."""
+    of a sum of rows having cross-rank terms a sum of Grams lacks. split:
+    the rows' columns split over a model axis (the module docstring)."""
     if (group_grads is None) == (group_gram is None):
         raise ValueError("pass exactly one of group_grads / group_gram")
     G = cfg.n_groups
@@ -257,8 +287,8 @@ def idro_loss(losses, groups, state: DroState, cfg: DroConfig,
         # rows may be bf16: normalised rows stay in their dtype, as in the
         # JAX package, norms and the Gram sum in float32
         grads = group_grads.detach()
-        grads = grads / (1e-12 + _row_norms(grads)).to(grads.dtype)
-        rtg = gram(grads)
+        grads = grads / (1e-12 + _row_norms(grads, split)).to(grads.dtype)
+        rtg = gram(grads, split)
     glp = gl_det.pow(cfg.alpha)[:, None]
     rtg = (glp @ glp.t()) * rtg
     mask = (counts > 0).to(torch.float32)

@@ -67,6 +67,19 @@ with dropout). The Condenser's c_head layers run without remat, as in the
 JAX package, whose remat wraps the encoder's scan only; an encoder whose
 `no_remat_last` is k runs its last k layers without it (the iDRO step's
 group pass, pipelines/train_step.py).
+
+Tensor parallelism (parallel/tp.py::shard_params_tp gives a BertLayer and
+its BertSelfAttention the model axis, `tp`, and cuts their weights): the
+layer computes its N/M heads (K8 or the einsum core on them) from f(h),
+the attention output's partial product leaves through g, in float32, and
+its bias is added once after the sum; the half-layer runs the split K1
+(`ops.ffn.ffn_block_tp`), the dropout path the split K5 (`ops.ffn.ffn_tp`)
+or the dense pair between f and g. Dropout masks are those of the unsplit
+layer: the replicated regions draw the whole mask on every model rank
+(the ranks of a data index share their generators), and the attention
+probabilities' mask is drawn for all N heads and sliced to the rank's, so
+that a split step equals the unsplit one with dropout on. Remat replays
+the layer, its collectives and its masks alike.
 """
 from __future__ import annotations
 
@@ -89,8 +102,11 @@ from cocodr_tpu_torch.ops.ffn import (
     ffn,
     ffn_block,
     ffn_block_int8,
+    ffn_block_tp,
+    ffn_tp,
     layer_norm_f32,
 )
+from cocodr_tpu_torch.parallel.tp import copy_to_model, reduce_from_model
 
 REMAT_POLICIES = ("", "dots_saveable", "no_save:attn_scores,attn_probs")
 NO_SAVE_SCORES = REMAT_POLICIES[2]
@@ -266,15 +282,21 @@ def linear(x, layer: nn.Linear, dtype):
     return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
 
 
-def dropout(x, p: float, generator: torch.Generator):
+def dropout(x, p: float, generator: torch.Generator, heads=None):
     """flax.linen.Dropout's inverted dropout: each element kept with
     probability 1 - p (a uniform draw from `generator` below 1 - p), kept
-    elements divided by 1 - p in x's dtype, the rest zero."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1 - p
+    elements divided by 1 - p in x's dtype, the rest zero. heads (N, lo):
+    x [B, n, ...] holds heads lo .. lo + n - 1 of N; the mask is drawn for
+    all N heads and sliced, the unsplit mask's rows of those heads."""
+    shape = x.shape if heads is None else (x.shape[0], heads[0],
+                                           *x.shape[2:])
+    keep = torch.rand(shape, generator=generator, device=x.device) < 1 - p
+    if heads is not None:
+        keep = keep[:, heads[1]:heads[1] + x.shape[1]]
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
-def _dropout(module: nn.Module, x, p: float, generator):
+def _dropout(module: nn.Module, x, p: float, generator, heads=None):
     """Dropout of a module in training mode with p > 0; else x."""
     if not module.training or p == 0.0:
         return x
@@ -284,7 +306,19 @@ def _dropout(module: nn.Module, x, p: float, generator):
             "torch.Generator on the input's device>; the port never draws "
             "from the global RNG"
         )
-    return dropout(x, p, generator)
+    if heads is None:
+        return dropout(x, p, generator)
+    return dropout(x, p, generator, heads)
+
+
+def _split_linear(x, layer: nn.Linear, dtype, axis):
+    """A Linear whose input dimension is split over the model axis: the
+    rank's partial product, summed over the axis by g in float32, the
+    bias added once, rounded to dtype (`linear` without an axis)."""
+    if axis is None:
+        return linear(x, layer, dtype)
+    y = reduce_from_model(F.linear(x, layer.weight.to(dtype)).float(), axis)
+    return (y + layer.bias.float()).to(dtype)
 
 
 class BertEmbeddings(nn.Module):
@@ -322,17 +356,21 @@ class BertSelfAttention(nn.Module):
         self.query = nn.Linear(H, H)
         self.key = nn.Linear(H, H)
         self.value = nn.Linear(H, H)
+        self.tp = None  # the model axis (parallel/tp.py) when split
 
     def forward(self, h, attn_bias, generator=None,
                 recompute_scores: bool = False):
         """K8 when attention_impl is 'fused', S % 8 == 0 and no attention
         dropout runs, as in the JAX package; otherwise einsum attention
         (`core`). recompute_scores: the einsum core runs under
-        `checkpointed` (the 'no_save:attn_scores,attn_probs' policy)."""
+        `checkpointed` (the 'no_save:attn_scores,attn_probs' policy).
+        Split (self.tp): this rank's N/M heads -> [B, S, H/M]."""
         cfg = self.cfg
-        B, S, H = h.shape
-        N, D = cfg.num_attention_heads, cfg.head_dim
+        B, S, _ = h.shape
+        D = cfg.head_dim
+        N = self.query.weight.shape[0] // D  # N/M heads when split
         dt = cfg.dtype
+        h = copy_to_model(h, self.tp)
         q = linear(h, self.query, dt).view(B, S, N, D)
         k = linear(h, self.key, dt).view(B, S, N, D)
         v = linear(h, self.value, dt).view(B, S, N, D)
@@ -341,12 +379,12 @@ class BertSelfAttention(nn.Module):
                 and (not self.training or p == 0.0)):
             bias = attn_bias[:, 0, 0, :].contiguous()
             ctx = attention(q, k, v, bias, 1.0 / math.sqrt(D))
-            return ctx.reshape(B, S, H)
+            return ctx.reshape(B, S, N * D)
         if recompute_scores:
             ctx = checkpointed(self.core, generator, q, k, v, attn_bias)
         else:
             ctx = self.core(q, k, v, attn_bias, generator)
-        return ctx.reshape(B, S, H)
+        return ctx.reshape(B, S, N * D)
 
     def core(self, q, k, v, attn_bias, generator):
         """q, k, v [B, S, N, D] -> the context [B, S, N, D]: float32
@@ -360,8 +398,10 @@ class BertSelfAttention(nn.Module):
         m = scores.amax(-1, keepdim=True).detach()
         unnorm = torch.exp(scores - m).to(dt)
         denom = unnorm.float().sum(-1)  # [B, N, S]
+        heads = (None if self.tp is None else
+                 (self.cfg.num_attention_heads, self.tp.rank * q.shape[2]))
         unnorm = _dropout(self, unnorm, self.cfg.attention_probs_dropout_prob,
-                          generator)
+                          generator, heads)
         ctx = torch.einsum("bnqk,bknd->bqnd", unnorm, v)
         return (ctx.float() / denom.transpose(1, 2)[..., None]).to(dt)
 
@@ -399,7 +439,8 @@ class BertOutput(nn.Module):
 
 class BertLayer(nn.Module):
     """One post-LN block: attention, then the half-layer: K1 (or K7), or
-    in training with hidden dropout the semi-fused path."""
+    in training with hidden dropout the semi-fused path. Split over a
+    model axis (self.tp), the split forms (the module docstring)."""
 
     def __init__(self, cfg: BertConfig):
         super().__init__()
@@ -407,6 +448,7 @@ class BertLayer(nn.Module):
         self.attention = BertAttention(cfg)
         self.intermediate = BertIntermediate(cfg)
         self.output = BertOutput(cfg)
+        self.tp = None  # the model axis (parallel/tp.py) when split
 
     def forward(self, h, attn_bias, generator=None,
                 recompute_scores: bool = False):
@@ -414,12 +456,14 @@ class BertLayer(nn.Module):
         dt = cfg.dtype
         p = cfg.hidden_dropout_prob
         ctx = self.attention.self(h, attn_bias, generator, recompute_scores)
-        r = h + _dropout(self, linear(ctx, self.attention.output.dense, dt),
-                         p, generator)
+        r = h + _dropout(self, _split_linear(ctx, self.attention.output.dense,
+                                             dt, self.tp), p, generator)
         B, S, H = r.shape
         ln1, ln2 = self.attention.output.LayerNorm, self.output.LayerNorm
         up, down = self.intermediate.dense, self.output.dense
         hidden_dropout = self.training and p > 0
+        if self.tp is not None:
+            return self._split_half_layer(r, hidden_dropout, generator)
         if cfg.matmul_int8:
             if hidden_dropout:
                 raise ValueError(
@@ -450,6 +494,38 @@ class BertLayer(nn.Module):
         else:
             y = linear(activation(cfg.hidden_act)(linear(x, up, dt)), down,
                        dt)
+        return ln2(x + _dropout(self, y, p, generator))
+
+    def _split_half_layer(self, r, hidden_dropout: bool, generator):
+        """The half-layer on this rank's F/M: the split K1, or the split
+        K5 / the dense pair between f and g, then dropout, the residual
+        and LN2 on the replicated sum."""
+        cfg, axis = self.cfg, self.tp
+        dt, p = cfg.dtype, cfg.hidden_dropout_prob
+        B, S, H = r.shape
+        ln1, ln2 = self.attention.output.LayerNorm, self.output.LayerNorm
+        up, down = self.intermediate.dense, self.output.dense
+        if cfg.matmul_int8:
+            raise ValueError(
+                "matmul_int8 is an inference mode; a split layer trains "
+                "(inference runs from parallel/tp.py::unsplit_copy)")
+        if cfg.ffn_impl == "fused" and not hidden_dropout:
+            out = ffn_block_tp(
+                r.reshape(B * S, H), ln1.weight, ln1.bias,
+                up.weight.to(dt), up.bias.to(dt),
+                down.weight.to(dt), down.bias.to(dt),
+                ln2.weight, ln2.bias, cfg.hidden_act, cfg.layer_norm_eps,
+                axis)
+            return out.view(B, S, H)
+        x = ln1(r)
+        if cfg.ffn_impl == "fused":
+            y = ffn_tp(x.reshape(B * S, H), up.weight.to(dt), up.bias.to(dt),
+                       down.weight.to(dt), down.bias.to(dt), cfg.hidden_act,
+                       axis).view(B, S, H)
+        else:
+            hid = activation(cfg.hidden_act)(
+                linear(copy_to_model(x, axis), up, dt))
+            y = _split_linear(hid, down, dt, axis)
         return ln2(x + _dropout(self, y, p, generator))
 
 

@@ -28,6 +28,7 @@ from cocodr_tpu_torch.losses.dro import DroState
 from cocodr_tpu_torch.models.bert import BertConfig
 from cocodr_tpu_torch.models.dual_encoder import DualEncoderConfig
 from cocodr_tpu_torch.optim import MultiSteps
+from cocodr_tpu_torch.parallel.tp import local_slice, split_state_dict
 
 
 def _t(x) -> torch.Tensor:
@@ -152,17 +153,20 @@ def load_jax_train_state(state, jax_state, cfg: DualEncoderConfig):
     accumulation) goes into the port's optim.MultiSteps: its
     inner_opt_state into the inner Lamb as above, acc_grads, mini_step and
     gradient_step into the wrapper. jax_state.extra, a DroState of the DRO
-    kinds, becomes the port's losses.dro.DroState (None stays None)."""
+    kinds, becomes the port's losses.dro.DroState (None stays None). A
+    model split over a model axis (parallel/tp.py) takes its slices of
+    the parameters, and of the moments and accumulator with them."""
     model, opt = state.model, state.optimizer
     dev = next(model.parameters()).device
-    model.load_state_dict(params_from_jax(jax_state.params, cfg))
+    model.load_state_dict(split_state_dict(
+        model, params_from_jax(jax_state.params, cfg)))
     opt_state = jax_state.opt_state
     if hasattr(opt_state, "inner_opt_state"):  # optax.MultiStepsState
         if not isinstance(opt, MultiSteps):
             raise ValueError("a JAX state with gradient accumulation needs "
                              "an optimizer built with grad_accum_steps > 1")
         acc = params_from_jax(opt_state.acc_grads, cfg)
-        opt.acc = {p: acc[name].to(dev)
+        opt.acc = {p: local_slice(p, acc[name]).to(dev)
                    for name, p in model.named_parameters()}
         opt.mini_step = int(np.asarray(opt_state.mini_step))
         opt.gradient_step = int(np.asarray(opt_state.gradient_step))
@@ -171,8 +175,8 @@ def load_jax_train_state(state, jax_state, cfg: DualEncoderConfig):
     mu = params_from_jax(lamb_state.mu, cfg)
     nu = params_from_jax(lamb_state.nu, cfg)
     for name, p in model.named_parameters():
-        opt.state[p] = {"exp_avg": mu[name].to(dev),
-                        "exp_avg_sq": nu[name].to(dev)}
+        opt.state[p] = {"exp_avg": local_slice(p, mu[name]).to(dev),
+                        "exp_avg_sq": local_slice(p, nu[name]).to(dev)}
     for group in opt.param_groups:
         group["count"] = int(np.asarray(sched_state.count))
     state.step = int(np.asarray(jax_state.step))

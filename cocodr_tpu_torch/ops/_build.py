@@ -46,6 +46,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     "cocodr_ffn_block_bf16": [_P] * 14 + [_I, _I, _I, _I, _F, _P],
     "cocodr_ffn_bf16": [_P] * 7 + [_I, _I, _I, _I, _P],
+    "cocodr_ffn_block_partial_bf16": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
+    "cocodr_ffn_block_finish_bf16": [_P] * 9 + [_I, _I, _F, _P],
+    "cocodr_ffn_partial_bf16": [_P] * 6 + [_I, _I, _I, _I, _P],
+    "cocodr_ffn_finish_bf16": [_P] * 3 + [_I, _I, _P],
     "cocodr_ffn_block_int8": [_P] * 20 + [_I, _I, _I, _I, _F, _P],
     "cocodr_attention_bf16": [_P] * 5 + [_I, _I, _I, _I, _F, _P],
     "cocodr_dual_sweep_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],

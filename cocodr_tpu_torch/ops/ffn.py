@@ -27,6 +27,21 @@ package. K7 is inference only (no int8 gradient), as there.
 
 Weights are in nn.Linear layout: w1 [F, H], w2 [H, F] (the JAX package
 passes the transposes, kernel [H, F] and [F, H]).
+
+The split forms (tensor parallelism, parallel/tp.py): a model rank holds
+F/M rows of w1 and b1 and F/M columns of w2. `ffn_block_tp` and `ffn_tp`
+run the rank's part of K1 and K5 (`fused_ffn_block_partial`,
+`fused_ffn_partial`: the same up GEMM, a down GEMM that writes a float32
+partial [T, H] with no bias and no residual), all-reduce the partials over
+the model axis, and finish after the sum (`fused_ffn_block_finish`:
+(u32 + y) + b2 then LN2; `fused_ffn_finish`: y + b2, rounded once), so
+that b2 and the residual enter once. Their plain versions are
+`ffn_block_partial_reference` / `ffn_block_finish_reference` and
+`ffn_partial_reference` / `ffn_finish_reference`; at M = 1 they compute
+the unsplit plain versions' values. Their backward recomputes the XLA
+formulation on the rank's slices (`xla_ffn_block_tp`), with Megatron's f
+on the FFN's input: the gradient reaching LN1's output is the residual's,
+counted once, plus the sum over the ranks of the FFN's.
 """
 from __future__ import annotations
 
@@ -40,6 +55,7 @@ from cocodr_tpu_torch.ops.int8_matmul import (
     quantize_cols,
     quantize_rows,
 )
+from cocodr_tpu_torch.parallel.tp import copy_to_model, reduce_from_model
 
 ACTIVATIONS = {"gelu": 0, "gelu_new": 1, "relu": 2}
 
@@ -269,6 +285,268 @@ def ffn(x, w1, b1, w2, b2, act: str = "gelu"):
     pallas_ffn.py::ffn): K5 forward (`fused_ffn`), the gradient of
     `xla_ffn`."""
     return _Ffn.apply(x, w1, b1, w2, b2, act)
+
+
+# --- the split forms of K1 (K4) and K5: tensor parallelism ---------------
+
+def ffn_block_partial_reference(r, ln1_scale, ln1_bias, w1, b1, w2,
+                                act: str = "gelu", eps: float = 1e-12):
+    """Plain version of the split K1's part before the all-reduce: LN1,
+    the up GEMM on this rank's w1 [F/M, H], b1, and the down GEMM on its
+    w2 [H, F/M] -> (y, stats): the float32 partial y [T, H] (no bias, no
+    residual) and LN1's (mean, rstd) per row [T, 2], float32."""
+    x = r.float()
+    mean = x.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((x - mean).square().mean(-1, keepdim=True) + eps)
+    u32 = (x - mean) * rstd * ln1_scale.float() + ln1_bias.float()
+    h = activation(act)(u32.to(r.dtype).float() @ w1.float().t()
+                        + b1.float())
+    y = h.to(r.dtype).float() @ w2.float().t()
+    return y, torch.cat([mean, rstd], -1)
+
+
+def ffn_block_finish_reference(r, stats, ln1_scale, ln1_bias, y, b2,
+                               ln2_scale, ln2_bias, eps: float = 1e-12):
+    """Plain version of the split K1's part after the all-reduce: u32
+    recomputed from r and the statistics, z32 = (u32 + y) + b2, then LN2,
+    rounded to r's dtype."""
+    u32 = ((r.float() - stats[:, :1]) * stats[:, 1:] * ln1_scale.float()
+           + ln1_bias.float())
+    z32 = u32 + y + b2.float()
+    return layer_norm_f32(z32, ln2_scale, ln2_bias, eps).to(r.dtype)
+
+
+def _require_split(name, x, w1, b1, w2):
+    """The bf16 operands of a split form's first part -> (T, H, F/M)."""
+    bf16 = (torch.bfloat16,)
+    _build.require_cuda_operand(name, x, bf16, 2)
+    T, H = x.shape
+    Fdim = w1.shape[0]
+    _build.require_cuda_operand("w1", w1, bf16, 2)
+    _build.require_cuda_operand("b1", b1, bf16, 1)
+    _build.require_cuda_operand("w2", w2, bf16, 2)
+    if w1.shape != (Fdim, H) or w2.shape != (H, Fdim) or b1.shape != (Fdim,):
+        raise ValueError(
+            f"weights must be w1 [F, H], b1 [F], w2 [H, F] with H={H}; got "
+            f"{tuple(w1.shape)}, {tuple(b1.shape)}, {tuple(w2.shape)}")
+    _require_widths(T, H, Fdim)
+    return T, H, Fdim
+
+
+def _require_sum(y, b2, T, H):
+    _build.require_cuda_operand("y", y, (torch.float32,), 2)
+    _build.require_cuda_operand("b2", b2, (torch.bfloat16,), 1)
+    if y.shape != (T, H) or b2.shape != (H,):
+        raise ValueError(f"y must be [{T}, {H}] and b2 [{H}]; got "
+                         f"{tuple(y.shape)}, {tuple(b2.shape)}")
+    _require_widths(T, H, 128)
+
+
+def fused_ffn_block_partial(r, ln1_scale, ln1_bias, w1, b1, w2,
+                            act: str = "gelu", eps: float = 1e-12):
+    """The split K1's first part: a CPU tensor takes the plain version; a
+    CUDA tensor launches LN1, the up GEMM and the partial down GEMM (bf16
+    r, w1 [F/M, H], b1, w2 [H, F/M]; H and F/M multiples of 128) or
+    raises. -> (y [T, H] float32, stats [T, 2] float32)."""
+    if r.device.type == "cpu":
+        return ffn_block_partial_reference(r, ln1_scale, ln1_bias, w1, b1,
+                                           w2, act, eps)
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {act}")
+    T, H, Fdim = _require_split("r", r, w1, b1, w2)
+    _require_layer_norms(H, ln1_scale, ln1_bias)
+    dev = r.device
+    y = torch.empty((T, H), dtype=torch.float32, device=dev)
+    stats = torch.empty((T, 2), dtype=torch.float32, device=dev)
+    if T == 0:
+        return y, stats
+    u = torch.empty_like(r)
+    h = torch.empty((T, Fdim), dtype=torch.bfloat16, device=dev)
+    p = _build.ptr
+    err = _build.library().lib.cocodr_ffn_block_partial_bf16(
+        p(r), p(ln1_scale), p(ln1_bias), p(w1), p(b1), p(w2), p(u), p(stats),
+        p(h), p(y), T, H, Fdim, ACTIVATIONS[act], eps, _build.stream_of(r))
+    _build.check(err, "ffn_block partial kernel")
+    fused_ffn_block_partial.launches += 1
+    return y, stats
+
+
+fused_ffn_block_partial.launches = 0
+
+
+def fused_ffn_block_finish(r, stats, ln1_scale, ln1_bias, y, b2, ln2_scale,
+                           ln2_bias, eps: float = 1e-12):
+    """The split K1's part after the all-reduce: a CPU tensor takes the
+    plain version; a CUDA tensor launches the residual + LN2 row pass (y
+    the float32 sum of the ranks' partials, b2 bf16) or raises -> out
+    [T, H] in r's dtype."""
+    if r.device.type == "cpu":
+        return ffn_block_finish_reference(r, stats, ln1_scale, ln1_bias, y,
+                                          b2, ln2_scale, ln2_bias, eps)
+    _build.require_cuda_operand("r", r, (torch.bfloat16,), 2)
+    T, H = r.shape
+    _require_sum(y, b2, T, H)
+    _build.require_cuda_operand("stats", stats, (torch.float32,), 2)
+    _require_layer_norms(H, ln1_scale, ln1_bias, ln2_scale, ln2_bias)
+    out = torch.empty_like(r)
+    if T == 0:
+        return out
+    p = _build.ptr
+    err = _build.library().lib.cocodr_ffn_block_finish_bf16(
+        p(r), p(stats), p(ln1_scale), p(ln1_bias), p(y), p(b2), p(ln2_scale),
+        p(ln2_bias), p(out), T, H, eps, _build.stream_of(r))
+    _build.check(err, "ffn_block finish kernel")
+    fused_ffn_block_finish.launches += 1
+    return out
+
+
+fused_ffn_block_finish.launches = 0
+
+
+def _all_reduce(y, axis):
+    if axis is not None:
+        torch.distributed.all_reduce(y, group=axis.group)
+    return y
+
+
+def fused_ffn_block_tp(r, ln1_scale, ln1_bias, w1, b1, w2, b2, ln2_scale,
+                       ln2_bias, act, eps, axis):
+    """The split half-layer's forward: the rank's partial, the all-reduce
+    of y over the model axis (a parallel/tp.py TpAxis; None: a world of
+    one's sum), the finish."""
+    y, stats = fused_ffn_block_partial(r, ln1_scale, ln1_bias, w1, b1, w2,
+                                       act, eps)
+    return fused_ffn_block_finish(r, stats, ln1_scale, ln1_bias,
+                                  _all_reduce(y, axis), b2, ln2_scale,
+                                  ln2_bias, eps)
+
+
+def xla_ffn_block_tp(r, ln1_scale, ln1_bias, w1, b1, w2, b2, ln2_scale,
+                     ln2_bias, act, eps, axis):
+    """`xla_ffn_block` on a rank's slices: f on the FFN's input, the
+    partial product (no bias) summed over the model axis by g in float32,
+    b2 added once; the formulation whose gradients `ffn_block_tp`
+    returns."""
+    u = layer_norm_f32(r.float(), ln1_scale, ln1_bias, eps).to(r.dtype)
+    h = activation(act)(F.linear(copy_to_model(u, axis), w1, b1))
+    y = reduce_from_model(F.linear(h, w2).float(), axis) + b2.float()
+    return layer_norm_f32((u + y.to(r.dtype)).float(), ln2_scale, ln2_bias,
+                          eps).to(r.dtype)
+
+
+class _FfnBlockTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, s1, c1, w1, b1, w2, b2, s2, c2, act, eps, axis):
+        ctx.save_for_backward(r, s1, c1, w1, b1, w2, b2, s2, c2)
+        ctx.act, ctx.eps, ctx.axis = act, eps, axis
+        return fused_ffn_block_tp(r, s1, c1, w1, b1, w2, b2, s2, c2, act,
+                                  eps, axis)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = recompute_grads(
+            lambda *a: xla_ffn_block_tp(*a, ctx.act, ctx.eps, ctx.axis),
+            ctx.saved_tensors, ctx.needs_input_grad, grad_out)
+        return (*grads, None, None, None)
+
+
+def ffn_block_tp(r, ln1_scale, ln1_bias, w1, b1, w2, b2, ln2_scale, ln2_bias,
+                 act: str = "gelu", eps: float = 1e-12, axis=None):
+    """The split half-layer models/bert.py calls under tensor parallelism:
+    w1 [F/M, H], b1 [F/M], w2 [H, F/M] this rank's slices, the rest whole;
+    the split K1 forward, the gradient of `xla_ffn_block_tp`."""
+    return _FfnBlockTp.apply(r, ln1_scale, ln1_bias, w1, b1, w2, b2,
+                             ln2_scale, ln2_bias, act, eps, axis)
+
+
+def ffn_partial_reference(x, w1, b1, w2, act: str = "gelu"):
+    """Plain version of the split K5's part before the all-reduce: this
+    rank's up GEMM and partial down GEMM -> y [T, H] float32, no bias."""
+    h = activation(act)(x.float() @ w1.float().t() + b1.float())
+    return h.to(x.dtype).float() @ w2.float().t()
+
+
+def ffn_finish_reference(y, b2):
+    """Plain version of the split K5's part after the all-reduce: y + b2
+    in float32, rounded once to b2's dtype."""
+    return (y + b2.float()).to(b2.dtype)
+
+
+def fused_ffn_partial(x, w1, b1, w2, act: str = "gelu"):
+    """The split K5's first part: a CPU tensor takes the plain version; a
+    CUDA tensor launches the up GEMM and the partial down GEMM or raises
+    -> y [T, H] float32."""
+    if x.device.type == "cpu":
+        return ffn_partial_reference(x, w1, b1, w2, act)
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {act}")
+    T, H, Fdim = _require_split("x", x, w1, b1, w2)
+    y = torch.empty((T, H), dtype=torch.float32, device=x.device)
+    if T == 0:
+        return y
+    h = torch.empty((T, Fdim), dtype=torch.bfloat16, device=x.device)
+    p = _build.ptr
+    err = _build.library().lib.cocodr_ffn_partial_bf16(
+        p(x), p(w1), p(b1), p(w2), p(h), p(y), T, H, Fdim, ACTIVATIONS[act],
+        _build.stream_of(x))
+    _build.check(err, "ffn partial kernel")
+    fused_ffn_partial.launches += 1
+    return y
+
+
+fused_ffn_partial.launches = 0
+
+
+def fused_ffn_finish(y, b2):
+    """The split K5's part after the all-reduce: a CPU tensor takes the
+    plain version; a CUDA tensor launches the bias-and-round pass or
+    raises -> bf16(y + b2) [T, H]."""
+    if y.device.type == "cpu":
+        return ffn_finish_reference(y, b2)
+    T, H = y.shape
+    _require_sum(y, b2, T, H)
+    out = torch.empty((T, H), dtype=torch.bfloat16, device=y.device)
+    if T == 0:
+        return out
+    p = _build.ptr
+    err = _build.library().lib.cocodr_ffn_finish_bf16(
+        p(y), p(b2), p(out), T, H, _build.stream_of(y))
+    _build.check(err, "ffn finish kernel")
+    fused_ffn_finish.launches += 1
+    return out
+
+
+fused_ffn_finish.launches = 0
+
+
+def fused_ffn_tp(x, w1, b1, w2, b2, act, axis):
+    """The split FFN's forward: the rank's partial, the all-reduce over
+    the model axis, y + b2."""
+    return fused_ffn_finish(_all_reduce(fused_ffn_partial(x, w1, b1, w2,
+                                                          act), axis), b2)
+
+
+class _FfnTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, act, axis):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        ctx.act, ctx.axis = act, axis
+        return fused_ffn_tp(x, w1, b1, w2, b2, act, axis)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        # g's backward is the identity: the rank's own xla_ffn (its b2
+        # gradient is the whole one) with f on x, which sums x's gradient
+        grads = recompute_grads(
+            lambda x, *w: xla_ffn(copy_to_model(x, ctx.axis), *w, ctx.act),
+            ctx.saved_tensors, ctx.needs_input_grad, grad_out)
+        return (*grads, None, None)
+
+
+def ffn_tp(x, w1, b1, w2, b2, act: str = "gelu", axis=None):
+    """The split FFN of the dropout path under tensor parallelism: the
+    split K5 forward, the gradient of the rank's `xla_ffn` with f on x."""
+    return _FfnTp.apply(x, w1, b1, w2, b2, act, axis)
 
 
 # --- K7: the W8A8 half-layer ----------------------------------------------

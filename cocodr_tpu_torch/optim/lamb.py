@@ -12,7 +12,10 @@ optax.lamb:
 
 The trust ratio is per tensor. The JAX package stacks the encoder's layers
 into [L, ...] leaves and takes one ratio per layer slice of them; the port
-holds one tensor per layer, which is the same thing.
+holds one tensor per layer, which is the same thing. A parameter split
+over a model axis (parallel/tp.py) takes the norms of its whole tensor:
+the squared norms of the ranks' slices are summed over the axis, then
+the weight norm is clamped to [0, 10].
 
 The learning rate is a float or a schedule of the update count, read at
 the count before it increments, as optax's `scale_by_learning_rate` reads
@@ -24,6 +27,8 @@ from __future__ import annotations
 from typing import Callable, Union
 
 import torch
+
+from cocodr_tpu_torch.parallel.tp import model_sum_sq, split_axis
 
 
 class Lamb(torch.optim.Optimizer):
@@ -87,9 +92,15 @@ def lamb_update(params, grads, ms, vs, b1, b2, eps, wd, adam):
 
 def trust_ratios(params, update):
     """clip(|p|, 0, 10) / |update| per tensor, as 0-dim tensors; 1 where
-    either norm is 0 (no host sync)."""
-    w = torch.stack(torch._foreach_norm(params)).clamp(0.0, 10.0)
+    either norm is 0 (no host sync). Split parameters: the norms of the
+    whole tensors (one all-reduce over the model axis)."""
+    w = torch.stack(torch._foreach_norm(params))
     a = torch.stack(torch._foreach_norm(update))
+    if split_axis(params) is not None:
+        n = len(params)
+        sq = model_sum_sq(params + params, torch.cat([w, a]).square())
+        w, a = sq[:n].sqrt(), sq[n:].sqrt()
+    w = w.clamp(0.0, 10.0)
     trust = torch.where((w == 0) | (a == 0), torch.ones_like(w),
                         w / a.clamp_min(1e-38))
     return list(trust.unbind())

@@ -14,7 +14,8 @@ between hosts; this module keeps them apart:
   (an all-gather of only [Q, k] a host over `replica`).
 
 Training needs nothing more: the gradient all-reduce of
-parallel/sharded_train.py runs over the whole world.
+parallel/sharded_train.py runs over each model column of the world, and
+the model axis (parallel/tp.py) over consecutive ranks of one host.
 """
 from __future__ import annotations
 
@@ -44,18 +45,13 @@ def hybrid_mesh(data: int = -1, model: int = 1,
     world (a world of one is made when there is none, as in
     core/mesh.py::create_mesh). `replica` spans hosts (n_slices()), or
     `force_replicas` groups of consecutive ranks, which splits one host's
-    ranks into pseudo-hosts for tests; data=-1 fills each host's ranks. A
-    model axis above 1 raises NotImplementedError (ROADMAP.md Queue 1
-    item 11c)."""
+    ranks into pseudo-hosts for tests; data=-1 fills each host's ranks.
+    Within a replica the layout is create_mesh's: the `model` ranks of one
+    data index are consecutive, so tensor parallelism stays on a host."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from cocodr_tpu_torch.core.mesh import ensure_world
 
-    if model > 1:
-        raise NotImplementedError(
-            f"a model axis of {model} (tensor parallelism) is not ported: "
-            "ROADMAP.md Queue 1 item 11c"
-        )
     dev_type = ensure_world(device).type
     n_dev = dist.get_world_size()
     reps = force_replicas or n_slices()

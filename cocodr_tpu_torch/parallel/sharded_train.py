@@ -11,6 +11,13 @@ global batch's math explicitly: the gradients' mean over the ranks
 DRO group statistics from gathered data, the contrastive candidates from
 every rank. Parameters, optimizer state and DroState stay bit-identical
 on every rank.
+
+With a model axis above 1 (tensor parallelism, parallel/tp.py) each rank
+holds its slices of every BertLayer's split weights and their optimizer
+state instead: the world's rank 0 supplies the whole parameters, which
+every rank receives and cuts to its slices. The M ranks of one data index
+take the same rows, and the gradients are averaged over each rank's data
+axis, its model column (the ranks that hold the same slices).
 """
 from __future__ import annotations
 
@@ -20,16 +27,23 @@ import torch.distributed as dist
 from cocodr_tpu_torch.core.mesh import (
     data_group,
     data_size,
+    model_size,
     psum,
     shard_batch,
 )
+from cocodr_tpu_torch.parallel.tp import shard_params_tp, split_optimizer_
 from cocodr_tpu_torch.utils.train_state import TrainState
 
 
 def _broadcast(tensors, mesh) -> None:
-    """Rank 0's values of `tensors` to every rank, in place."""
-    group = data_group(mesh)
-    src = dist.get_global_rank(group, 0)
+    """Rank 0's values of `tensors` to every rank, in place: over the data
+    axis, or over the whole world when the model axis splits (the ranks
+    then cut their slices from the whole tensors)."""
+    if model_size(mesh) > 1:
+        group, src = None, 0
+    else:
+        group = data_group(mesh)
+        src = dist.get_global_rank(group, 0)
     for t in tensors:
         dist.broadcast(t.data, src=src, group=group)
 
@@ -55,10 +69,12 @@ def shard_train_init(mesh, model, tx, extra=None):
     model: a torch module on this rank's device; tx: its optimizer (over
     model.parameters()); extra: the DRO kinds' DroState. The parameters and
     the DroState are broadcast from rank 0, so every rank starts from
-    rank 0's values; put_batch(host batch) gives this rank's rows on the
-    model's device (core/mesh.py::shard_batch). A model axis above 1 never
-    reaches here (create_mesh refuses it)."""
+    rank 0's values; with a model axis above 1 each rank then cuts its
+    slices (parallel/tp.py::shard_params_tp, in place: tx keeps its
+    Parameters). put_batch(host batch) gives this rank's rows on the
+    model's device (core/mesh.py::shard_batch)."""
     _broadcast(list(model.parameters()) + _extra_tensors(extra), mesh)
+    shard_params_tp(model, mesh)
     state = TrainState(model, tx, extra=extra, mesh=mesh)
     device = next(model.parameters()).device
     return state, _batch_putter(mesh, device)
@@ -68,11 +84,15 @@ def shard_train_setup(mesh, state: TrainState):
     """Make a loaded or converted TrainState (utils/train_state.py, or
     models/convert.py::load_jax_train_state) data-parallel over the mesh:
     rank 0's parameters, optimizer state and DroState broadcast to every
-    rank -> (state, put_batch)."""
+    rank; with a model axis above 1 each rank then cuts its slices of the
+    split parameters and of their optimizer state -> (state, put_batch).
+    The state holds whole tensors here (a loaded or converted state)."""
     opt_tensors = [v for st in state.optimizer.state.values()
                    for v in st.values() if isinstance(v, torch.Tensor)]
     _broadcast(list(state.model.parameters()) + opt_tensors
                + _extra_tensors(state.extra), mesh)
+    shard_params_tp(state.model, mesh)
+    split_optimizer_(state.optimizer)
     state.mesh = mesh
     device = next(state.model.parameters()).device
     return state, _batch_putter(mesh, device)

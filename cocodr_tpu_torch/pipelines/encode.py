@@ -20,7 +20,6 @@ batch's embeddings in order: the outputs equal a single device's.
 """
 from __future__ import annotations
 
-import copy
 import dataclasses
 from typing import Callable, Optional
 
@@ -31,6 +30,7 @@ from cocodr_tpu_torch.core.mesh import data_rank, data_size, gather_rows
 from cocodr_tpu_torch.data.prefetch import prefetch
 from cocodr_tpu_torch.models.bert import cast_matmul_weights
 from cocodr_tpu_torch.ops._device import resolve_device
+from cocodr_tpu_torch.parallel.tp import unsplit_copy
 from cocodr_tpu_torch.utils.misc import add_embedding_noise
 
 
@@ -47,8 +47,10 @@ def inference_copy(model, device):
     on `device`, in eval mode, without .grad or requires_grad, its matmul
     weights cast to the compute dtype (`cast_matmul_weights`). The caller's
     model keeps its float32 Parameters, their values and its train/eval
-    mode."""
-    out = copy.deepcopy(model)
+    mode. A model split over a model axis (parallel/tp.py) is copied whole,
+    its slices gathered (every model rank calls this together): inference
+    replicates the weights, as the JAX package's does."""
+    out = unsplit_copy(model)
     for p in out.parameters():
         p.grad = None
     out.requires_grad_(False)

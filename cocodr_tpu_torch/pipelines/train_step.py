@@ -56,6 +56,13 @@ groups; iDRO's rows against the global counts, summed over the ranks
 (losses/dro.py's axis forms; the rows take float32 rows, not the Gram);
 the metrics those of the global batch.
 
+Tensor parallelism (a mesh whose model axis is above 1, parallel/tp.py):
+the clip's global norm sums the split parameters' squared norms over the
+model axis and counts the replicated ones once; the iDRO group pass puts
+the split parameters' columns first in its rows and sums their part of
+the row norms and Gram entries over the model axis (losses/dro.py's
+`split`), so the weight update is the unsplit model's.
+
 Every loss kind reaches every parameter of the dual encoder (both towers
 and poolers of a two-tower model), so the port's Lamb, which skips a None
 gradient where optax would decay the moments, updates every parameter as
@@ -84,6 +91,7 @@ from cocodr_tpu_torch.parallel.sharded_train import (
     average_gradients,
     mean_over_ranks,
 )
+from cocodr_tpu_torch.parallel.tp import model_sum_sq, split_axis, split_dim
 from cocodr_tpu_torch.utils.train_state import TrainState
 
 DRO_KINDS = ("dro-greedy", "idro")
@@ -184,9 +192,12 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
     """optax.clip_by_global_norm on the .grad of params, in place: the
     gradients stay as they are when their global norm is below max_norm,
     else each becomes g / norm * max_norm (torch's clip_grad_norm_
-    multiplies by max_norm / (norm + 1e-6) instead). -> the norm."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+    multiplies by max_norm / (norm + 1e-6) instead). A split parameter's
+    squared norm is summed over its model axis first. -> the norm."""
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    sq = torch.stack([g.float().square().sum() for g in grads])
+    norm = model_sum_sq(params, sq).sum().sqrt()
     keep = norm < max_norm
     one = torch.ones_like(norm)
     div = torch.where(keep, one, norm)
@@ -216,14 +227,26 @@ def last_k_layers(model, k: int) -> list:
     diff["q"] and diff["d"]): a model no deeper than k gives every layer,
     as the reference's last-k selection degenerates to the whole stack
     (the JAX package clamps K to the depth the same way). Poolers and
-    heads stay out, as in the JAX group passes."""
+    heads stay out, as in the JAX group passes. A split model's split
+    parameters come first, in the same order (`split_columns`)."""
     if k <= 0:
         raise ValueError("idro needs idro_last_k_layers > 0")
     towers = [model.encoder]
     if getattr(model, "doc_encoder", None) is not None:
         towers.append(model.doc_encoder)
-    return [p for tower in towers for layer in tower.encoder.layer[-k:]
-            for p in layer.parameters()]
+    params = [p for tower in towers for layer in tower.encoder.layer[-k:]
+              for p in layer.parameters()]
+    return ([p for p in params if split_dim(p) is not None]
+            + [p for p in params if split_dim(p) is None])
+
+
+def split_columns(params):
+    """(the row columns that split parameters fill, first, their model
+    axis) for losses/dro.py's `split`; None for a whole model."""
+    axis = split_axis(params)
+    if axis is None:
+        return None
+    return sum(p.numel() for p in params if split_dim(p) is not None), axis
 
 
 @contextlib.contextmanager
@@ -258,7 +281,8 @@ def group_gram(model, losses, groups, cfg: TrainStepConfig):
     """The [G, G] float32 Gram matrix of the group rows: one product per
     group present against the last K layers' parameters, in float32."""
     params = last_k_layers(model, cfg.idro_last_k_layers)
-    return gram(per_group_grads(losses, params, groups, cfg.dro.n_groups))
+    return gram(per_group_grads(losses, params, groups, cfg.dro.n_groups),
+                split_columns(params))
 
 
 def idro_group_pass(model, losses, groups, dstate, cfg: TrainStepConfig):
@@ -268,12 +292,12 @@ def idro_group_pass(model, losses, groups, dstate, cfg: TrainStepConfig):
     rows themselves in idro_lane_grad_dtype for the lane config and the
     models the JAX package sends to its lane step (`lane_group_pass`)."""
     if lane_group_pass(model, cfg):
+        params = last_k_layers(model, cfg.idro_last_k_layers)
         rows = per_group_grads(
-            losses, last_k_layers(model, cfg.idro_last_k_layers), groups,
-            cfg.dro.n_groups,
+            losses, params, groups, cfg.dro.n_groups,
             store_dtype=getattr(torch, cfg.idro_lane_grad_dtype))
         return idro_loss(losses.detach(), groups, dstate, cfg.dro,
-                         group_grads=rows)
+                         group_grads=rows, split=split_columns(params))
     return idro_loss(losses.detach(), groups, dstate, cfg.dro,
                      group_gram=group_gram(model, losses, groups, cfg))
 
@@ -304,12 +328,13 @@ def idro_group_pass_dp(model, losses, groups, dstate, cfg: TrainStepConfig,
     counts = _segment_sum(torch.ones_like(losses.detach()), groups, G)
     store = (getattr(torch, cfg.idro_lane_grad_dtype)
              if lane_group_pass(model, cfg) else None)
-    rows = per_group_grads(
-        losses, last_k_layers(model, cfg.idro_last_k_layers), groups, G,
-        store_dtype=store, counts=psum(counts, mesh))
+    params = last_k_layers(model, cfg.idro_last_k_layers)
+    rows = per_group_grads(losses, params, groups, G, store_dtype=store,
+                           counts=psum(counts, mesh))
     _, new_state, (gl_agg, gc) = idro_loss(losses.detach(), groups, dstate,
                                            cfg.dro, group_grads=rows,
-                                           axis_name=mesh)
+                                           axis_name=mesh,
+                                           split=split_columns(params))
     return (gl_agg * dstate.h_fun).sum(), new_state, (gl_agg, gc)
 
 

@@ -115,20 +115,33 @@ def lamb_trust_ratios(optimizer, model) -> dict:
     current moments: clip(|p|, 0, 10) / |m / (sqrt(v) + 1e-6)|, 1 where
     either norm is 0, by parameter name. optimizer: an optim.lamb.Lamb or
     a MultiSteps around one; {} for another optimizer or before the first
-    update."""
+    update. A parameter split over a model axis (parallel/tp.py) takes the
+    norms of its whole tensor: every model rank calls this together."""
     from cocodr_tpu_torch.optim.lamb import Lamb
+    from cocodr_tpu_torch.parallel.tp import model_sum_sq
 
     inner = getattr(optimizer, "inner", optimizer)
     if not isinstance(inner, Lamb):
         return {}
-    out = {}
+    names, params, sq = [], [], []
     with torch.no_grad():
         for name, p in model.named_parameters():
             st = inner.state.get(p)
             if not st:
                 continue
             adam = st["exp_avg"] / (st["exp_avg_sq"].sqrt() + 1e-6)
-            wn = float(p.float().norm().clamp(0.0, 10.0))
-            an = float(adam.float().norm())
-            out[name] = 1.0 if wn == 0 or an == 0 else wn / an
+            names.append(name)
+            params.append(p)
+            sq.append(torch.stack([p.float().square().sum(),
+                                   adam.float().square().sum()]))
+        if not names:
+            return {}
+        norms = torch.stack(sq)  # [n, 2]
+        n = len(params)
+        norms = model_sum_sq(params + params,
+                             norms.t().reshape(-1)).view(2, n).sqrt()
+    out = {}
+    for name, wn, an in zip(names, norms[0].tolist(), norms[1].tolist()):
+        wn = min(max(wn, 0.0), 10.0)
+        out[name] = 1.0 if wn == 0 or an == 0 else wn / an
     return out

@@ -9,7 +9,10 @@ discovery skips. The payload is the port's own: `state.pt`, a `torch.save`
 of the step, the model's state dict, the optimizer's state dict and the
 DRO state's tensors when the state carries one (not an orbax tree).
 `models/convert.py::load_jax_train_state` takes a JAX TrainState into a
-port state instead. `AsyncSaver` writes the same checkpoints on a
+port state instead. A tensor-parallel state (parallel/tp.py) saves the
+whole tensors, gathered over the model axis, as the JAX package's
+jax.device_get(state) does: a checkpoint is the same file whatever the
+mesh, and a load cuts each split parameter's slices from it. `AsyncSaver` writes the same checkpoints on a
 background thread. `export_hf_bert` writes a model as a HuggingFace
 checkpoint directory, the files the JAX package's export writes.
 """
@@ -28,6 +31,13 @@ from torch import nn
 
 from cocodr_tpu_torch.core.mesh import barrier, is_writer
 from cocodr_tpu_torch.losses.dro import DroState
+from cocodr_tpu_torch.parallel.tp import (
+    gather_optimizer_state,
+    gather_params_tp,
+    is_split,
+    split_optimizer_state,
+    split_state_dict,
+)
 
 CKPT_PREFIX = "checkpoint-"
 DONE_MARKER = "DONE"  # written last
@@ -59,12 +69,16 @@ def _ckpt_dir(root: str, step: int) -> str:
 
 
 def _payload(state: TrainState) -> dict:
+    """What a checkpoint holds; a split model's tensors gathered whole (a
+    collective over the model axis: every rank builds the payload)."""
     extra = (None if state.extra is None
              else {f.name: getattr(state.extra, f.name)
                    for f in dataclasses.fields(state.extra)})
-    return {"step": state.step,
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
+    model, opt = state.model.state_dict(), state.optimizer.state_dict()
+    if is_split(state.model):
+        model = gather_params_tp(state.model)
+        opt = gather_optimizer_state(state.optimizer, opt)
+    return {"step": state.step, "model": model, "optimizer": opt,
             "extra": extra}
 
 
@@ -89,9 +103,13 @@ def _commit(root: str, path: str, payload: dict, keep: int) -> None:
 def save_checkpoint(root: str, state: TrainState, keep: int = 0) -> str:
     """Payload first, DONE marker last; then keep only the newest `keep`
     checkpoints (0 keeps all). In a data-parallel run rank 0 writes and
-    every rank waits for it at a barrier."""
-    if is_writer(state.mesh):
-        _commit(root, _fresh_dir(root, state.step), _payload(state), keep)
+    every rank waits for it at a barrier (a tensor-parallel one first
+    gathers the payload on every rank)."""
+    writer = is_writer(state.mesh)
+    if writer or is_split(state.model):
+        payload = _payload(state)
+    if writer:
+        _commit(root, _fresh_dir(root, state.step), payload, keep)
     barrier(state.mesh)
     return _ckpt_dir(root, state.step)
 
@@ -130,10 +148,12 @@ class AsyncSaver:
         ann-progress record) goes there. In a data-parallel run only rank
         0 writes (and runs on_complete)."""
         self.wait()
-        if not is_writer(state.mesh):
+        writer = is_writer(state.mesh)
+        if writer or is_split(state.model):
+            payload = _host_copy(_payload(state))
+        if not writer:
             return _ckpt_dir(root, state.step)
         path = _fresh_dir(root, state.step)
-        payload = _host_copy(_payload(state))
 
         def commit():
             try:
@@ -187,12 +207,17 @@ def prune_checkpoints(root: str, keep: int):
 
 def load_checkpoint(path: str, state: TrainState) -> TrainState:
     """Load a checkpoint into `state`'s model and optimizer (in place, on
-    the devices they are on) and set its step and DRO state; -> state."""
+    the devices they are on) and set its step and DRO state; -> state. A
+    split model takes its slices of the checkpoint's whole tensors."""
     dev = next(state.model.parameters()).device
     payload = torch.load(os.path.join(path, PAYLOAD), map_location=dev,
                          weights_only=True)
-    state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    model_sd, opt_sd = payload["model"], payload["optimizer"]
+    if is_split(state.model):
+        model_sd = split_state_dict(state.model, model_sd)
+        opt_sd = split_optimizer_state(state.optimizer, opt_sd)
+    state.model.load_state_dict(model_sd)
+    state.optimizer.load_state_dict(opt_sd)
     state.step = int(payload["step"])
     extra = payload.get("extra")
     state.extra = None if extra is None else DroState(**extra)
@@ -213,9 +238,13 @@ def export_hf_bert(state_dict, cfg, out_dir: str, head_params=None,
     `ctx_model.`; extra_state's tensors join them (a Condenser's MLM head).
     head_params (a Condenser's `c_head.*`) go to model.pt (reference
     COCO/modeling.py:123-131). config.json records the backbone and its
-    flavour (bert or roberta positions), so that a reload rebuilds it."""
+    flavour (bert or roberta positions), so that a reload rebuilds it.
+    state_dict may be the model itself: a split one's tensors are gathered
+    whole (a collective: every model rank calls it)."""
     from cocodr_tpu_torch.models.hf import state_dict_to_hf
 
+    if isinstance(state_dict, nn.Module):
+        state_dict = gather_params_tp(state_dict)
     bert = cfg.bert
     roberta = bert.position_style == "roberta"
     os.makedirs(out_dir, exist_ok=True)

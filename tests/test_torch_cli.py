@@ -365,8 +365,10 @@ def test_load_model_heads_towers_and_weights(hf_checkpoint, tmp_path):
 def test_what_the_cli_leaves_raises(hf_checkpoint, encoded, monkeypatch,
                                    capsys):
     """--mesh, --distributed and --cpu-devices 2 raised here until the
-    multi-device slice (item 11a): a model axis above 1 now names item
-    11c, --distributed outside torchrun's environment raises for want of
+    multi-device slices: a 4x2 mesh over the one process of --cpu-devices
+    1 raises MeshConfig.resolve's ValueError before any world is made (a
+    model axis runs: tests/test_torch_cli_mesh.py), --distributed outside
+    torchrun's environment raises for want of
     its RANK, and --cpu-devices 2 without a mesh runs on the CPU, one
     process, as the JAX CLI leaves its extra devices unused (the mesh
     runs: tests/test_torch_cli_mesh.py); without a card and without
@@ -378,8 +380,9 @@ def test_what_the_cli_leaves_raises(hf_checkpoint, encoded, monkeypatch,
     _, rec, npy, _ = encoded
     base = ["encode", "--checkpoint", hf_checkpoint, "--records",
             rec + "/passages", "--out", npy + ".x"]
-    with pytest.raises(NotImplementedError, match="item 11c"):
+    with pytest.raises(ValueError, match="mesh 4x2 != 1 devices"):
         cli.main(base + ["--mesh", "4x2", "--cpu-devices", "1"])
+    assert not dist.is_initialized()
     for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(var, raising=False)
     with pytest.raises(ValueError, match="RANK"):

@@ -9,8 +9,11 @@ order), metrics 1e-6, ann files byte-equal. Rank 0 alone prints: one JSON
 line a step, as the JAX CLI's single controller prints. Beside them:
 encode, serve --queries and serve --http over two ranks (rank 0 sends
 each query batch to the other), --distributed joining a world
-that torchrun's variables describe, and the refusals of a model axis and
-of a mesh the world does not fill."""
+that torchrun's variables describe, a mesh the world does not fill
+refused, and a model axis (tensor parallelism): warmup at --mesh 2x2 over
+four ranks against the JAX CLI's --mesh 4x2 (1e-5), ance and encode at
+--mesh 1x2 against the single-device CLI (the mined ann file and the
+encodes byte-equal: inference runs on whole weights)."""
 import json
 import os
 import signal
@@ -38,6 +41,7 @@ torch.set_num_threads(1)
 TOL = dict(rtol=1e-5, atol=1e-5)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESH2 = ["--cpu-devices", "2", "--mesh", "2x1"]
+TP2 = ["--cpu-devices", "2", "--mesh", "1x2"]
 
 
 def run_cli(args, check=True, **env_vars):
@@ -275,14 +279,69 @@ def test_distributed_joins_the_environments_world(hf_checkpoint, tmp_path,
             == np.load(tmp_path / "one.npy").tobytes())
 
 
-def test_a_model_axis_raises_naming_item_11c(hf_checkpoint, tmp_path):
-    """--mesh 4x2 is tensor parallelism: refused before any world is
-    made."""
-    task = write_beir(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        cli.main(["eval-beir", "--data-dir", task, "--work-dir",
-                  str(tmp_path / "w"), "--checkpoint", hf_checkpoint,
-                  "--mesh", "4x2", *CPU])
+def test_warmup_on_a_model_axis_matches_the_jax_cli(hf_checkpoint, tmp_path,
+                                                    capsys):
+    """warmup --mesh 2x2 over four ranks (--cpu-devices 4: data 2, the
+    layers split over model 2) against the JAX CLI's --mesh 4x2 (its
+    shard_train_init splits the same layers by GSPMD) at the same global
+    batch of 4, 3 steps, --no-dropout: the step losses and checkpoint-3's
+    parameters (a whole checkpoint) within 1e-5 of the JAX CLI's."""
+    import orbax.checkpoint as ocp
+
+    from cocodr_tpu.cli import main as jax_main
+    from cocodr_tpu_torch.models import convert
+
+    triples = write_triples(tmp_path)
+    warm = ["warmup", "--triples", triples, "--checkpoint", hf_checkpoint,
+            "--batch-size", "4", "--max-steps", "3", "--max-seq-len", "16",
+            "--log-every", "1", "--no-dropout", "--compile-cache", ""]
+    jax_main(warm + ["--ckpt-dir", str(tmp_path / "jax"), "--mesh", "4x2"])
+    want = [r["loss"] for r in json_lines(capsys.readouterr().out)
+            if "loss" in r]
+    p = run_cli(warm + ["--ckpt-dir", str(tmp_path / "tp"),
+                        "--cpu-devices", "4", "--mesh", "2x2"])
+    got = json_lines(p.stdout)
+    assert [r["step"] for r in got] == [1, 2, 3]
+    np.testing.assert_allclose([r["loss"] for r in got], want, **TOL)
+    raw = ocp.PyTreeCheckpointer().restore(os.path.abspath(os.path.join(
+        latest_checkpoint(str(tmp_path / "jax")), "state")))
+    model = cli._load_model(hf_checkpoint, "rdot_nll_condenser",
+                            torch.device("cpu"))
+    jax_sd = convert.params_from_jax(raw["params"], model.cfg)
+    _params_close(_payload(tmp_path / "tp")["model"], jax_sd)
+
+
+def test_ance_and_encode_on_a_model_axis(hf_checkpoint, tmp_path, capsys):
+    """ance (one round: mine, 2 nll steps, --no-dropout) and encode at
+    --mesh 1x2 (--cpu-devices 2): the round mines from whole weights (the
+    ann file byte-equal to the single-device run's, its dev metrics
+    1e-6), trains the split layers (the parameters after it 1e-5, the
+    checkpoint whole); encode's .npy equals the single-device one byte for
+    byte."""
+    data = write_marco(tmp_path)
+    args = ["ance", "--data-dir", str(data), "--checkpoint", hf_checkpoint,
+            "--rounds", "1", "--steps-per-round", "2", "--batch-size", "8",
+            "--loss-kind", "nll", "--no-dropout"]
+    cli.main(args + ["--ckpt-dir", str(tmp_path / "one"), *CPU])
+    (want,) = [r for r in json_lines(capsys.readouterr().out) if "round" in r]
+    p = run_cli(args + ["--ckpt-dir", str(tmp_path / "tp"), *TP2])
+    (got,) = [r for r in json_lines(p.stdout) if "round" in r]
+    for k, v in want.items():
+        if k != "seconds" and not k.startswith("time_"):
+            np.testing.assert_allclose(got[k], v, rtol=1e-6, err_msg=k)
+    name = "ann_data/ann_training_data_0"
+    assert (open(tmp_path / "tp" / name).read()
+            == open(tmp_path / "one" / name).read())
+    _params_close(_payload(tmp_path / "tp")["model"],
+                  _payload(tmp_path / "one")["model"])
+
+    rec, _ = _records(hf_checkpoint, tmp_path)
+    enc = ["encode", "--checkpoint", hf_checkpoint, "--records",
+           rec + "/passages", "--batch-size", "8"]
+    cli.main(enc + ["--out", str(tmp_path / "one.npy"), *CPU])
+    run_cli(enc + ["--out", str(tmp_path / "tp.npy"), *TP2])
+    assert (np.load(tmp_path / "tp.npy").tobytes()
+            == np.load(tmp_path / "one.npy").tobytes())
 
 
 def test_a_mesh_the_world_does_not_fill_raises(hf_checkpoint, tmp_path):

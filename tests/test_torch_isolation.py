@@ -39,6 +39,7 @@ MODULES = [
     "cocodr_tpu_torch.parallel.topk",
     "cocodr_tpu_torch.parallel.multihost",
     "cocodr_tpu_torch.parallel.sharded_train",
+    "cocodr_tpu_torch.parallel.tp",
     "cocodr_tpu_torch.pipelines.encode",
     "cocodr_tpu_torch.pipelines.serve",
     "cocodr_tpu_torch.pipelines.train_step",

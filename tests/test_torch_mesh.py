@@ -2,7 +2,8 @@
 against the JAX package's cocodr_tpu/core/mesh.py: MeshConfig.resolve over
 a grid with its errors, the rows shard_batch gives each rank against the
 shards a P("data") placement gives each JAX device (exactly equal), the
-model axis refused naming ROADMAP.md item 11c, and the spawner failing a
+model axis's meshes against the JAX package's layout, and the spawner
+failing a
 world whose rank dies or hangs within its join timeout. The JAX side runs
 on tests/conftest.py's 8 fake CPU devices; the port's ranks are spawned
 gloo processes (tests/torch_mesh_workers.py), one world of each size for
@@ -45,7 +46,8 @@ def test_resolve_matches_jax(data, model, n):
 def world(request, tmp_path_factory):
     W = request.param
     cases = [("world", {}), ("shard_rows", {"batch": BATCH}),
-             ("shard_error", {"batch": {"x": np.zeros((W + 1, 2))}})]
+             ("shard_error", {"batch": {"x": np.zeros((W + 1, 2))}}),
+             ("tp_mesh", {})]
     return W, tmesh.spawn(workers.run_cases, W,
                           str(tmp_path_factory.mktemp(f"store{W}")), cases)
 
@@ -54,7 +56,7 @@ def test_spawned_world_and_mesh(world):
     """Every rank sees the world's size and its own rank; the mesh's data
     axis fills the world."""
     W, out = world
-    for r, (info, _, _) in enumerate(out):
+    for r, (info, _, _, _) in enumerate(out):
         assert info == {"rank": r, "size": W, "data": W}
 
 
@@ -66,7 +68,7 @@ def test_shard_batch_rows_equal_jax_placement(world):
     for key, x in BATCH.items():
         placed = jax.device_put(x, NamedSharding(mesh, P("data")))
         shards = sorted(placed.addressable_shards, key=lambda s: s.device.id)
-        for r, (_, rows, _) in enumerate(out):
+        for r, (_, rows, _, _) in enumerate(out):
             np.testing.assert_array_equal(rows[key], np.asarray(shards[r].data))
 
 
@@ -77,19 +79,37 @@ def test_shard_batch_refuses_a_batch_the_axis_does_not_divide(world):
     mesh = Mesh(np.asarray(jax.devices()[:W]).reshape(W), ("data",))
     with pytest.raises(ValueError):
         jax.device_put(np.zeros((W + 1, 2)), NamedSharding(mesh, P("data")))
-    for _, _, err in out:
+    for _, _, err, _ in out:
         assert f"of {W + 1} rows does not split over {W} devices" in err
 
 
-def test_model_axis_raises_naming_item_11c():
-    """A model axis above 1 is tensor parallelism: refused before any world
-    is made, by create_mesh and by hybrid_mesh."""
-    from cocodr_tpu_torch.parallel.multihost import hybrid_mesh
+def test_model_axis_meshes_match_the_jax_layout(world):
+    """A model axis of 2 over W ranks: create_mesh(MeshConfig(model=2))
+    is (W/2, 2), as the JAX create_mesh over W devices
+    (tests/test_sharded_train.py's case); rank d * 2 + m sits at (d, m),
+    the JAX devices.reshape(data, model) layout, so its model group is the
+    consecutive ranks {2d, 2d + 1}, and both get the rows of data index d
+    (a P("data") placement replicates them over "model"). hybrid_mesh with
+    a model axis of 2 is (1, W/2, 2) (tests/test_multihost.py's
+    (1, 4, 2) over 8), and at W = 4 with 2 forced replicas (2, 1, 2)."""
+    from cocodr_tpu.core.mesh import create_mesh as jax_create_mesh
 
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        tmesh.create_mesh(tmesh.MeshConfig(data=1, model=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        hybrid_mesh(data=1, model=2, device="cpu")
+    W, out = world
+    jmesh = jax_create_mesh(JaxMeshConfig(model=2), jax.devices()[:W])
+    ids = np.asarray([[d.id for d in row] for row in jmesh.devices])
+    for r, (_, _, _, tp) in enumerate(out):
+        assert tp["shape"] == tuple(jmesh.devices.shape) == (W // 2, 2)
+        assert tp["names"] == ("data", "model")
+        d, m = tp["place"]
+        assert ids[d, m] == r
+        assert tp["model_size"] == 2
+        assert tp["model_ranks"] == [2 * d, 2 * d + 1]
+        n = 8 // (W // 2)
+        np.testing.assert_array_equal(tp["rows"], np.arange(8)[d * n:
+                                                              (d + 1) * n])
+        assert tp["hybrid"] == (1, W // 2, 2)
+        if W == 4:
+            assert tp["hybrid_forced"] == (2, 1, 2)
 
 
 def test_pad_to_multiple_matches_jax():

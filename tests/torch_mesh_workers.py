@@ -27,8 +27,11 @@ from cocodr_tpu_torch.core.mesh import (
 LR, WARMUP, TOTAL, HEAD_DIM = 1e-3, 2, 10, 16
 
 
-def _mesh():
-    return create_mesh(MeshConfig(), device="cpu")
+def _mesh(shape=None):
+    """The world's (data, model) mesh: data-parallel by default, or
+    shape = (data, model)."""
+    cfg = MeshConfig() if shape is None else MeshConfig(*shape)
+    return create_mesh(cfg, device="cpu")
 
 
 @contextlib.contextmanager
@@ -157,53 +160,87 @@ def hybrid_shape():
 
 # --- training -------------------------------------------------------------
 
-def _dual_encoder(model_type, sd):
+def _dual_encoder(model_type, sd, **bert_kw):
     from cocodr_tpu_torch.models.bert import BertConfig
     from cocodr_tpu_torch.models.dual_encoder import (
         MODEL_REGISTRY,
         DualEncoder,
     )
 
-    cfg = MODEL_REGISTRY[model_type](BertConfig.tiny(), head_dim=HEAD_DIM)
+    cfg = MODEL_REGISTRY[model_type](BertConfig.tiny(**bert_kw),
+                                     head_dim=HEAD_DIM)
     model = DualEncoder(cfg)
     model.load_state_dict(sd)
     return model
 
 
-def train(kind, model_type, sd, batches, n_groups=0, total=TOTAL):
-    """Data-parallel steps of pipelines/train_step.py from the state dict
-    sd, LAMB with a linear warmup, dropout off -> the losses, each step's
-    digest of the parameters and the DroState, the final state dict and
-    h_fun."""
-    from cocodr_tpu_torch.losses.dro import DroConfig, idro_init
+@contextlib.contextmanager
+def _recording(module, name, log, read):
+    """module.name wrapped to append read(its result) to log."""
+    fn = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        out = fn(*a, **kw)
+        log.append(read(out))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def train(kind, model_type, sd, batches, n_groups=0, total=TOTAL,
+          shape=None, dropout_seed=None, lane=False, remat_policy=None):
+    """Data-parallel (or with shape = (data, model) tensor-parallel) steps
+    of pipelines/train_step.py from the state dict sd, LAMB with a linear
+    warmup, dropout off unless dropout_seed, each layer under remat when
+    remat_policy is a policy's name -> the losses, each step's
+    digest of the parameters and the DroState, the final state dict
+    (whole tensors) and h_fun, the clip's global norms, the Gram matrices
+    of the iDRO group pass and LAMB's trust ratios after the last step."""
+    from cocodr_tpu_torch.core.mesh import data_rank
+    from cocodr_tpu_torch.losses import dro as tdro
     from cocodr_tpu_torch.optim import Lamb, warmup_linear
     from cocodr_tpu_torch.parallel.sharded_train import shard_train_init
-    from cocodr_tpu_torch.pipelines.train_step import (
-        TrainStepConfig,
-        build_train_step,
-    )
+    from cocodr_tpu_torch.parallel.tp import gather_params_tp
+    from cocodr_tpu_torch.pipelines import train_step as ts
+    from cocodr_tpu_torch.utils.misc import lamb_trust_ratios
 
-    model = _dual_encoder(model_type, sd)
+    remat = ({} if remat_policy is None
+             else {"remat": True, "remat_policy": remat_policy})
+    model = _dual_encoder(model_type, sd, **remat)
     opt = Lamb(model.parameters(), warmup_linear(LR, WARMUP, total),
                eps=1e-6)
-    dro = DroConfig(n_groups=n_groups) if kind != "nll" else None
-    extra = idro_init(dro, device="cpu") if dro else None
-    state, put = shard_train_init(_mesh(), model, opt, extra)
-    step = build_train_step(TrainStepConfig(loss_kind=kind, dro=dro))
-    losses, digests = [], []
-    for b in batches:
-        out = step(state, put(b))
-        loss = out["loss"] if isinstance(out, dict) else out[0]
-        losses.append(float(loss))
-        tensors = list(state.model.parameters())
-        if state.extra is not None:
-            tensors += [state.extra.h_fun, state.extra.sum_losses,
-                        state.extra.count_cat]
-        digests.append(_digest(tensors))
+    dro = tdro.DroConfig(n_groups=n_groups) if kind != "nll" else None
+    extra = tdro.idro_init(dro, device="cpu") if dro else None
+    mesh = _mesh(shape)
+    state, put = shard_train_init(mesh, model, opt, extra)
+    step = ts.build_train_step(ts.TrainStepConfig(
+        loss_kind=kind, dro=dro, idro_lane_group_pass=lane,
+        idro_lane_grad_dtype="float32"))
+    losses, digests, norms, grams = [], [], [], []
+    with _recording(ts, "clip_by_global_norm_", norms, float), \
+            _recording(tdro, "gram", grams, lambda g: g.numpy().copy()):
+        for i, b in enumerate(batches):
+            gens = (None if dropout_seed is None else ts.dropout_generators(
+                dropout_seed, i, "cpu", data_rank(mesh)))
+            out = step(state, put(b), gens)
+            loss = out["loss"] if isinstance(out, dict) else out[0]
+            losses.append(float(loss))
+            tensors = list(state.model.parameters())
+            if state.extra is not None:
+                tensors += [state.extra.h_fun, state.extra.sum_losses,
+                            state.extra.count_cat]
+            digests.append(_digest(tensors))
     return {"losses": losses, "digests": digests,
-            "params": {k: v.numpy() for k, v in model.state_dict().items()},
+            "params": {k: v.numpy()
+                       for k, v in gather_params_tp(model).items()},
             "h_fun": None if state.extra is None
-            else state.extra.h_fun.numpy()}
+            else state.extra.h_fun.numpy(),
+            "norms": norms, "grams": grams,
+            "trust": lamb_trust_ratios(opt, model)}
 
 
 def broadcast_from_rank_0(batch):
@@ -260,14 +297,18 @@ def contrastive(cls_all):
     return float(loss), rows.grad.numpy()
 
 
-def coco(sd, batches, chunk, late_mlm=True, heads=1, skip=1):
-    """Data-parallel COCO steps (pipelines/coco.py) from the state dict sd,
-    AdamW as tests/test_torch_coco.py builds it, dropout off -> metrics a
-    step, the digests and the final state dict."""
+def coco(sd, batches, chunk, late_mlm=True, heads=1, skip=1, shape=None,
+         dropout_seed=None):
+    """Data-parallel (or with shape = (data, model) tensor-parallel) COCO
+    steps (pipelines/coco.py) from the state dict sd, AdamW as
+    tests/test_torch_coco.py builds it, dropout off unless dropout_seed ->
+    metrics a step, the digests and the final state dict (whole
+    tensors)."""
     from cocodr_tpu_torch.core import configs
     from cocodr_tpu_torch.models.bert import BertConfig
     from cocodr_tpu_torch.models.condenser import CoCondenserForPretraining
     from cocodr_tpu_torch.parallel.sharded_train import shard_train_init
+    from cocodr_tpu_torch.parallel.tp import gather_params_tp
     from cocodr_tpu_torch.pipelines import coco as tcoco
 
     model = CoCondenserForPretraining(BertConfig.tiny(), heads, skip,
@@ -276,16 +317,17 @@ def coco(sd, batches, chunk, late_mlm=True, heads=1, skip=1):
     opt = configs.OptimizerConfig(
         name="adamw", lr=1e-3, warmup_steps=2, total_steps=10,
         weight_decay=0.01).build(model.parameters())
-    state, put = shard_train_init(_mesh(), model, opt)
+    state, put = shard_train_init(_mesh(shape), model, opt)
     step = tcoco.build_coco_train_step(tcoco.CocoConfig(
         cache_chunk_size=chunk, max_grad_norm=1.0))
     metrics, digests = [], []
     for b in batches:
-        m = step(state, put(b))
+        m = step(state, put(b), dropout_seed)
         metrics.append({k: float(v) for k, v in m.items()})
         digests.append(_digest(model.parameters()))
     return {"metrics": metrics, "digests": digests,
-            "params": {k: v.numpy() for k, v in model.state_dict().items()}}
+            "params": {k: v.numpy()
+                       for k, v in gather_params_tp(model).items()}}
 
 
 # --- encoding -------------------------------------------------------------
@@ -359,3 +401,151 @@ def _ids_tokenizer(texts, padding, truncation, max_length, return_tensors):
         ids[i, :len(toks)] = toks
         mask[i, :len(toks)] = 1
     return {"input_ids": ids, "attention_mask": mask}
+
+
+# --- tensor parallelism (parallel/tp.py) ----------------------------------
+
+def tp_mesh():
+    """The model axis's meshes over this world: create_mesh's (W/2, 2)
+    with this rank's place and its model group's ranks, the rows
+    shard_batch gives it, and hybrid_mesh's shapes with a model axis of
+    2 (one replica, and at W = 4 two forced ones)."""
+    from cocodr_tpu_torch.core.mesh import (
+        data_rank,
+        model_group,
+        model_rank,
+        model_size,
+    )
+    from cocodr_tpu_torch.parallel.multihost import hybrid_mesh
+
+    mesh = _mesh((-1, 2))
+    out = {"shape": tuple(mesh.shape), "names": tuple(mesh.mesh_dim_names),
+           "place": (data_rank(mesh), model_rank(mesh)),
+           "model_size": model_size(mesh),
+           "model_ranks": dist.get_process_group_ranks(model_group(mesh)),
+           "rows": shard_batch(mesh, {"x": np.arange(8)})["x"],
+           "hybrid": tuple(hybrid_mesh(model=2, device="cpu").shape)}
+    if dist.get_world_size() == 4:
+        out["hybrid_forced"] = tuple(
+            hybrid_mesh(model=2, force_replicas=2, device="cpu").shape)
+    return out
+
+
+def tp_forward(model_type, sd, ids, mask, shape, attention_impl="einsum"):
+    """The query and body embeddings of the records, rows over the data
+    axis, weights split over the model axis (shard_params_tp) -> both,
+    gathered over the data axis."""
+    import dataclasses
+
+    from cocodr_tpu_torch.core.mesh import gather_rows
+    from cocodr_tpu_torch.models.dual_encoder import DualEncoder
+    from cocodr_tpu_torch.parallel.tp import shard_params_tp
+
+    base = _dual_encoder(model_type, sd)
+    cfg = dataclasses.replace(base.cfg, bert=dataclasses.replace(
+        base.cfg.bert, attention_impl=attention_impl))
+    model = DualEncoder(cfg)
+    model.load_state_dict(sd)
+    mesh = _mesh(shape)
+    shard_params_tp(model.eval(), mesh)
+    rows = shard_batch(mesh, {"ids": torch.from_numpy(ids),
+                              "mask": torch.from_numpy(mask)})
+    with torch.no_grad():
+        q = model.query_emb(rows["ids"], rows["mask"])
+        d = model.body_emb(rows["ids"], rows["mask"])
+    return gather_rows(q, mesh).numpy(), gather_rows(d, mesh).numpy()
+
+
+def tp_ffn_grads(inputs, cotangent, shape, block):
+    """ops.ffn.ffn_block_tp (block) or ffn_tp on this rank's slices of the
+    float32 inputs (r or x, then the weights in ffn_block's order) ->
+    (the output, the gradient of sum(out * cotangent) for every input,
+    the split ones' slices summed whole over the model axis)."""
+    from cocodr_tpu_torch.ops.ffn import ffn_block_tp, ffn_tp
+    from cocodr_tpu_torch.parallel.tp import axis_of
+
+    axis = axis_of(_mesh(shape))
+    full = [torch.from_numpy(a).requires_grad_() for a in inputs]
+    split = {3: 0, 4: 0, 5: 1} if block else {1: 0, 2: 0, 3: 1}
+    local = []
+    for i, t in enumerate(full):
+        if i in split:
+            k = t.shape[split[i]] // axis.size
+            t = t.narrow(split[i], axis.rank * k, k)
+        local.append(t)
+    if block:
+        out = ffn_block_tp(*local, "gelu", 1e-12, axis)
+    else:
+        out = ffn_tp(*local, "gelu", axis)
+    (out * torch.from_numpy(cotangent)).sum().backward()
+    for i in split:  # each rank filled its slice of the whole gradient
+        dist.all_reduce(full[i].grad, group=axis.group)
+    return out.detach().numpy(), [t.grad.numpy() for t in full]
+
+
+def _tp_state(sd, shape):
+    from cocodr_tpu_torch.optim import Lamb, warmup_linear
+    from cocodr_tpu_torch.parallel.sharded_train import shard_train_init
+    from cocodr_tpu_torch.utils.train_state import TrainState
+
+    model = _dual_encoder("rdot_nll", sd)
+    opt = Lamb(model.parameters(), warmup_linear(LR, WARMUP, TOTAL),
+               eps=1e-6)
+    if shape is None:
+        return TrainState(model, opt), None
+    return shard_train_init(_mesh(shape), model, opt)
+
+
+def _whole_state(state):
+    """-> (step, the whole parameters, the whole LAMB moments by parameter
+    name), numpy."""
+    from cocodr_tpu_torch.parallel.tp import (
+        gather_optimizer_state,
+        gather_params_tp,
+    )
+
+    model, opt = state.model, state.optimizer
+    names = [n for n, _ in model.named_parameters()]
+    osd = gather_optimizer_state(opt, opt.state_dict())
+    return state.step, {k: v.numpy() for k, v in
+                        gather_params_tp(model).items()}, {
+        names[i]: {k: v.numpy() for k, v in st.items()}
+        for i, st in osd["state"].items()}
+
+
+def tp_checkpoint(sd, batches, root, shape, save):
+    """save: a state at shape trains on the batches (nll, LAMB, dropout
+    off) and saves a checkpoint under root, and another under root +
+    '_async' through AsyncSaver; else a fresh state at shape (None: one
+    device) loads the newest one under root. -> _whole_state's."""
+    from cocodr_tpu_torch.pipelines.train_step import build_train_step
+    from cocodr_tpu_torch.utils.train_state import (
+        AsyncSaver,
+        latest_checkpoint,
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    state, put = _tp_state(sd, shape)
+    if save:
+        step = build_train_step()
+        for b in batches:
+            step(state, put(b))
+        save_checkpoint(root, state)
+        saver = AsyncSaver()
+        saver.save(root + "_async", state)
+        saver.close()
+    else:
+        load_checkpoint(latest_checkpoint(root), state)
+    return _whole_state(state)
+
+
+def tp_load_jax(sd, jax_state, shape):
+    """models/convert.py::load_jax_train_state of a JAX LAMB TrainState
+    (its trees as plain dicts of numpy arrays) into a fresh state at shape
+    (None: one device) -> _whole_state's."""
+    from cocodr_tpu_torch.models.convert import load_jax_train_state
+
+    state, _ = _tp_state(sd, shape)
+    load_jax_train_state(state, jax_state, state.model.cfg)
+    return _whole_state(state)
