@@ -244,7 +244,18 @@ Phases, each printed with its elapsed seconds:
      search() here), each one's launches checked; then in this process
      evaluate_beir_task and mine() by search_method 'ivf' at full probe
      over those records (metrics within 1e-2 of 'pallas''s, the ann
-     file's lines valid, K1 only).
+     file's lines valid, K1 only). Its RoBERTa leg, beside the BERT one:
+     a RoBERTa-base checkpoint directory (roberta.* and lm_head.*
+     weights from the seed, config.json, a 50,265-entry byte-level BPE
+     in vocab.json + merges.txt) and a second directory holding the same
+     tokenizer as a tokenizer.json alone; preprocess-beir with each
+     (records byte-equal, and equal to the port's BPE in this process),
+     encode (K1 12 a batch of 512, LayerNorm eps 1e-5; .npy equal to
+     encode_cache here) and serve --records --queries (its corpus encoded
+     at startup; a TREC run equal to search_stream here over encode's
+     .npy) started together; the native record reader (data/native.py)
+     byte-equal to TokenCache on its passages, both readers' gathers
+     timed in rows/s.
  17. cli-recipe (after cli): the four COCO-DR stages as a user types them
      (docs/commands.md) through cocodr_tpu_torch.cli, each subcommand in
      this process through cli.main (the async pair as two processes), at
@@ -6163,6 +6174,8 @@ HTTP_ROUNDS = 4  # (b): requests of BATCH queries a client thread
 CLI_WORDS = 20_000  # whole words of the CLI phase's vocab.txt
 CLI_REPL_QUERIES = 16
 CLI_IVF_NPROBE = 2
+NATIVE_BATCHES = 64  # gathers of 512 random records a timing turn
+NATIVE_THREADS = 4
 
 
 def planted_corpus(gen, dev, n, d, n_centers, noise, chunk=131072):
@@ -6662,6 +6675,112 @@ def write_cli_checkpoint(args, root):
     return ckpt
 
 
+def roberta_bpe_vocab():
+    """RoBERTa-base's byte-level BPE for the cli phase's words w0..,
+    made without tokenizers (the card's machine has none). GPT-2's split
+    cuts ' w1234' into ' w' and '1234'; the merges, in rank order: Ġ + w,
+    the 100 digit pairs, then the 10,000 pairs of two-digit tokens, so a
+    number merges where its lowest-ranked pairs fall ('1234' is '1234',
+    '5185' is '5' '18' '5'). The vocabulary, 50,265 entries: <s> 0, <pad>
+    1, </s> 2, <unk> 3, the 256 byte symbols, the merged tokens, fillers
+    and <mask> 50,264. -> (token -> id, merges)."""
+    from cocodr_tpu_torch.data.bpe import bytes_to_unicode
+    from cocodr_tpu_torch.models.bert import BertConfig
+
+    two = [a + b for a in "0123456789" for b in "0123456789"]
+    merges = ([("Ġ", "w")] + [(p[0], p[1]) for p in two]
+              + [(p, q) for p in two for q in two])
+    tokens = (["<s>", "<pad>", "</s>", "<unk>"]
+              + list(bytes_to_unicode().values())
+              + [a + b for a, b in merges])
+    n = BertConfig.roberta_base().vocab_size
+    tokens += [f"Ġf{i}" for i in range(n - 1 - len(tokens))] + ["<mask>"]
+    return {t: i for i, t in enumerate(tokens)}, merges
+
+
+def write_roberta_tokenizer(files_dir, json_dir):
+    """The same tokenizer twice: files_dir gets vocab.json, merges.txt and
+    tokenizer_config.json (what a RoBERTa checkpoint carries), json_dir a
+    hand-written tokenizer.json alone (RobertaTokenizerFast's components,
+    merges as 'a b' strings)."""
+    vocab, merges = roberta_bpe_vocab()
+    with open(os.path.join(files_dir, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(files_dir, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    with open(os.path.join(files_dir, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "RobertaTokenizer",
+                   "add_prefix_space": False, "model_max_length": 512}, f)
+    added = [dict(id=vocab[t], content=t, single_word=False,
+                  lstrip=t == "<mask>", rstrip=False,
+                  normalized=t != "<mask>", special=True)
+             for t in ("<s>", "<pad>", "</s>", "<unk>", "<mask>")]
+    byte_level = dict(type="ByteLevel", add_prefix_space=False,
+                      trim_offsets=True, use_regex=True)
+    spec = dict(
+        version="1.0", truncation=None, padding=None, added_tokens=added,
+        normalizer=None, pre_tokenizer=byte_level,
+        post_processor=dict(type="RobertaProcessing", sep=["</s>", 2],
+                            cls=["<s>", 0], trim_offsets=True,
+                            add_prefix_space=False),
+        decoder=byte_level,
+        model=dict(type="BPE", dropout=None, unk_token=None,
+                   continuing_subword_prefix="", end_of_word_suffix="",
+                   fuse_unk=False, byte_fallback=False, ignore_merges=False,
+                   vocab=vocab, merges=[f"{a} {b}" for a, b in merges]))
+    with open(os.path.join(json_dir, "tokenizer.json"), "w") as f:
+        json.dump(spec, f)
+
+
+def write_roberta_checkpoint(args, root):
+    """A RoBERTa-base checkpoint directory as HuggingFace writes one of
+    RobertaForMaskedLM: random weights from the seed (roberta.* names and
+    the MLM head's lm_head.*, its decoder tied to the word embeddings,
+    pytorch_model.bin), config.json (model_type roberta, 50,265 words,
+    514 positions, one token type, LayerNorm eps 1e-5, pad id 1) and
+    write_roberta_tokenizer's vocab.json, merges.txt and
+    tokenizer_config.json; beside it a directory with the same tokenizer
+    as a tokenizer.json alone. -> (checkpoint dir, tokenizer.json dir)."""
+    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
+    from cocodr_tpu_torch.models.hf import state_dict_to_hf
+
+    bert = BertConfig.roberta_base()
+    model = build_dual_encoder("rdot_nll_condenser", bert, device="cpu",
+                               generator=torch.Generator().manual_seed(
+                                   args.seed + 18))
+    ckpt, json_dir = (os.path.join(root, "roberta_ckpt"),
+                      os.path.join(root, "roberta_tokenizer_json"))
+    os.makedirs(ckpt)
+    os.makedirs(json_dir)
+    sd = state_dict_to_hf(model.state_dict(), model.cfg)
+    gen = torch.Generator().manual_seed(args.seed + 19)
+    H, V = bert.hidden_size, bert.vocab_size
+    sd.update({
+        "lm_head.dense.weight": torch.randn(
+            H, H, generator=gen) * bert.initializer_range,
+        "lm_head.dense.bias": torch.zeros(H),
+        "lm_head.layer_norm.weight": torch.ones(H),
+        "lm_head.layer_norm.bias": torch.zeros(H),
+        "lm_head.decoder.weight": sd["roberta.embeddings.word_embeddings.weight"],
+        "lm_head.decoder.bias": torch.zeros(V),
+        "lm_head.bias": torch.zeros(V)})
+    torch.save(sd, os.path.join(ckpt, "pytorch_model.bin"))
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump({"model_type": "roberta", "vocab_size": V,
+                   "hidden_size": H,
+                   "num_hidden_layers": bert.num_hidden_layers,
+                   "num_attention_heads": bert.num_attention_heads,
+                   "intermediate_size": bert.intermediate_size,
+                   "hidden_act": "gelu",
+                   "max_position_embeddings": bert.max_position_embeddings,
+                   "type_vocab_size": bert.type_vocab_size,
+                   "layer_norm_eps": bert.layer_norm_eps,
+                   "pad_token_id": bert.pad_token_id}, f)
+    write_roberta_tokenizer(ckpt, json_dir)
+    return ckpt, json_dir
+
+
 def read_trec(path):
     """qid -> [(doc id, score)] in rank order."""
     run = {}
@@ -6682,7 +6801,9 @@ def cli(args, dev):
     BEIR task with the port's WordPiece tokenizer, encode of its corpus
     from a BERT-base checkpoint directory, serve --queries (a bulk TREC
     run), serve --search-method ivf (the stdin REPL) and serve --http; each
-    output held against the same work in this process."""
+    output held against the same work in this process. The RoBERTa leg
+    (cli_roberta_*) runs its subprocesses beside these, and tokenizes in
+    this process while BERT's encode runs."""
     from cocodr_tpu_torch import cli as tcli
     from cocodr_tpu_torch.data.records import TokenCache, load_id_map
     from cocodr_tpu_torch.data.tokenizer import load_tokenizer
@@ -6704,6 +6825,7 @@ def cli(args, dev):
         rec = os.path.join(root, "rec")
         run = CliRunner(root)
         stack.callback(run.kill_all)
+        rob_ckpt, rob_jobs = cli_roberta_start(args, run, root, data)
         secs, _, counts = run.run("preprocess-beir", [
             "preprocess-beir", "--data-dir", data, "--out", rec,
             "--tokenizer", ckpt, "--task", "scifact", "--n-workers", "4"])
@@ -6716,10 +6838,14 @@ def cli(args, dev):
 
         emb_path = os.path.join(root, "corpus.npy")
         log_dir = os.path.join(root, "log")
-        secs, _, counts = run.run("encode", [
+        enc_job = run.start([
             "encode", "--checkpoint", ckpt, "--records",
             os.path.join(rec, "passages"), "--out", emb_path,
             "--batch-size", "512", "--log-dir", log_dir] + common)
+        rob = cli_roberta_encode(run, rob_ckpt, root, data, rob_jobs,
+                                 cli_roberta_here(rob_ckpt, data, root),
+                                 common)
+        secs, _, counts = run.finish("encode", enc_job)
         tok = load_tokenizer(ckpt)
         id_map = os.path.join(rec, "passages.docid2offset.pickle")
         off2id = {v: k for k, v in load_id_map(id_map).items()}
@@ -6825,9 +6951,224 @@ def cli(args, dev):
         cli_http(run, ckpt, emb_path, id_map, common, svc, texts, layers,
                  on_card, card)
         del svc
+        cli_roberta_finish(dev, run, data, rob_ckpt, *rob, on_card, card)
         ivf_eval_and_mine(dev, model, data, rec, tok, root, on_card, card)
         del model
     torch.cuda.empty_cache()
+
+
+ROBERTA_REC_FILES = ("passages", "passages_meta", "queries",
+                     "queries_meta", "passages.docid2offset.pickle",
+                     "queries.qid2offset.pickle")
+
+
+def cli_roberta_start(args, run, root, data):
+    """The cli phase's RoBERTa leg, begun beside the BERT leg: the
+    RoBERTa-base checkpoint and tokenizer.json directories written, and
+    preprocess-beir started with each. -> (checkpoint dir, [records dir,
+    job] for each tokenizer directory)."""
+    ckpt, json_dir = write_roberta_checkpoint(args, root)
+    jobs = []
+    for i, tok_dir in enumerate((ckpt, json_dir)):
+        rec = os.path.join(root, f"roberta_rec{i}")
+        jobs.append((rec, run.start([
+            "preprocess-beir", "--data-dir", data, "--out", rec,
+            "--tokenizer", tok_dir, "--task", "scifact", "--n-workers",
+            "2"])))
+    return ckpt, jobs
+
+
+def cli_roberta_here(ckpt, data, root):
+    """The RoBERTa leg's tokenization in this process (the port's
+    byte-level BPE from the checkpoint's vocab.json + merges.txt), into
+    records to hold the CLI's against. -> (records dir, seconds)."""
+    from cocodr_tpu_torch.data.tokenizer import load_tokenizer
+    from cocodr_tpu_torch.pipelines import eval_beir as eb
+
+    here = os.path.join(root, "roberta_rec_here")
+    t = time.perf_counter()
+    eb.prepare_beir_task(data, here, load_tokenizer(ckpt),
+                         eb.BeirEvalConfig.for_task("scifact"))
+    return here, time.perf_counter() - t
+
+
+def cli_roberta_encode(run, ckpt, root, data, jobs, here, common):
+    """Both preprocess-beir runs finished, their records byte-equal to
+    each other (vocab.json + merges.txt and tokenizer.json alone are one
+    tokenizer) and to this process's; encode of the passages and serve
+    --records --queries (which encodes them again at startup, through the
+    native reader) started together. -> (records dir, .npy path, queries,
+    TREC path, encode job, serve job)."""
+    names = ("vocab.json + merges.txt", "tokenizer.json alone")
+    for name, (_, job) in zip(names, jobs):
+        _, _, counts = run.finish(f"roberta preprocess-beir ({name})", job)
+        check_counts("cli roberta preprocess-beir", counts, {})
+    (rec, _), (rec_json, _) = jobs
+    here, here_s = here
+    for other, what in ((rec_json, "the tokenizer.json directory's"),
+                        (here, "this process's")):
+        for name in ROBERTA_REC_FILES:
+            with open(os.path.join(rec, name), "rb") as f, \
+                    open(os.path.join(other, name), "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"cli roberta preprocess-beir: "
+                                         f"{name} differs from {what}")
+    phase(f"  cli roberta preprocess-beir: the records of the vocab.json + "
+          f"merges.txt and the tokenizer.json directories are byte-equal, "
+          f"and equal to this process's byte-level BPE ({here_s:.2f} s "
+          f"here in one process)")
+    queries = []
+    with open(os.path.join(data, "queries.jsonl")) as f:
+        for line in f:
+            j = json.loads(line)
+            queries.append((j["_id"], j["text"]))
+    tsv = os.path.join(root, "roberta_queries.tsv")
+    with open(tsv, "w") as f:
+        f.writelines(f"{q}\t{t}\n" for q, t in queries)
+    emb_path = os.path.join(root, "roberta_corpus.npy")
+    trec = os.path.join(root, "roberta_run.trec")
+    passages = os.path.join(rec, "passages")
+    enc_job = run.start(["encode", "--checkpoint", ckpt, "--records",
+                         passages, "--out", emb_path, "--batch-size",
+                         "512", "--log-dir",
+                         os.path.join(root, "roberta_log")] + common)
+    serve_job = run.start([
+        "serve", "--checkpoint", ckpt, "--records", passages, "--id-map",
+        passages + ".docid2offset.pickle", "--queries", tsv, "--output",
+        trec, "--batch-size", "512"] + common)
+    return rec, emb_path, queries, trec, enc_job, serve_job
+
+
+def native_reader_check(path, card):
+    """data/native.py's NativeTokenCache on a records file: byte-equal to
+    the memmap TokenCache (batch, batch_with_mask and lengths over every
+    record), then timed on batch_with_mask of 512 random records (the
+    encode path's gather) at NATIVE_THREADS threads and at one (each call
+    starts its threads, as the JAX package's reader does) beside
+    TokenCache, in three turns each on the host clock, with no subprocess
+    of this phase running."""
+    from cocodr_tpu_torch.data.native import NativeTokenCache, library
+    from cocodr_tpu_torch.data.records import TokenCache
+
+    t = time.perf_counter()
+    library()
+    build_s = time.perf_counter() - t
+    plain = TokenCache(path)
+    fast = NativeTokenCache(path, n_threads=NATIVE_THREADS)
+    one = NativeTokenCache(path, n_threads=1)
+    every = np.arange(len(plain))
+    for method in ("batch", "batch_with_mask"):
+        for a, b in zip(getattr(plain, method)(every),
+                        getattr(fast, method)(every)):
+            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                raise AssertionError(f"native reader: {method} differs "
+                                     "from TokenCache")
+    if plain.lengths().tobytes() != fast.lengths().tobytes():
+        raise AssertionError("native reader: lengths differ")
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, len(plain), 512)
+               for _ in range(NATIVE_BATCHES)]
+    rates = {"native": [], "one": [], "memmap": []}
+    for _ in range(3):
+        for name, cache in (("native", fast), ("one", one),
+                            ("memmap", plain)):
+            t = time.perf_counter()
+            for idx in batches:
+                cache.batch_with_mask(idx)
+            rates[name].append(512 * NATIVE_BATCHES
+                               / (time.perf_counter() - t))
+    fast.close()
+    one.close()
+    rate = {k: statistics.median(v) for k, v in rates.items()}
+    phase(f"  native reader ({build_s:.2f} s to build or load): "
+          f"{len(plain)} records of {plain.max_len} tokens byte-equal to "
+          f"TokenCache; batch_with_mask of 512 random records "
+          f"{rate['native']:.0f} rows/s at {NATIVE_THREADS} threads, "
+          f"{rate['one']:.0f} at one, memmap TokenCache "
+          f"{rate['memmap']:.0f} rows/s (host clock, "
+          f"median of 3 turns of {NATIVE_BATCHES} batches) [{card}]")
+
+
+def cli_roberta_finish(dev, run, data, ckpt, rec, emb_path, queries, trec,
+                       enc_job, serve_job, on_card, card):
+    """The RoBERTa leg's checks: the native reader over its records,
+    encode's .npy against encode_cache here (K1 12 a batch of 512), then
+    serve --records --queries (K1 for its encode and its query batches)
+    against RetrievalService.search_stream here over that .npy."""
+    from cocodr_tpu_torch import cli as tcli
+    from cocodr_tpu_torch.data.native import open_token_cache
+    from cocodr_tpu_torch.data.records import load_id_map
+    from cocodr_tpu_torch.data.tokenizer import load_tokenizer
+    from cocodr_tpu_torch.pipelines.encode import (
+        EncodeConfig,
+        Encoder,
+        encode_cache,
+    )
+    from cocodr_tpu_torch.pipelines.serve import RetrievalService, ServeConfig
+
+    secs, _, counts = run.finish("roberta encode", enc_job)
+    with open(os.path.join(os.path.dirname(emb_path), "roberta_log",
+                           "metrics.jsonl")) as f:
+        enc_rate = json.loads(f.readline())["encode/records_per_s"]
+    native_reader_check(os.path.join(rec, "passages"), card)
+    passages = open_token_cache(os.path.join(rec, "passages"))
+    n_docs = len(passages)
+    model = tcli._load_model(ckpt, "rdot_nll_condenser", dev)
+    bert = model.cfg.bert
+    if not (bert.position_style == "roberta" and bert.layer_norm_eps == 1e-5
+            and bert.vocab_size == 50_265 and bert.pad_token_id == 1):
+        raise AssertionError(f"cli roberta: loaded as {bert}")
+    layers = bert.num_hidden_layers
+    n_batches = math.ceil(n_docs / 512)
+    if on_card:
+        check_counts("cli roberta encode", counts,
+                     {"K1_ffn_block": layers * n_batches})
+    emb = np.load(emb_path)
+    zero_counts()
+    direct = encode_cache(Encoder(model, device=dev), passages,
+                          EncodeConfig(batch_size=512))
+    read_counts("cli roberta: encode_cache in this process",
+                ["K1_ffn_block"] if on_card else [])
+    passages.close()
+    diff = float(np.abs(emb - direct).max())
+    if not diff <= (0.0 if on_card else 1e-5):
+        raise AssertionError(f"cli roberta encode: .npy differs from "
+                             f"encode_cache by {diff}")
+    phase(f"  cli roberta encode: RoBERTa-base, {n_docs} docs at "
+          f"{passages.max_len} tokens in {n_batches} batches of 512, "
+          f"{enc_rate:.1f} docs/s (the CLI's own clock; {secs:.2f} s, a "
+          f"subprocess); the .npy equals encode_cache here (max |diff| "
+          f"{diff:.3e}) [{card}]")
+
+    secs, _, counts = run.finish("roberta serve --records --queries",
+                                 serve_job)
+    n_calls = math.ceil(len(queries) / BATCH)
+    if on_card:
+        want = default_serve_counts(layers, n_calls)
+        want["K1_ffn_block"] += layers * n_batches
+        check_counts("cli roberta serve --records --queries", counts, want)
+    off2id = {v: k for k, v in load_id_map(
+        os.path.join(rec, "passages.docid2offset.pickle")).items()}
+    svc = RetrievalService(model, load_tokenizer(ckpt), emb,
+                           doc_ids=[off2id[i] for i in range(n_docs)],
+                           device=dev, cfg=ServeConfig())
+    texts = [t for _, t in queries]
+    zero_counts()
+    results = list(svc.search_stream(
+        [texts[i:i + BATCH] for i in range(0, len(texts), BATCH)]))
+    read_counts("cli roberta: the same service in this process",
+                ["K1_ffn_block", "K2_dual_sweep", "K3_topk"]
+                if on_card else [])
+    got = read_trec(trec)
+    vals = np.concatenate([v for v, _ in results])
+    ids = [row for _, i in results for row in i]
+    hits = [[{"id": d, "score": v} for d, v in got[q]] for q, _ in queries]
+    worst = hits_agree("cli roberta serve --records --queries", hits, vals,
+                       ids, 1e-6 if on_card else 1e-4)
+    phase(f"  cli roberta serve --records --queries: {len(queries)} queries "
+          f"({secs:.2f} s, a subprocess, its corpus encoded at startup), "
+          f"TREC run equal to search_stream here over encode's .npy (max "
+          f"score diff {worst:.3e}) [{card}]")
 
 
 def ivf_eval_and_mine(dev, model, data, rec, tok, root, on_card, card):

@@ -23,9 +23,12 @@ JAX CLI (each stage's checkpoint handed on by export-hf):
   python -m cocodr_tpu_torch.cli presets
 
 Checkpoints are HuggingFace directories (config.json with
-pytorch_model.bin or model.safetensors) read through models/hf.py, and
-tokenizers the port's WordPiece (data/tokenizer.py, from vocab.txt):
-transformers is never imported. A training stage's own checkpoints are
+pytorch_model.bin or model.safetensors) read through models/hf.py,
+tokenizers the port's own (data/tokenizer.py: tokenizer.json, RoBERTa's
+vocab.json + merges.txt or BERT's vocab.txt, taken as AutoTokenizer takes
+them), and token records through the threaded native reader
+(data/native.py, built with g++ at first use): transformers is never
+imported. A training stage's own checkpoints are
 the port's (utils/train_state.py: checkpoint-{step}/state.pt and a DONE
 marker); `export-hf` turns one into a HuggingFace directory, and
 `--from-orbax` keeps its JAX name for a COCO checkpoint of the port (the
@@ -309,7 +312,7 @@ def cmd_encode(args):
     import numpy as np
 
     from cocodr_tpu_torch.core.mesh import is_writer
-    from cocodr_tpu_torch.data.records import TokenCache
+    from cocodr_tpu_torch.data.native import open_token_cache
     from cocodr_tpu_torch.pipelines.encode import (
         EncodeConfig,
         Encoder,
@@ -321,7 +324,7 @@ def cmd_encode(args):
     mesh = _build_mesh(args, dev)
     model = _load_model(args.checkpoint, args.model_type, dev,
                         int8_encode=args.int8_encode)
-    cache = TokenCache(args.records)
+    cache = open_token_cache(args.records)
     enc = Encoder(model, mesh=mesh, is_query=args.queries,
                   noise_level=args.noise_level, device=dev)
     del model
@@ -420,7 +423,7 @@ def cmd_serve(args):
     if args.emb:
         corpus_emb = np.load(args.emb)
     else:
-        from cocodr_tpu_torch.data.records import TokenCache
+        from cocodr_tpu_torch.data.native import open_token_cache
         from cocodr_tpu_torch.pipelines.encode import (
             EncodeConfig,
             Encoder,
@@ -429,7 +432,8 @@ def cmd_serve(args):
 
         corpus_emb = encode_cache(
             Encoder(model, mesh=mesh, is_query=False, device=dev),
-            TokenCache(args.records), EncodeConfig(batch_size=args.batch_size))
+            open_token_cache(args.records),
+            EncodeConfig(batch_size=args.batch_size))
     doc_ids = None
     if args.id_map:
         from cocodr_tpu_torch.data.records import load_id_map
@@ -651,12 +655,13 @@ def _warmup_eval(args, model, dev):
     """--eval-data-dir -> eval_fn(state): combined_mrr over the dev queries
     and passages (with --eval-top1000, the reranking MRR too), one JSON
     line a call."""
-    from cocodr_tpu_torch.data.records import TokenCache, load_id_map, load_qrels
+    from cocodr_tpu_torch.data.native import open_token_cache
+    from cocodr_tpu_torch.data.records import load_id_map, load_qrels
     from cocodr_tpu_torch.evals.mrr_eval import combined_mrr, load_top_dev
 
     d = args.eval_data_dir
-    dev_qc = TokenCache(os.path.join(d, "dev-query"))
-    dev_pc = TokenCache(os.path.join(d, "passages"))
+    dev_qc = open_token_cache(os.path.join(d, "dev-query"))
+    dev_pc = open_token_cache(os.path.join(d, "passages"))
     dev_qrels = {q: list(docs) for q, docs in
                  load_qrels(os.path.join(d, "dev-qrel.tsv")).items()}
     candidates = None
@@ -828,7 +833,8 @@ def _ance_setup(args):
     """What the ance / ance-mine / ance-train jobs share: the stage config,
     the model on the device, its train state (resumed from the newest DONE
     checkpoint unless --no-resume), the token caches and the qrels."""
-    from cocodr_tpu_torch.data.records import TokenCache, load_qrels
+    from cocodr_tpu_torch.data.native import open_token_cache
+    from cocodr_tpu_torch.data.records import load_qrels
     from cocodr_tpu_torch.losses.dro import dro_greedy_init
     from cocodr_tpu_torch.utils.train_state import (
         latest_checkpoint,
@@ -850,7 +856,7 @@ def _ance_setup(args):
             print(json.dumps({"resumed": ck, "step": int(state.step)}),
                   flush=True)
     d = args.data_dir
-    caches = {name: TokenCache(os.path.join(d, name))
+    caches = {name: open_token_cache(os.path.join(d, name))
               for name in ("passages", "train-query", "dev-query")}
     train_qrels = load_qrels(os.path.join(d, "train-qrel.tsv"))
     positives = {q: max(docs, key=docs.get) for q, docs in train_qrels.items()}
@@ -1249,7 +1255,8 @@ def main(argv=None):
     sp.add_argument("--work-dir", required=True)
     sp.add_argument("--checkpoint", required=True)
     sp.add_argument("--tokenizer", default=None,
-                    help="directory with vocab.txt (default: --checkpoint)")
+                    help="directory with tokenizer.json, vocab.json + "
+                         "merges.txt or vocab.txt (default: --checkpoint)")
     sp.add_argument("--task", default=None)
     sp.add_argument("--model-type", default="rdot_nll_condenser")
     sp.add_argument("--batch-size", type=int, default=512)
@@ -1322,7 +1329,8 @@ def main(argv=None):
     _add_common(sp)
     sp.add_argument("--checkpoint", required=True)
     sp.add_argument("--tokenizer", default=None,
-                    help="directory with vocab.txt (default: --checkpoint)")
+                    help="directory with tokenizer.json, vocab.json + "
+                         "merges.txt or vocab.txt (default: --checkpoint)")
     sp.add_argument("--model-type", default="rdot_nll_condenser")
     sp.add_argument("--records", default=None)
     sp.add_argument("--emb", default=None, help=".npy corpus embeddings")
@@ -1366,7 +1374,9 @@ def main(argv=None):
     sp.add_argument("--dev-qrels")
     sp.add_argument("--out", required=True)
     sp.add_argument("--tokenizer", required=True,
-                    help="directory with vocab.txt (a BERT checkpoint)")
+                    help="directory with tokenizer.json, vocab.json + "
+                         "merges.txt or vocab.txt (a BERT or RoBERTa "
+                         "checkpoint)")
     sp.add_argument("--model-type", default="rdot_nll_condenser",
                     help="a condenser model type lowercases the text")
     sp.add_argument("--data-type", type=int, default=1,
@@ -1384,7 +1394,9 @@ def main(argv=None):
     sp.add_argument("--data-dir", required=True)
     sp.add_argument("--out", required=True)
     sp.add_argument("--tokenizer", required=True,
-                    help="directory with vocab.txt (a BERT checkpoint)")
+                    help="directory with tokenizer.json, vocab.json + "
+                         "merges.txt or vocab.txt (a BERT or RoBERTa "
+                         "checkpoint)")
     sp.add_argument("--task", default=None)
     sp.add_argument("--n-workers", type=int, default=1)
     sp.add_argument("--query-len", type=int, default=0)

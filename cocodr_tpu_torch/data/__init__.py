@@ -1,1 +1,3 @@
-"""Token records and the batch prefetch thread (host side)."""
+"""Token records and their readers (memmap and native), the tokenizers,
+the COCO collator and span files, and the batch prefetch thread (host
+side)."""

@@ -11,8 +11,9 @@ The file format is the JAX package's, byte for byte (and the reference's):
     qrels   = qid_offset \t pid_offset \t rel lines (offset space)
 
 The whole file is a numpy memmap and batch gathers are vectorized fancy
-indexing. The JAX package's threaded native reader (native/recordio.cpp)
-only adds speed and is not copied.
+indexing. data/native.py's NativeTokenCache reads the same files with
+threaded gathers in C++ and gives the same arrays; the CLI and
+pipelines/eval_beir.py read through it, as the JAX package's do.
 """
 from __future__ import annotations
 

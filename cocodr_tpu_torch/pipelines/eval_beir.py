@@ -15,8 +15,8 @@ back to documents and each query's list keeps a document's best row
 evaluate_beir.py:132-134).
 
 The functions take the port's model module where the JAX ones take
-(model, params), and read records with data.records.TokenCache (the JAX
-package's native reader only adds speed). A mesh (core/mesh.py) shards
+(model, params), and read records through data.native.open_token_cache
+(the threaded native reader), as the JAX ones do. A mesh (core/mesh.py) shards
 the encodes and, when its data axis is above 1, the search; rank 0
 tokenizes a task first and the other ranks read its records.
 """
@@ -35,7 +35,8 @@ from cocodr_tpu_torch.data.preprocess import (
     tokenize_beir_corpus,
     tokenize_beir_queries,
 )
-from cocodr_tpu_torch.data.records import TokenCache, load_id_map
+from cocodr_tpu_torch.data.native import open_token_cache
+from cocodr_tpu_torch.data.records import load_id_map
 from cocodr_tpu_torch.evals.metrics import evaluate_run, run_from_topk
 from cocodr_tpu_torch.ops._device import resolve_device
 from cocodr_tpu_torch.parallel.topk import search_topk
@@ -117,8 +118,8 @@ def evaluate_beir_task(model, corpus_path: str, query_path: str,
     their own copies), search the top cfg.top_k documents of every query
     on `device` and score the run -> evaluate_run's metrics."""
     dev = resolve_device(device)
-    corpus_cache = TokenCache(corpus_path)
-    query_cache = TokenCache(query_path)
+    corpus_cache = open_token_cache(corpus_path)
+    query_cache = open_token_cache(query_path)
     ecfg = EncodeConfig(batch_size=cfg.batch_size,
                         length_buckets=cfg.length_buckets)
     doc_encoder = Encoder(model, mesh=mesh, is_query=False, device=dev)

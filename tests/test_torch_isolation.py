@@ -54,6 +54,8 @@ MODULES = [
     "cocodr_tpu_torch.evals.msmarco",
     "cocodr_tpu_torch.evals.mrr_eval",
     "cocodr_tpu_torch.data",
+    "cocodr_tpu_torch.data.bpe",
+    "cocodr_tpu_torch.data.native",
     "cocodr_tpu_torch.data.prefetch",
     "cocodr_tpu_torch.data.preprocess",
     "cocodr_tpu_torch.data.records",
@@ -90,7 +92,7 @@ def test_import_leaves_jax_and_jax_package_out():
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'transformers', "
-        "'cocodr_tpu')]\n"
+        "'tokenizers', 'regex', 'cocodr_tpu')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
@@ -122,7 +124,7 @@ def test_cli_subcommands_leave_jax_out():
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'transformers', "
-        "'cocodr_tpu')]\n"
+        "'tokenizers', 'regex', 'cocodr_tpu')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
@@ -163,9 +165,8 @@ def test_mesh_entry_points_raise_without_cuda(monkeypatch):
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_no_jax_import_in_source(path):
     text = path.read_text()
-    pattern = (r"^\s*(import\s+(jax|jaxlib|flax|optax|transformers|cocodr_tpu)"
-               r"\b|from\s+(jax|jaxlib|flax|optax|transformers|cocodr_tpu)"
-               r"[\s.])")
+    names = "jax|jaxlib|flax|optax|transformers|tokenizers|regex|cocodr_tpu"
+    pattern = (rf"^\s*(import\s+({names})\b|from\s+({names})[\s.])")
     assert not re.search(pattern, text, re.M), path
 
 

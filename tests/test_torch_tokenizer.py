@@ -144,12 +144,37 @@ def test_saved_tokenizer_directory_matches_auto_tokenizer(vocab_dir,
 
 
 def test_byte_level_bpe_directory_is_not_ported(tmp_path):
-    """RoBERTa's vocab.json + merges.txt (no vocab.txt) raises, naming
-    ROADMAP.md Queue 1 item 15."""
-    (tmp_path / "vocab.json").write_text(json.dumps({"<s>": 0}))
-    (tmp_path / "merges.txt").write_text("#version: 0.2\n")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        load_tokenizer(str(tmp_path))
+    """An old name: RoBERTa's vocab.json + merges.txt (no vocab.txt), once
+    refused, now loads (ROADMAP.md item 15) and gives
+    RobertaTokenizerFast's ids; tests/test_torch_bpe.py holds the rest."""
+    tokenizers = pytest.importorskip("tokenizers")
+    bpe = tokenizers.ByteLevelBPETokenizer()
+    texts = list(random_strings(4, 200, ASCII))
+    bpe.train_from_iterator(texts, vocab_size=400, special_tokens=[
+        "<s>", "<pad>", "</s>", "<unk>", "<mask>"])
+    bpe.save_model(str(tmp_path))
+    ref = transformers.RobertaTokenizerFast(
+        vocab_file=str(tmp_path / "vocab.json"),
+        merges_file=str(tmp_path / "merges.txt"))
+    tok = load_tokenizer(str(tmp_path))
+    for s in texts + ["hello <mask> world", " don't"]:
+        assert tok.encode(s, max_length=64, truncation=True) == ref.encode(
+            s, max_length=64, truncation=True), repr(s)
+
+
+@pytest.mark.parametrize("strip", [None, False])
+def test_final_sigma_is_lowercased_character_by_character(tmp_path, strip):
+    """The fast tokenizer lowercases each character on its own, so a
+    word-final capital sigma becomes σ, not the ς of str.lower."""
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "οδοσ", "οδος",
+             "σας", "σασ"]
+    (tmp_path / "vocab.txt").write_text("\n".join(vocab))
+    ref = transformers.BertTokenizerFast(
+        vocab_file=str(tmp_path / "vocab.txt"), strip_accents=strip)
+    tok = WordPieceTokenizer(vocab, strip_accents=strip)
+    for text in ("ΟΔΟΣ ΣΑΣ", "οδος σας", "ΟΔΟΣ."):
+        assert tok.encode(text) == ref.encode(text), text
+    assert tok.encode("ΟΔΟΣ") == [2, 5, 3]
 
 
 def test_vocabulary_without_special_tokens_is_refused():
