@@ -1,0 +1,6 @@
+"""Share of the traced train window in which no operation ran on the
+device, %."""
+
+
+def read(run):
+    return run.idle_percent()
