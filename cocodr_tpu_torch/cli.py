@@ -94,7 +94,8 @@ def _add_common(p):
                    help="TensorBoard + JSONL metrics directory")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of the whole command "
-                        "into this directory (Chrome trace JSON)")
+                        "into this directory (Chrome trace JSON) and the "
+                        "spans of its threads (spans-*.json)")
 
 
 def _device(args):

@@ -1,5 +1,5 @@
 """COCO span-corpus preprocessing: documents -> tokenized sentence spans.
-The port's copy of cocodr_tpu/data/coco_spans.py (pure Python).
+The port's copy of cocodr_tpu/data/coco_spans.py.
 
 Rebuild of reference COCO/helper/create_train_co_short.py:34-85 + the
 18-corpus loop (COCO/pre_processing_coco.sh:6-16): sentence-split each
@@ -17,6 +17,7 @@ import re
 from typing import Iterable, Iterator, List, Optional
 
 from cocodr_tpu_torch.data.coco_collator import greedy_pack_spans
+from cocodr_tpu_torch.utils.logging import span
 
 # The 18 BEIR target corpora of COCO pretraining
 # (reference COCO/pre_processing_coco.sh:6).
@@ -144,7 +145,9 @@ def span_batches(
             batch_docs = [docs[i] for i in order[s : s + docs_per_batch]]
             if reseed is not None:  # per-batch keyed masks => exact resume
                 reseed(batch_no)
-            yield collator.collate_spans(batch_docs)
+            with span("cocodr.coco.collate"):
+                batch = collator.collate_spans(batch_docs)
+            yield batch
 
 
 def count_span_batches(

@@ -8,9 +8,15 @@ sent to the device with `non_blocking=True` on the producer thread;
 `encode_cache` leaves its batches on the host (device_put=False), as the
 JAX package does. An exception raised while producing is raised again on
 the consumer's side when it reaches that point of the stream.
+
+Spans (utils/logging.py::span), both with the item's number as unit:
+`cocodr.feed.produce` on the producer thread around producing an item (the
+source's next() and, with `device_put`, the pin and copy), and
+`cocodr.feed.wait` on the consumer's around taking it off the queue.
 """
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from typing import Iterator, Optional
@@ -19,6 +25,7 @@ import numpy as np
 import torch
 
 from cocodr_tpu_torch.ops._device import resolve_device
+from cocodr_tpu_torch.utils.logging import span
 
 
 def _to_device(item, dev):
@@ -47,6 +54,7 @@ class PrefetchIterator:
                  device_put: bool = True):
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._err: Optional[BaseException] = None
+        self._taken = 0
         self._device = resolve_device("cuda") if device_put else None
         self._thread = threading.Thread(
             target=self._fill, args=(source,), daemon=True
@@ -55,10 +63,15 @@ class PrefetchIterator:
 
     def _fill(self, source):
         try:
-            for item in source:
-                if self._device is not None:
-                    item = _to_device(item, self._device)
+            source = iter(source)
+            for n in itertools.count():
+                with span("cocodr.feed.produce", n):
+                    item = next(source)
+                    if self._device is not None:
+                        item = _to_device(item, self._device)
                 self._q.put(item)
+        except StopIteration:
+            pass
         except BaseException as e:  # raised again on the consumer side
             self._err = e
         finally:
@@ -68,11 +81,13 @@ class PrefetchIterator:
         return self
 
     def __next__(self):
-        item = self._q.get()
-        if item is self._SENTINEL:
-            if self._err is not None:
-                raise self._err
-            raise StopIteration
+        with span("cocodr.feed.wait", self._taken):
+            item = self._q.get()
+            if item is self._SENTINEL:
+                if self._err is not None:
+                    raise self._err
+                raise StopIteration
+        self._taken += 1
         return item
 
 

@@ -35,6 +35,7 @@ from cocodr_tpu_torch.ops.mips_hier import (
     mips_topk_hierarchical,
     scores,
 )
+from cocodr_tpu_torch.utils.logging import span
 
 
 def _merge_topk(run_vals, run_ids, new_vals, new_ids, k):
@@ -185,38 +186,49 @@ def mips_topk_chunked_queries(queries, corpus, k: int, q_chunk: int = 4096,
     n_real (a replicate-padded corpus's real row count) is honoured by
     'pallas' and 'fast'; any other method raises on it. The kernel
     searches' chunk is clamped by clamp_q_chunk: on a card from its free
-    memory, else only when hbm_budget is given."""
-    method = resolve_search_method(method,
-                                   exact_fp32=bool(kw.get("exact_fp32")))
-    if n_real and method not in N_REAL_METHODS:
-        raise ValueError(
-            f"method {method!r} cannot honour n_real={n_real}: pass the "
-            f"unpadded corpus, or use one of {N_REAL_METHODS}"
-        )
-    corpus = torch.as_tensor(corpus)
-    queries = torch.as_tensor(queries, device=corpus.device)
-    if method in ("pallas", "exact2", "fast") and (
-            hbm_budget is not None or corpus.device.type == "cuda"):
-        q_chunk = clamp_q_chunk(q_chunk, corpus.shape[0], corpus.shape[1],
-                                hbm_budget, corpus.device)
+    memory, else only when hbm_budget is given. Spans: `cocodr.search`
+    (the call), `.plan` (the clamp), `.chunk` (one query chunk) and
+    `.to_host` (a chunk's copy of its answers to the host, which waits for
+    the card)."""
+    with span("cocodr.search"):
+        method = resolve_search_method(
+            method, exact_fp32=bool(kw.get("exact_fp32")))
+        if n_real and method not in N_REAL_METHODS:
+            raise ValueError(
+                f"method {method!r} cannot honour n_real={n_real}: pass the "
+                f"unpadded corpus, or use one of {N_REAL_METHODS}"
+            )
+        corpus = torch.as_tensor(corpus)
+        queries = torch.as_tensor(queries, device=corpus.device)
+        if method in ("pallas", "exact2", "fast") and (
+                hbm_budget is not None or corpus.device.type == "cuda"):
+            with span("cocodr.search.plan"):
+                q_chunk = clamp_q_chunk(q_chunk, corpus.shape[0],
+                                        corpus.shape[1], hbm_budget,
+                                        corpus.device)
 
-    out_v, out_i = [], []
-    for s in range(0, queries.shape[0], q_chunk):
-        qc = queries[s:s + q_chunk]
-        if method == "pallas":
-            v, i = mips_topk_hierarchical(qc, corpus, k, n_real=n_real)
-        elif method == "exact2":
-            v, i = mips_topk_exact2(qc, corpus, k)
-        elif method == "fast":
-            v, i = mips_topk_fast(qc, corpus, k, n_real=n_real)
-        elif method == "blockmax":
-            v, i = mips_topk_blockmax(
-                qc, corpus, k, tile=min(kw.get("tile", 16384) * 4, 65536))
-        elif method == "refined":
-            v, i = mips_topk_refined(qc, corpus, k, oversample=oversample,
-                                     tile=kw.get("tile", 16384))
-        else:  # 'naive'
-            v, i = mips_topk(qc, corpus, k, **kw)
-        out_v.append(v.cpu().numpy())
-        out_i.append(i.cpu().numpy())
-    return np.concatenate(out_v), np.concatenate(out_i)
+        out_v, out_i = [], []
+        for s in range(0, queries.shape[0], q_chunk):
+            with span("cocodr.search.chunk"):
+                qc = queries[s:s + q_chunk]
+                if method == "pallas":
+                    v, i = mips_topk_hierarchical(qc, corpus, k,
+                                                  n_real=n_real)
+                elif method == "exact2":
+                    v, i = mips_topk_exact2(qc, corpus, k)
+                elif method == "fast":
+                    v, i = mips_topk_fast(qc, corpus, k, n_real=n_real)
+                elif method == "blockmax":
+                    v, i = mips_topk_blockmax(
+                        qc, corpus, k,
+                        tile=min(kw.get("tile", 16384) * 4, 65536))
+                elif method == "refined":
+                    v, i = mips_topk_refined(qc, corpus, k,
+                                             oversample=oversample,
+                                             tile=kw.get("tile", 16384))
+                else:  # 'naive'
+                    v, i = mips_topk(qc, corpus, k, **kw)
+                with span("cocodr.search.to_host"):
+                    out_v.append(v.cpu().numpy())
+                    out_i.append(i.cpu().numpy())
+        return np.concatenate(out_v), np.concatenate(out_i)

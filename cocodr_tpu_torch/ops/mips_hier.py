@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from cocodr_tpu_torch.ops import _build
+from cocodr_tpu_torch.utils.logging import span
 
 SWEEP_ROWS = 256  # corpus rows per sweep block: N must be a multiple
 SWEEP_DEPTH = 32  # D per sweep stage: D must be a multiple
@@ -278,7 +279,9 @@ def mips_topk_hierarchical(queries, corpus, k: int, tile: int = 2048,
     of bf16 operands with float32 sums -> (scores [Q, k] float32, ids
     [Q, k] int64). The corpus is replicate-padded to a multiple of
     max(tile, fine*coarse); a caller that pre-padded it that way passes the
-    real row count as n_real, and all masking keys on that count."""
+    real row count as n_real, and all masking keys on that count. Spans:
+    `cocodr.search.sweep` (K2), `.select` (the block selection) and
+    `.rescore` (the candidates' gather, product and top-k)."""
     Q, D = queries.shape
     N = corpus.shape[0]
     if n_real:
@@ -294,18 +297,20 @@ def mips_topk_hierarchical(queries, corpus, k: int, tile: int = 2048,
     k_sel = min(k + extra, n_coarse)
     qq = queries.to(torch.bfloat16).contiguous()
 
-    bm_fine, bm_coarse = dual_sweep(qq, corpus_p, fine, coarse)
+    with span("cocodr.search.sweep"):
+        bm_fine, bm_coarse = dual_sweep(qq, corpus_p, fine, coarse)
     n_fine_real = -(-N // fine)
     n_coarse_real = -(-N // cb)
     dev = corpus_p.device
     bm_coarse = bm_coarse.masked_fill(
         torch.arange(n_coarse, device=dev) >= n_coarse_real, float("-inf")
     )
-    _, fine_ids = _select_fine_blocks(
-        bm_fine, bm_coarse, k_sel=k_sel, k_fine=k + extra, coarse=coarse,
-        supers=supers, n_fine_real=n_fine_real,
-        k_super=k + (1 if N % (cb * supers) else 0),
-    )
+    with span("cocodr.search.select"):
+        _, fine_ids = _select_fine_blocks(
+            bm_fine, bm_coarse, k_sel=k_sel, k_fine=k + extra,
+            coarse=coarse, supers=supers, n_fine_real=n_fine_real,
+            k_super=k + (1 if N % (cb * supers) else 0),
+        )
     kf = fine_ids.shape[1]
 
     # rescore the candidates: whole fine blocks, gathered in query chunks
@@ -314,16 +319,17 @@ def mips_topk_hierarchical(queries, corpus, k: int, tile: int = 2048,
     chunk = max(128, min(Q, (750 * 1024 * 1024) // (kf * fine * D)))
     offs = torch.arange(fine, device=dev)
     vals, ids = [], []
-    for s in range(0, Q, chunk):
-        q_c, fid_c = qq[s:s + chunk], fine_ids[s:s + chunk]
-        C = q_c.shape[0]
-        rows = blocks[fid_c].reshape(C, kf * fine, D)
-        cand = (fid_c[:, :, None] * fine + offs).reshape(C, kf * fine)
-        scores = torch.bmm(rows.float(), q_c.float()[:, :, None])[:, :, 0]
-        scores = scores.masked_fill(cand >= N, float("-inf"))
-        v, pos = topk(scores.contiguous(), k)
-        vals.append(v)
-        ids.append(cand.gather(1, pos.long()))
+    with span("cocodr.search.rescore"):
+        for s in range(0, Q, chunk):
+            q_c, fid_c = qq[s:s + chunk], fine_ids[s:s + chunk]
+            C = q_c.shape[0]
+            rows = blocks[fid_c].reshape(C, kf * fine, D)
+            cand = (fid_c[:, :, None] * fine + offs).reshape(C, kf * fine)
+            scores = torch.bmm(rows.float(), q_c.float()[:, :, None])[:, :, 0]
+            scores = scores.masked_fill(cand >= N, float("-inf"))
+            v, pos = topk(scores.contiguous(), k)
+            vals.append(v)
+            ids.append(cand.gather(1, pos.long()))
     return torch.cat(vals), torch.cat(ids)
 
 

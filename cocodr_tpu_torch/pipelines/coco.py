@@ -48,6 +48,7 @@ from cocodr_tpu_torch.data.prefetch import prefetch
 from cocodr_tpu_torch.losses.contrastive import co_contrastive_loss
 from cocodr_tpu_torch.models.condenser import IGNORE_INDEX
 from cocodr_tpu_torch.pipelines.train_step import apply_gradients
+from cocodr_tpu_torch.utils.logging import span
 from cocodr_tpu_torch.utils.train_state import TrainState, save_checkpoint
 
 
@@ -96,7 +97,8 @@ def build_coco_train_step(cfg: CocoConfig) -> Callable:
     place. batch: input_ids, attention_mask, labels [B, S] tensors on the
     model's device. dropout_seed: train with dropout, the generators from
     (dropout_seed, state.step[, chunk]); None runs the model in eval mode
-    (no dropout)."""
+    (no dropout). Either form runs in the span `cocodr.coco.step` (unit:
+    state.step before the step)."""
     if cfg.cache_chunk_size <= 0:
         def step(state: TrainState, batch, dropout_seed=None):
             model = state.model
@@ -118,7 +120,7 @@ def build_coco_train_step(cfg: CocoConfig) -> Callable:
             return {"loss": parts[0] + co.detach(), "mlm_loss": parts[1],
                     "co_loss": co.detach()}
 
-        return step
+        return _spanned(step)
 
     C = cfg.cache_chunk_size
 
@@ -165,7 +167,15 @@ def build_coco_train_step(cfg: CocoConfig) -> Callable:
         return {"loss": mlm_loss + co_loss, "mlm_loss": mlm_loss,
                 "co_loss": co_loss}
 
-    return step
+    return _spanned(step)
+
+
+def _spanned(step: Callable) -> Callable:
+    def spanned(state: TrainState, batch, dropout_seed=None):
+        with span("cocodr.coco.step", state.step):
+            return step(state, batch, dropout_seed)
+
+    return spanned
 
 
 def run_coco_pretrain(state: TrainState, train_step: Callable,

@@ -31,6 +31,7 @@ from cocodr_tpu_torch.data.prefetch import prefetch
 from cocodr_tpu_torch.models.bert import cast_matmul_weights
 from cocodr_tpu_torch.ops._device import resolve_device
 from cocodr_tpu_torch.parallel.tp import unsplit_copy
+from cocodr_tpu_torch.utils.logging import span
 from cocodr_tpu_torch.utils.misc import add_embedding_noise
 
 
@@ -127,8 +128,9 @@ class Encoder:
 
     def dispatch(self, ids, mask):
         """Enqueue one batch and the copy of its float32 embeddings to
-        pinned host memory; -> a handle for collect()."""
-        with torch.inference_mode():
+        pinned host memory; -> a handle for collect(). Span
+        `cocodr.encode.dispatch`: the host's time to issue the batch."""
+        with span("cocodr.encode.dispatch"), torch.inference_mode():
             emb = self(ids, mask).float()
             if self.device.type != "cuda":
                 return emb, None
@@ -140,10 +142,12 @@ class Encoder:
 
     @staticmethod
     def collect(handle) -> np.ndarray:
-        """Wait for a dispatch() handle -> float32 numpy [B, D]."""
+        """Wait for a dispatch() handle -> float32 numpy [B, D]. Span
+        `cocodr.encode.collect`: the wait, which ends with the copy."""
         host, done = handle
-        if done is not None:
-            done.synchronize()
+        with span("cocodr.encode.collect"):
+            if done is not None:
+                done.synchronize()
         return host.numpy()
 
 

@@ -92,6 +92,7 @@ from cocodr_tpu_torch.parallel.sharded_train import (
     mean_over_ranks,
 )
 from cocodr_tpu_torch.parallel.tp import model_sum_sq, split_axis, split_dim
+from cocodr_tpu_torch.utils.logging import span
 from cocodr_tpu_torch.utils.train_state import TrainState
 
 DRO_KINDS = ("dro-greedy", "idro")
@@ -212,13 +213,14 @@ def apply_gradients(state: TrainState, max_grad_norm: float) -> None:
     with optim.MultiSteps an accumulation that updates every k-th time),
     count the micro-batch. A data-parallel state first replaces the
     gradients by their mean over the ranks, so that the clip's global norm
-    is the global batch's."""
-    if state.mesh is not None:
-        average_gradients(state.model.parameters(), state.mesh)
-    if max_grad_norm > 0:
-        clip_by_global_norm_(state.model.parameters(), max_grad_norm)
-    state.optimizer.step()
-    state.step += 1
+    is the global batch's. Span `cocodr.coco.update`."""
+    with span("cocodr.coco.update"):
+        if state.mesh is not None:
+            average_gradients(state.model.parameters(), state.mesh)
+        if max_grad_norm > 0:
+            clip_by_global_norm_(state.model.parameters(), max_grad_norm)
+        state.optimizer.step()
+        state.step += 1
 
 
 def last_k_layers(model, k: int) -> list:

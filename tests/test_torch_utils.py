@@ -3,6 +3,7 @@ package's on the same inputs: tests/test_aux.py's cases through both.
 Tolerances: exact, except the teacher updates (float32, 1e-6)."""
 import json
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -78,7 +79,7 @@ def test_metrics_logger_jsonl_matches_jax(tmp_path):
     """tests/test_aux.py:128 through both: the same records, byte for
     byte, for floats, ints, 0-d arrays of each package and a value float()
     refuses; TensorBoard event files written when tensorboardX is
-    importable; StepTimer's summary."""
+    importable."""
     a, b = str(tmp_path / "j.jsonl"), str(tmp_path / "t.jsonl")
     jl = jlog.MetricsLogger(log_dir=str(tmp_path / "tbj"), jsonl_path=a)
     tl = tlog.MetricsLogger(log_dir=str(tmp_path / "tbt"), jsonl_path=b)
@@ -99,23 +100,36 @@ def test_metrics_logger_jsonl_matches_jax(tmp_path):
         assert os.listdir(tmp_path / "tbt")
     except ImportError:
         pass
-    st = tlog.StepTimer()
-    for _ in range(2):
-        with st.phase("encode"):
-            pass
-    summary = st.summary()["encode"]
-    assert summary["count"] == 2 and summary["total_s"] >= 0.0
-    assert summary["mean_s"] == summary["total_s"] / 2
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
     """profile_trace writes one Chrome trace of the block's operations
-    (the host's here); disabled, it writes nothing."""
+    (the host's here) and, beside it under the same stamp, the block's
+    spans of every thread; disabled, it writes nothing."""
     with tlog.profile_trace(str(tmp_path / "off"), enabled=False):
         torch.ones(4).sum()
     assert not (tmp_path / "off").exists()
+    def on_a_thread():
+        with tlog.span("cocodr.test.thread"):
+            pass
+
+    with tlog.span("cocodr.test.before"):
+        pass
     with tlog.profile_trace(str(tmp_path / "on")):
-        torch.ones(64, 64).matmul(torch.ones(64, 64))
-    (trace,) = os.listdir(tmp_path / "on")
+        with tlog.span("cocodr.test.main", unit=3):
+            torch.ones(64, 64).matmul(torch.ones(64, 64))
+        worker = threading.Thread(target=on_a_thread)
+        worker.start()
+        worker.join(timeout=60)
+    assert not worker.is_alive()
+    spans, trace = sorted(os.listdir(tmp_path / "on"))
+    assert trace.startswith("trace-") and spans == "spans-" + trace[6:]
     events = json.load(open(tmp_path / "on" / trace))["traceEvents"]
     assert any("matmul" in e.get("name", "") for e in events)
+    assert any(e.get("name") == "cocodr.test.main" for e in events)
+    recs = json.load(open(tmp_path / "on" / spans))
+    assert [r["name"] for r in recs] == ["cocodr.test.main",
+                                         "cocodr.test.thread"]
+    assert recs[0]["unit"] == 3 and recs[0]["parent"] is None
+    assert recs[0]["thread"] == threading.get_ident() != recs[1]["thread"]
+    assert all(r["start_ns"] <= r["end_ns"] for r in recs)
