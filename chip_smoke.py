@@ -63,12 +63,16 @@ Phases, each printed with its elapsed seconds:
      measured (approximate modes);
   6. encode: 16,384 random records of up to 128 tokens written with the
      port's RecordWriter, encoded by encode_cache (body tower, batch 256)
-     in five configurations: (a) bert-base bf16, (b) the same with length
-     buckets (32, 64, 128), (c) attention_impl="fused" (K8), (d)
-     matmul_int8 (K7), (e) bert-large (24 layers) on the first 4,096
-     records; docs/s, card span and the host's enqueue time of each; the
-     first records of (a), (c), (d) and (e) re-encoded on the CPU through
-     the plain versions, and (b), (c), (d) held against (a) by cosine;
+     in six configurations: (a) bert-base bf16 with the einsum attention
+     chain, (b) the same with length buckets (32, 64, 128), (c)
+     attention_impl="fused" (K8), (d) matmul_int8 (K7, einsum attention),
+     (e) bert-large (24 layers, the default attention: K8) on the first
+     4,096 records, (f) the default configuration (attention_impl
+     'auto': K8 12 a batch, its dispatch counted by path); docs/s, card
+     span and the host's enqueue time of each; the first records of (a),
+     (c), (d) and (e) re-encoded on the CPU through the plain versions,
+     (b), (c), (d), (f) held against (a) by cosine and (f) against (c)
+     bit for bit;
   7. train: BM25-warmup training of BERT-base (rdot_nll_condenser, random
      weights from the seed, bf16 compute, batch 64 of 128-token triples of
      hashed words) through run_warmup: with dropout 0.1, every FFN runs K5
@@ -328,7 +332,12 @@ COCO leg, each variants leg, each recipe leg, each HTTP leg, each IVF
 search, each CLI subcommand, each cli-recipe call, each mesh leg) runs
 with every kernel's launch count set to 0 just
 before it and read just after, and fails if a kernel of the path never
-launched or a count differs from the path's own. Then one JSON line of per-kernel numbers,
+launched or a count differs from the path's own. Every forward on the
+card under torch.inference_mode that runs no attention dropout (serving,
+encoding, evals, mining) launches K8 on each layer beside the K1 or K7
+the phases below name: models/bert.py's default attention_impl, 'auto'
+(`with_k8`); COCO's grad-cache pass 1 (torch.no_grad) keeps the einsum
+chain of its training pass. Then one JSON line of per-kernel numbers,
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and the process exits
 non-zero; a hang ends at the watchdog with a traceback.
@@ -1903,9 +1912,10 @@ def cli_recipe(args, dev):
         evals = CLI_WARMUP_STEPS // CLI_WARMUP_EVAL
 
         def warmup_counts(c):
+            k1 = evals * layers * (math.ceil(n_p / 512)
+                                   + math.ceil(n_dq / 512))
             return {"K5_ffn": 3 * layers * CLI_WARMUP_STEPS,
-                    "K1_ffn_block": evals * layers * (
-                        math.ceil(n_p / 512) + math.ceil(n_dq / 512)),
+                    "K1_ffn_block": k1, "K8_attention": k1,
                     "K2_dual_sweep": evals, "K3_topk": c["K3_topk"]}
 
         triples = os.path.join(marco_tsv, "triples.tsv")
@@ -1998,6 +2008,7 @@ def cli_recipe(args, dev):
                     # and K3 by the recorded searches of every round
                     e = mine_expected(mrec, eval_batch, layers, encoded)
                     e["K1_ffn_block"] *= rounds
+                    e["K8_attention"] *= rounds
                     if int8:
                         e["K7_ffn_block_int8"] = e.pop("K1_ffn_block")
                     e["K5_ffn"] = 3 * layers * CLI_ANCE_STEPS * rounds
@@ -2036,9 +2047,9 @@ def cli_recipe(args, dev):
         n_q = BEIR_SHAPES["scifact"]["queries"]
 
         def eval_counts(c):
-            return {"K1_ffn_block": layers * (math.ceil(n_docs / 512)
-                                              + math.ceil(n_q / 512)),
-                    "K2_dual_sweep": 1, "K3_topk": c["K3_topk"]}
+            return with_k8({"K1_ffn_block": layers * (
+                math.ceil(n_docs / 512) + math.ceil(n_q / 512)),
+                "K2_dual_sweep": 1, "K3_topk": c["K3_topk"]})
 
         work = os.path.join(root, "eval", "scifact")
         out, _ = cli.run("eval-beir", [
@@ -2180,6 +2191,21 @@ def check_counts(path, counts, expect):
     want.update(expect)
     if counts != want:
         raise AssertionError(f"{path}: launch counts {counts} != {want}")
+
+
+def with_k8(expect, forwards=None):
+    """expect with K8's launches added: one for each inference layer
+    forward under the default attention_impl ('auto'), which on the card
+    takes K8 at every width this script encodes (bf16, head dim 64,
+    multiples of 8 up to 512). forwards: their count; None: every K1 and
+    K7 launch in expect is an inference layer's."""
+    if forwards is None:
+        forwards = (expect.get("K1_ffn_block", 0)
+                    + expect.get("K7_ffn_block_int8", 0))
+    out = dict(expect)
+    if forwards:
+        out["K8_attention"] = out.get("K8_attention", 0) + forwards
+    return out
 
 
 def zero_counts():
@@ -2374,6 +2400,7 @@ def serve_mode(args, dev, corpus, model, mode):
     layers = model.cfg.bert.num_hidden_layers
     expect = {name: n * calls for name, n in per_call.items()}
     expect[ffn_kernel] = layers * calls
+    expect = with_k8(expect)
     counts = read_counts(f"serve {mode}", list(expect))
     check_counts(f"serve {mode}", counts, expect)
 
@@ -2464,13 +2491,18 @@ def write_records(args, path, n=ENC_DOCS):
     return TokenCache(path)
 
 
-# configuration -> (BertConfig changes, length buckets, records)
+# configuration -> (BertConfig changes, length buckets, records); (a),
+# (b) and (d) name the einsum attention chain, so that (c) against (a)
+# compares the two formulations and (b), (d) change one thing each; (e)
+# and (f) take the default attention_impl ('auto': K8 on the card)
 ENCODE_CONFIGS = {
-    "a_default": ({}, (), ENC_DOCS),
-    "b_buckets": ({}, (32, 64, 128), ENC_DOCS),
+    "a_default": ({"attention_impl": "einsum"}, (), ENC_DOCS),
+    "b_buckets": ({"attention_impl": "einsum"}, (32, 64, 128), ENC_DOCS),
     "c_fused_attention": ({"attention_impl": "fused"}, (), ENC_DOCS),
-    "d_matmul_int8": ({"matmul_int8": True}, (), ENC_DOCS),
+    "d_matmul_int8": ({"matmul_int8": True, "attention_impl": "einsum"}, (),
+                      ENC_DOCS),
     "e_bert_large": ({"large": True}, (), LARGE_DOCS),
+    "f_default": ({}, (), ENC_DOCS),
 }
 CPU_DOCS = {"a_default": 4, "c_fused_attention": 4, "d_matmul_int8": 4,
             "e_bert_large": 2}
@@ -2478,10 +2510,13 @@ CPU_DOCS = {"a_default": 4, "c_fused_attention": 4, "d_matmul_int8": 4,
 # activations rounded at other points after float32 sums in other orders
 CPU_COSINE = 0.999
 # min per-row cosine against (a): bucketing changes only the padding the
-# attention masks, fused attention rounds the probabilities before PV;
-# the int8 bound is tests/test_int8_encode.py's
+# attention masks, fused attention (c, and (f)'s default path on the card)
+# rounds the probabilities before PV; the int8 bound is
+# tests/test_int8_encode.py's
 VS_DEFAULT_COSINE = {"b_buckets": 0.999, "c_fused_attention": 0.999,
-                     "d_matmul_int8": 0.99}
+                     "d_matmul_int8": 0.99, "f_default": 0.999}
+# (f) runs K8 on every layer as (c) does: its embeddings equal (c)'s
+SAME_AS = {"f_default": "c_fused_attention"}
 
 
 def cosines(a, b):
@@ -2490,10 +2525,23 @@ def cosines(a, b):
                              * np.linalg.norm(b, axis=1))
 
 
-def expected_encode_counts(name, bert, cache, buckets, n):
+def takes_k8(bert, width, dev):
+    """Whether an inference forward of bert's layers at this width takes
+    K8 on dev (models/bert.py's rule: 'fused' at a width divisible by 8,
+    'auto' on the card where the kernel takes the shape)."""
+    if bert.attention_impl == "fused":
+        return width % 8 == 0
+    return (bert.attention_impl == "auto"
+            and torch.device(dev).type == "cuda"
+            and bert.dtype == torch.bfloat16 and bert.head_dim == 64
+            and width % 8 == 0 and width <= 512)
+
+
+def expected_encode_counts(name, bert, cache, buckets, n, dev):
     """The launches of one encode configuration: one FFN kernel (K1, or K7
-    with matmul_int8) per layer and batch, and K8 per layer and batch with
-    fused attention (every bucket width is a multiple of 8)."""
+    with matmul_int8) per layer and batch, and K8 per layer and batch
+    where the attention takes it (takes_k8; every bucket width is a
+    multiple of 8) -> (launches, batches, layer forwards on K8)."""
     if buckets:
         lengths = cache.lengths()[:n]
         edges = (0,) + tuple(buckets)
@@ -2506,9 +2554,8 @@ def expected_encode_counts(name, bert, cache, buckets, n):
     per_batch = bert.num_hidden_layers * batches
     expect = {("K7_ffn_block_int8" if bert.matmul_int8 else "K1_ffn_block"):
               per_batch}
-    if bert.attention_impl == "fused":
-        expect["K8_attention"] = per_batch
-    return expect, batches
+    k8 = per_batch if takes_k8(bert, cache.max_len, dev) else 0
+    return with_k8(expect, k8), batches, k8
 
 
 def layer_breakdown(name, model, tokens, mask):
@@ -2540,7 +2587,7 @@ def layer_breakdown(name, model, tokens, mask):
 
 def encode_config(args, dev, cache, name):
     """encode_cache over one configuration -> (embeddings, counts)."""
-    from cocodr_tpu_torch.models.bert import BertConfig
+    from cocodr_tpu_torch.models.bert import BertConfig, BertSelfAttention
     from cocodr_tpu_torch.models.dual_encoder import build_dual_encoder
     from cocodr_tpu_torch.pipelines.encode import (
         EncodeConfig,
@@ -2563,6 +2610,7 @@ def encode_config(args, dev, cache, name):
     cfg = EncodeConfig(batch_size=ENC_BATCH, length_buckets=buckets)
     idx = np.arange(n)
     zero_counts()
+    paths = dict(BertSelfAttention.forwards)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t = time.perf_counter()
@@ -2572,9 +2620,18 @@ def encode_config(args, dev, cache, name):
     end.synchronize()
     wall = time.perf_counter() - t
     span = start.elapsed_time(end)
-    expect, batches = expected_encode_counts(name, bert, cache, buckets, n)
+    paths = {k: v - paths[k] for k, v in BertSelfAttention.forwards.items()}
+    expect, batches, k8 = expected_encode_counts(name, bert, cache, buckets,
+                                                 n, dev)
     counts = read_counts(f"encode {name}", list(expect))
     check_counts(f"encode {name}", counts, expect)
+    forwards = bert.num_hidden_layers * batches
+    phase(f"  encode {name} attention forwards by path: {paths} "
+          f"({paths['k8'] / batches:g} K8 and {paths['einsum'] / batches:g} "
+          f"einsum a batch)")
+    if paths != {"k8": k8, "einsum": forwards - k8}:
+        raise AssertionError(f"encode {name}: attention paths {paths}, "
+                             f"expected {k8} on K8 of {forwards}")
     if out.shape != (n, bert.hidden_size) or not np.isfinite(out).all():
         raise AssertionError(f"encode {name}: bad output {out.shape}")
 
@@ -2634,6 +2691,11 @@ def encode(args, dev):
               f"{cos.min():.6f}, mean {cos.mean():.6f} (bound {bound_cos})")
         if not cos.min() >= bound_cos:
             raise AssertionError(f"encode {name} disagrees with a_default")
+    for name, other in SAME_AS.items():
+        same = np.array_equal(outs[name], outs[other])
+        phase(f"  encode {name} equals {other} bit for bit: {same}")
+        if not same and torch.device(dev).type == "cuda":
+            raise AssertionError(f"encode {name} differs from {other}")
     return counts
 
 
@@ -3144,9 +3206,9 @@ def eval_task(args, dev, model, root, name):
     L = model.cfg.bert.num_hidden_layers
     batches = (math.ceil(n_docs / cfg.batch_size)
                + math.ceil(n_q / cfg.batch_size))
-    check_counts(f"eval {name}", counts, {
+    check_counts(f"eval {name}", counts, with_k8({
         "K1_ffn_block": L * batches, "K2_dual_sweep": 1,
-        "K3_topk": counts["K3_topk"]})
+        "K3_topk": counts["K3_topk"]}))
     corpus_emb, query_emb = rec["emb"]
     score_s = rec["total_s"] - sum(rec["encode_s"]) - rec["search_s"]
     card = nvidia_smi()
@@ -3264,10 +3326,10 @@ def eval_mrr(args, dev, model, root, paths):
     counts = read_counts("eval combined_mrr", ["K1_ffn_block",
                                                "K2_dual_sweep", "K3_topk"])
     L = model.cfg.bert.num_hidden_layers
-    check_counts("eval combined_mrr", counts, {
+    check_counts("eval combined_mrr", counts, with_k8({
         "K1_ffn_block": L * (math.ceil(n_docs / 512)
                              + math.ceil(len(q2o) / 512)),
-        "K2_dual_sweep": 1, "K3_topk": counts["K3_topk"]})
+        "K2_dual_sweep": 1, "K3_topk": counts["K3_topk"]}))
     phase(f"  eval combined_mrr (SciFact records, {len(cands)} queries x "
           f"{EVAL_CANDIDATES} candidates): {out} in {secs:.3f} s (host "
           f"clock)")
@@ -3889,9 +3951,9 @@ def pallas_k3_launches(n_q, q_chunk, n_rows, d, n_real, k):
 
 
 def mine_expected(rec, cfg, layers, encoded):
-    """One mine()'s launches from its recorded searches: K1 one per layer
-    and encoded batch (encoded: the record counts it encoded), K2 one per
-    query chunk, K3 by pallas_k3_launches."""
+    """One mine()'s launches from its recorded searches: K1 and K8 one per
+    layer and encoded batch (encoded: the record counts it encoded), K2 one
+    per query chunk, K3 by pallas_k3_launches."""
     k1 = layers * sum(-(-n // cfg.batch_size) for n in encoded)
     k2 = k3 = 0
     for s in rec.searches:
@@ -3899,7 +3961,8 @@ def mine_expected(rec, cfg, layers, encoded):
         k2 += -(-n_q // s["q_chunk"])
         k3 += pallas_k3_launches(n_q, s["q_chunk"], *s["corpus"].shape,
                                  s["n_real"], s["k"])
-    return {"K1_ffn_block": k1, "K2_dual_sweep": k2, "K3_topk": k3}
+    return {"K1_ffn_block": k1, "K8_attention": k1, "K2_dual_sweep": k2,
+            "K3_topk": k3}
 
 
 def check_ann_file(path, n_docs, positives, n_groups, per_line):
@@ -4484,7 +4547,10 @@ def coco_agreement(name, a, b, bounds):
 def coco_cache_compare(args, dev, stage, bert, batch):
     """Leg (c): the cache step (K1 104) against the direct step (K1 14)
     from the same weights on one batch, dropout off, raw gradients; then
-    the cache step with the wrong chunk's cotangents planted must fail."""
+    the cache step with the wrong chunk's cotangents planted must fail.
+    Both of the cache's passes and the direct step take the einsum
+    attention chain: pass 1 runs under torch.no_grad, not inference_mode,
+    so that its CLS are pass 2's (no K8 launch)."""
     from cocodr_tpu_torch.pipelines.coco import CocoConfig
 
     layers, heads = bert.num_hidden_layers, stage.n_head_layers
@@ -5005,7 +5071,7 @@ def roberta_large_encode(args, dev, root):
     enc.collect(enc.dispatch(tokens, mask))
     torch.cuda.synchronize()
     batches = -(-LARGE_RECORDS // ENC_BATCH)
-    expect = {"K1_ffn_block": layers * batches}
+    expect = with_k8({"K1_ffn_block": layers * batches})
     zero_counts()
     t = time.perf_counter()
     out = encode_cache(enc, cache, EncodeConfig(batch_size=ENC_BATCH))
@@ -6324,7 +6390,7 @@ def ivf(args, dev):
     layers = model.cfg.bert.num_hidden_layers
     counts = read_counts("serve ivf", ["K1_ffn_block"]
                          if dev.type == "cuda" else [])
-    check_counts("serve ivf", counts, {"K1_ffn_block": layers * 4}
+    check_counts("serve ivf", counts, with_k8({"K1_ffn_block": layers * 4})
                  if dev.type == "cuda" else {})
     full = svc.ivf_index.n_clusters
     errs = []
@@ -6435,7 +6501,7 @@ def default_serve_counts(layers, calls):
     """Launches of `calls` default-mode serve calls of a BERT tower."""
     per = SERVE_MODES["default"][2]
     out = {name: n * calls for name, n in per.items()}
-    out["K1_ffn_block"] = layers * calls
+    out["K1_ffn_block"] = out["K8_attention"] = layers * calls
     return out
 
 
@@ -6873,7 +6939,7 @@ def cli(args, dev):
         n_batches = math.ceil(n_docs / 512)
         if on_card:
             check_counts("cli encode", counts,
-                         {"K1_ffn_block": layers * n_batches})
+                         with_k8({"K1_ffn_block": layers * n_batches}))
         with open(os.path.join(log_dir, "metrics.jsonl")) as f:
             enc_rate = json.loads(f.readline())["encode/records_per_s"]
         emb = np.load(emb_path)
@@ -6926,7 +6992,7 @@ def cli(args, dev):
                                        ivf_job)
         if on_card:
             check_counts("cli serve ivf", counts,
-                         {"K1_ffn_block": layers * len(repl)})
+                         with_k8({"K1_ffn_block": layers * len(repl)}))
         lines = [json.loads(x) for x in out.stdout.splitlines()
                  if x.startswith("{")]
         if lines[0] != {"ready": True, "n_docs": n_docs}:
@@ -7122,7 +7188,7 @@ def cli_roberta_finish(dev, run, data, ckpt, rec, emb_path, queries, trec,
     n_batches = math.ceil(n_docs / 512)
     if on_card:
         check_counts("cli roberta encode", counts,
-                     {"K1_ffn_block": layers * n_batches})
+                     with_k8({"K1_ffn_block": layers * n_batches}))
     emb = np.load(emb_path)
     zero_counts()
     direct = encode_cache(Encoder(model, device=dev), passages,
@@ -7146,6 +7212,7 @@ def cli_roberta_finish(dev, run, data, ckpt, rec, emb_path, queries, trec,
     if on_card:
         want = default_serve_counts(layers, n_calls)
         want["K1_ffn_block"] += layers * n_batches
+        want["K8_attention"] += layers * n_batches
         check_counts("cli roberta serve --records --queries", counts, want)
     off2id = {v: k for k, v in load_id_map(
         os.path.join(rec, "passages.docid2offset.pickle")).items()}
@@ -7176,7 +7243,8 @@ def ivf_eval_and_mine(dev, model, data, rec, tok, root, on_card, card):
     phase's records and model, at full probe (ivf_nprobe past the
     records' clusters): the eval's metrics within near-tie distance of
     the 'pallas' eval's, the ann file's lines valid, time_ivf_build
-    reported, and no kernel search launched (K1 only, for the encodes)."""
+    reported, and no kernel search launched (K1 and K8 only, for the
+    encodes)."""
     from cocodr_tpu_torch.data.records import TokenCache
     from cocodr_tpu_torch.pipelines import ance
     from cocodr_tpu_torch.pipelines import eval_beir as eb
@@ -7195,7 +7263,7 @@ def ivf_eval_and_mine(dev, model, data, rec, tok, root, on_card, card):
     counts = read_counts("eval scifact by ivf", kernels)
     if on_card:
         check_counts("eval by ivf", counts,
-                     {"K1_ffn_block": layers * batches})
+                     with_k8({"K1_ffn_block": layers * batches}))
     want = eb.evaluate_beir_task(model, *paths, dataclasses.replace(
         cfg, search_method="pallas"), device=dev)
     diff = max(abs(got[m] - want[m]) for m in want)
@@ -7221,8 +7289,9 @@ def ivf_eval_and_mine(dev, model, data, rec, tok, root, on_card, card):
                   qrels_off, out, 0, mcfg, device=dev)
     counts = read_counts("mine by ivf", kernels)
     if on_card:
-        check_counts("mine by ivf", counts, {"K1_ffn_block": layers * (
-            math.ceil(n_docs / mcfg.batch_size) + 2)})
+        check_counts("mine by ivf", counts, with_k8({
+            "K1_ffn_block": layers * (math.ceil(n_docs / mcfg.batch_size)
+                                      + 2)}))
     lines = check_ann_file(ance.ann_data_path(out, 0), n_docs, positives, 1,
                            mcfg.negative_sample // mcfg.n_splits)
     phase(f"  mine by ivf at full probe ({n_docs} passages, {n_q} train "

@@ -12,11 +12,28 @@ call of `ops.ffn.ffn_block`, the K1 kernel on the card, or of
 is set. A module that trains with hidden_dropout_prob > 0 takes the
 semi-fused path instead, which keeps the reference's dropout placement:
 LN1, then `ops.ffn.ffn` (K5 on the card; `ffn_impl="dense"` takes the bf16
-nn.Linear pair), dropout, the residual add and LN2. With
-`attention_impl="fused"` the attention of a sequence length divisible by 8
-is one call of `ops.attention.attention` (K8) unless attention dropout
-runs. K1, K5 and K8 take gradients: their backward recomputes the XLA
-formulation, as the JAX package's custom VJPs do.
+nn.Linear pair), dropout, the residual add and LN2.
+
+The attention core is one call of `ops.attention.attention` (K8) or the
+einsum chain (`BertSelfAttention.core`: float32 scores, the softmax
+division after the PV product). `BertConfig.attention_impl` picks it:
+  'auto'    (default) K8 under torch.inference_mode (encode, serving,
+            eval, mining: `Encoder` and `RetrievalService` enter it) when
+            no attention dropout runs, q is on the card and K8 takes the
+            shape (bf16, head dim 64, S % 8 == 0, S <= 512, a [B, 1, 1, S]
+            float32 bias); the einsum chain otherwise: every training
+            forward (COCO's grad-cache pass 1 too: it runs under
+            torch.no_grad, and its CLS must be pass 2's), every CPU
+            forward, every shape K8 refuses. K8 exists only on the card,
+            its CPU version is a plain reference with no speed to gain,
+            so the CPU keeps the einsum chain, the JAX package's default
+            formulation that the CPU tests hold it to;
+  'einsum'  the einsum chain always;
+  'fused'   K8 for S % 8 == 0 unless attention dropout runs, with or
+            without gradients, as the JAX package's 'pallas'.
+`BertSelfAttention.forwards` counts the forwards by the path taken. K1, K5
+and K8 take gradients: their backward recomputes the XLA formulation, as
+the JAX package's custom VJPs do.
 
 Dropout sits where the JAX package puts it: on the embeddings output, on
 the unnormalised bf16 attention exponentials (after their sum is taken),
@@ -96,7 +113,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from cocodr_tpu_torch.ops.attention import attention
+from cocodr_tpu_torch.ops.attention import attention, kernel_takes
 from cocodr_tpu_torch.ops.ffn import (
     activation,
     ffn,
@@ -137,9 +154,13 @@ class BertConfig:
     # (the einsum attention core only)
     remat: bool = False
     remat_policy: str = ""
-    # 'einsum' (default) or 'fused': K8 for sequence lengths divisible by 8
-    # when no attention dropout runs
-    attention_impl: str = "einsum"
+    # 'auto' (default): K8 for a forward under torch.inference_mode that
+    # runs no attention dropout and whose q is on the card in a shape K8
+    # takes, the einsum chain otherwise (every CPU and every training
+    # forward, torch.no_grad ones included);
+    # 'einsum': always the einsum chain; 'fused': K8 for sequence lengths
+    # divisible by 8 when no attention dropout runs (the module docstring)
+    attention_impl: str = "auto"
     # FFN formulation: 'fused' (default) runs the half-layer as K1, or K5
     # on the dropout path; 'dense' runs the bf16 nn.Linear pair between
     # the two LayerNorms, with or without dropout
@@ -149,9 +170,9 @@ class BertConfig:
     matmul_int8: bool = False
 
     def __post_init__(self):
-        if self.attention_impl not in ("einsum", "fused"):
+        if self.attention_impl not in ("auto", "einsum", "fused"):
             raise ValueError(
-                f"attention_impl must be 'einsum' or 'fused', got "
+                f"attention_impl must be 'auto', 'einsum' or 'fused', got "
                 f"{self.attention_impl!r}"
             )
         if self.ffn_impl not in ("dense", "fused"):
@@ -348,7 +369,16 @@ class BertEmbeddings(nn.Module):
                         generator)
 
 
+def on_card(t: torch.Tensor) -> bool:
+    """Whether t is on the card, the only device K8 exists on."""
+    return t.is_cuda
+
+
 class BertSelfAttention(nn.Module):
+    # attention forwards by the path the dispatch took, on every device
+    # (K8's own launches: ops.attention.fused_attention_seq_major.launches)
+    forwards = {"k8": 0, "einsum": 0}
+
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.cfg = cfg
@@ -358,13 +388,26 @@ class BertSelfAttention(nn.Module):
         self.value = nn.Linear(H, H)
         self.tp = None  # the model axis (parallel/tp.py) when split
 
+    def takes_k8(self, q, attn_bias) -> bool:
+        """The dispatch rule of attention_impl (the module docstring)."""
+        impl = self.cfg.attention_impl
+        if impl == "einsum" or (self.training and
+                                self.cfg.attention_probs_dropout_prob > 0):
+            return False
+        if impl == "fused":
+            return q.shape[1] % 8 == 0
+        B, S = q.shape[:2]
+        return (torch.is_inference_mode_enabled() and on_card(q)
+                and kernel_takes(q)
+                and attn_bias.dtype == torch.float32
+                and tuple(attn_bias.shape) == (B, 1, 1, S))
+
     def forward(self, h, attn_bias, generator=None,
                 recompute_scores: bool = False):
-        """K8 when attention_impl is 'fused', S % 8 == 0 and no attention
-        dropout runs, as in the JAX package; otherwise einsum attention
-        (`core`). recompute_scores: the einsum core runs under
-        `checkpointed` (the 'no_save:attn_scores,attn_probs' policy).
-        Split (self.tp): this rank's N/M heads -> [B, S, H/M]."""
+        """K8 or einsum attention (`core`) by `takes_k8`.
+        recompute_scores: the einsum core runs under `checkpointed` (the
+        'no_save:attn_scores,attn_probs' policy). Split (self.tp): this
+        rank's N/M heads -> [B, S, H/M]."""
         cfg = self.cfg
         B, S, _ = h.shape
         D = cfg.head_dim
@@ -374,12 +417,12 @@ class BertSelfAttention(nn.Module):
         q = linear(h, self.query, dt).view(B, S, N, D)
         k = linear(h, self.key, dt).view(B, S, N, D)
         v = linear(h, self.value, dt).view(B, S, N, D)
-        p = cfg.attention_probs_dropout_prob
-        if (cfg.attention_impl == "fused" and S % 8 == 0
-                and (not self.training or p == 0.0)):
+        if self.takes_k8(q, attn_bias):
+            BertSelfAttention.forwards["k8"] += 1
             bias = attn_bias[:, 0, 0, :].contiguous()
             ctx = attention(q, k, v, bias, 1.0 / math.sqrt(D))
             return ctx.reshape(B, S, N * D)
+        BertSelfAttention.forwards["einsum"] += 1
         if recompute_scores:
             ctx = checkpointed(self.core, generator, q, k, v, attn_bias)
         else:

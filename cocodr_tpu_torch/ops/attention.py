@@ -8,10 +8,17 @@ models/bert.py: the softmax is normalised in float32 BEFORE the PV product
 (probabilities rounded to the compute dtype), where the einsum path
 multiplies the unnormalised exponentials by V and divides afterwards.
 
-models/bert.py takes this path through `attention` when
-`BertConfig.attention_impl == "fused"`, S % 8 == 0 and no attention dropout
-runs (eval mode, or attention_probs_dropout_prob == 0), as the JAX package
-does. `attention` is a torch.autograd.Function, as the JAX dispatcher is a
+models/bert.py takes this path through `attention` when no attention
+dropout runs (eval mode, or attention_probs_dropout_prob == 0) and either
+`BertConfig.attention_impl` is "fused" and S % 8 == 0, as the JAX package
+does, or it is "auto" (the default), the forward runs under
+torch.inference_mode, q is on the card and `kernel_takes(q)`: the towers'
+inference forwards on the card (a torch.no_grad forward, such as COCO's
+grad-cache pass 1, keeps the einsum chain of its training pass). The
+CPU keeps the einsum chain under "auto": K8 exists only on the card, and
+`attention_reference` is a plain version with no speed to gain, so the CPU
+tests hold the default path to the JAX package's default formulation.
+`attention` is a torch.autograd.Function, as the JAX dispatcher is a
 jax.custom_vjp: the forward runs K8, the backward recomputes the einsum
 formulation `xla_attention_seq` and returns its gradients (no backward
 kernel, as in the JAX package); the bias gets a zero gradient.
@@ -40,6 +47,14 @@ def attention_reference(q, k, v, bias, scale: float):
     return ctx.to(q.dtype)
 
 
+def kernel_takes(q) -> bool:
+    """Whether the kernel takes q [B, S, N, D]: bf16, D == 64, S % 8 == 0
+    and S <= 512 (the shapes `fused_attention_seq_major` does not refuse)."""
+    S, D = q.shape[1], q.shape[-1]
+    return (q.dtype == torch.bfloat16 and D == HEAD_DIM and S % 8 == 0
+            and S <= MAX_SEQ)
+
+
 def fused_attention_seq_major(q, k, v, bias, scale: float):
     """K8 wrapper: q, k, v [B, S, N, D], bias [B, S] -> [B, S, N, D]. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel (bf16
@@ -57,7 +72,7 @@ def fused_attention_seq_major(q, k, v, bias, scale: float):
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}, "
             f"{tuple(bias.shape)}"
         )
-    if D != HEAD_DIM or S % 8 or S > MAX_SEQ:
+    if not kernel_takes(q):
         raise ValueError(
             f"the kernel takes D == {HEAD_DIM}, S % 8 == 0 and S <= "
             f"{MAX_SEQ}; got S={S}, D={D}"
@@ -107,7 +122,7 @@ class _Attention(torch.autograd.Function):
 
 
 def attention(q, k, v, bias, scale: float):
-    """The attention models/bert.py calls with attention_impl="fused"
-    (counterpart of pallas_attention.py::attention): K8 forward, the
-    gradient of `xla_attention_seq`."""
+    """The attention models/bert.py calls when it takes K8 (counterpart
+    of pallas_attention.py::attention): K8 forward, the gradient of
+    `xla_attention_seq`."""
     return _Attention.apply(q, k, v, bias, scale)

@@ -32,8 +32,12 @@ SUBCOMMANDS = ["presets", "eval-beir", "parity", "encode", "serve",
                "ance-mine", "ance-train", "export-hf", "preprocess-coco",
                "coco", "convert-hf"]
 # the compute dtype's str(): a jnp type in the JAX package, a torch.dtype
-# in the port (the one field whose JSON differs, by design)
+# in the port; and the attention's default: the port's 'auto' takes the
+# JAX package's 'einsum' formulation except in a forward on the card that
+# records no gradient (models/bert.py). The two fields whose JSON differs,
+# by design
 DTYPE = ("\"<class 'jax.numpy.float32'>\"", '"torch.float32"')
+ATTENTION = ('"attention_impl": "einsum"', '"attention_impl": "auto"')
 
 
 @pytest.fixture(autouse=True)
@@ -72,19 +76,23 @@ def test_presets_print_the_jax_clis_text(capsys):
     cli.main(["presets"])
     got = capsys.readouterr().out
     assert got.count("== ") == 6
-    assert got == want.replace(*DTYPE)
+    assert got == want.replace(*DTYPE).replace(*ATTENTION)
 
 
 @pytest.mark.parametrize("name", list(jax_configs.PRESETS))
 def test_preset_json_carries_the_jax_keys_and_values(name):
     """Each preset as a dict: the same keys and values, the dtype's name
-    aside; PRESETS names the same six configs."""
+    and the attention's default aside; PRESETS names the same six
+    configs."""
     assert list(configs.PRESETS) == list(jax_configs.PRESETS)
     got = json.loads(configs.to_json(configs.PRESETS[name]()))
     want = json.loads(jax_configs.to_json(jax_configs.PRESETS[name]()))
     for d in (got, want):
         assert d.get("bert", {}).pop("dtype", None) in (
             json.loads(DTYPE[0]), json.loads(DTYPE[1]), None)
+    if "bert" in want:
+        assert (got["bert"].pop("attention_impl"),
+                want["bert"].pop("attention_impl")) == ("auto", "einsum")
     assert got == want
 
 

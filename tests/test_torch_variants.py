@@ -82,14 +82,19 @@ def port_backbone(cfg, hf_state, with_pooler=False):
 @pytest.mark.parametrize("name", ["roberta_base", "roberta_large"])
 def test_roberta_configs_equal_jax(name):
     """Every field the two BertConfigs share is equal: vocab 50,265, 514
-    positions, one token type, eps 1e-5, pad 1, roberta positions."""
+    positions, one token type, eps 1e-5, pad 1, roberta positions. The
+    attention_impl defaults differ by name: the port's 'auto' takes the
+    JAX package's 'einsum' formulation everywhere but in a forward on the
+    card that records no gradient (models/bert.py)."""
     want = getattr(JaxBertConfig, name)()
     got = getattr(BertConfig, name)()
     shared = ({f.name for f in dataclasses.fields(got)}
-              & {f.name for f in dataclasses.fields(want)}) - {"dtype"}
+              & {f.name for f in dataclasses.fields(want)}) - {
+                  "dtype", "attention_impl"}
     assert len(shared) >= 17
     for f in shared:
         assert getattr(got, f) == getattr(want, f), f
+    assert (got.attention_impl, want.attention_impl) == ("auto", "einsum")
     assert (got.vocab_size, got.max_position_embeddings, got.pad_token_id,
             got.layer_norm_eps, got.position_style) == (
         50265, 514, 1, 1e-5, "roberta")
