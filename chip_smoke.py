@@ -323,6 +323,21 @@ Phases, each printed with its elapsed seconds:
      of bert-large's widths at 4 layers (the split K1 at K4's widths)
      against the unsplit forwards, every row's cosine >= 0.999.
      W = 4 and a model axis of 2 over data 2 are the CPU tests' (gloo).
+ 19. moe (after mesh): E1, the routed experts of a DeepSeek-V2 MoE layer
+     (csrc/moe_experts.cu via ops/moe.py::expert_ffn), at
+     DeepSeek-V2-Lite's widths (64 experts of 1,408, hidden 2,048, top 6)
+     on rows routed by moe.route from random gate weights: 16 and 1,000
+     tokens (empty experts, partial tiles), the moe_encode cell's batch of
+     128 x 288 tokens (221,184 rows) without and with a fifth of the
+     tokens padding (their rows routed past offsets[E], written by
+     neither), and 128 x 512 (393,216 rows), each against the plain loop
+     by every routed row's error over its largest output, two launches a
+     call; a row given to the neighbouring expert and an expert missing
+     one F tile, planted, must fail that bound; from 36,864 tokens up, ms
+     beside the bound of portbench/work_moe.py::expert_work, the plain
+     loop, torch._grouped_mm and one cuBLAS product an expert. Then the
+     tower's attention through SDPA (q/k 192, v 128, causal) in turns with
+     v padded to 192, the two outputs held together.
 Each phase's seconds print on a line of their own as it ends
 (`phase seconds NAME: S`), and all of them together before the kernel
 summary.
@@ -2165,6 +2180,7 @@ def kernel_counters():
         mips_exact2,
         mips_hier,
         mips_int8,
+        moe,
     )
 
     return {"K1_ffn_block": (ffn.fused_ffn_block, "launches"),
@@ -2181,7 +2197,8 @@ def kernel_counters():
             "K8_attention": (attention.fused_attention_seq_major,
                              "launches"),
             "K9_top2_sweep": (mips_exact2.top2_sweep, "launches"),
-            "K10_block32_sweep": (mips_blockmax.block_sweep, "launches")}
+            "K10_block32_sweep": (mips_blockmax.block_sweep, "launches"),
+            "E1_moe_experts": (moe.expert_ffn, "launches")}
 
 
 def check_counts(path, counts, expect):
@@ -8252,9 +8269,188 @@ def mesh(args, dev):
     return counts
 
 
+# Phase 19 (moe): E1 at DeepSeek-V2-Lite's widths, the rows routed by
+# ops/moe.py::route from random gate weights
+MOE_E, MOE_H, MOE_F, MOE_K = 64, 2048, 1408, 6
+# (tokens, share of pads): a few rows an expert (empty experts, partial
+# tiles), the moe_encode cell's batch of 128 records of 288 tokens on
+# average (221,184 rows) without pads and with a fifth of them pads (routed
+# past offsets[E]), and 128 x 512 (393,216 rows)
+MOE_SHAPES = ((16, 0.25), (1000, 0.3), (36_864, 0.0), (36_864, 0.2),
+              (65_536, 0.0))
+MOE_TIMED = 36_864  # shapes of this many tokens and more are timed
+# Each routed row's largest |E1 - plain| over its largest |plain|. Both
+# round h to bf16 after float32 sums taken in another order, so an h
+# element may land one bf16 ulp (<= 2^-7 |h|) away, and the float32 sum
+# over F of such elements moves a row by a small share of that. The limit
+# is two bf16 ulps of the row's largest output; a row given to the
+# neighbouring expert (a block's expert boundary off by one) and an
+# expert missing one 128-column tile of F read far above it (planted
+# below, at the padded cell shape).
+MOE_ROW_TOL = 2.0 ** -6
+# the tower's attention at the cell's widest bucket and its narrowest
+MOE_ATTN_SHAPES = ((128, 512), (128, 128))
+
+
+def moe_row_err(got, ref, r):
+    """The worst routed row of a real token: max |got - ref| over the
+    row's largest |ref| (rows of pads are left out: E1 writes none)."""
+    keep = r.order[:int(r.offsets[-1])]
+    g, f = got[keep], ref[keep]
+    return ((g - f).abs().amax(1) / f.abs().amax(1)).max().item()
+
+
+def moe_planted(moe_ops, got, r, w_gate, w_up, w_down):
+    """The faults a wrong tile or block boundary makes, each computed by
+    the plain version on altered inputs; E1's output must fail each."""
+    mid = w_gate.shape[0] // 2
+    shifted = r.offsets.clone()
+    shifted[mid] += 1  # expert mid's first row given to expert mid - 1
+    no_tile = w_gate.clone()
+    no_tile[mid, 128:256] = 0  # silu(0) = 0: one F tile of expert mid lost
+    for name, wg, offs in (("neighbour expert", w_gate, shifted),
+                           ("missing F tile", no_tile, r.offsets)):
+        bad = moe_ops.expert_ffn_reference(r.rows, wg, w_up, w_down, offs,
+                                           r.weights, r.order)
+        err = moe_row_err(got, bad, r)
+        phase(f"  E1 planted {name}: worst row {err:.3e} (must exceed "
+              f"{MOE_ROW_TOL:.3e})")
+        if not err > MOE_ROW_TOL:
+            raise AssertionError(f"E1's check misses a planted {name}")
+
+
+def moe_library(r, w_gate, w_up, w_down):
+    """The same function by library calls -> {name: fn}: torch._grouped_mm
+    (where this torch has it) for gate, up and down with SiLU·mul between,
+    and one cuBLAS product an expert (offsets read once, here)."""
+    import torch.nn.functional as F
+
+    fns = {}
+    offs = r.offsets[1:].contiguous()
+    if hasattr(torch, "_grouped_mm"):
+        def grouped():
+            a = torch._grouped_mm(r.rows, w_gate.transpose(1, 2), offs=offs)
+            b = torch._grouped_mm(r.rows, w_up.transpose(1, 2), offs=offs)
+            h = (F.silu(a.float()) * b.float()).to(r.rows.dtype)
+            return torch._grouped_mm(h, w_down.transpose(1, 2), offs=offs)
+        fns["_grouped_mm"] = grouped
+    bounds = r.offsets.tolist()
+
+    def per_expert():
+        for e in range(MOE_E):
+            x = r.rows[bounds[e]:bounds[e + 1]]
+            (F.silu(x @ w_gate[e].T) * (x @ w_up[e].T)) @ w_down[e].T
+    fns["cuBLAS an expert"] = per_expert
+    return fns
+
+
+def moe_attention(gen, dev):
+    """The tower's attention (models/deepseek_v2.py): SDPA, causal, q/k
+    head dim 192, v 128 as they are, in turns with v padded to 192 (which
+    SDPA's flash kernel takes); the outputs agree within two bf16 ulps of
+    the largest."""
+    import torch.nn.functional as F
+
+    scale = 0.114721
+    for B, S in MOE_ATTN_SHAPES:
+        q, k = (torch.randn(B, 16, S, 192, generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        v = torch.randn(B, 16, S, 128, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+        def unpadded():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  scale=scale)
+
+        def padded():
+            return F.scaled_dot_product_attention(
+                q, k, F.pad(v, (0, 64)), is_causal=True,
+                scale=scale)[..., :128]
+        a, b = unpadded().float(), padded().float()
+        err, tol = (a - b).abs().max().item(), 2.0 ** -6 * b.abs().max().item()
+        ms, pad_ms = time_turns(unpadded, padded, 10)
+        phase(f"  attention B={B} S={S} N=16 q/k 192 v 128 causal: SDPA "
+              f"{ms:.4f} ms, v padded to 192 {pad_ms:.4f} ms (in turns); "
+              f"max |diff| {err:.3e} (tol {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError("SDPA with v at 128 disagrees with v "
+                                 f"padded: {err}")
+
+
+def moe(args, dev):
+    """Phase 19: E1 (csrc/moe_experts.cu via ops/moe.py::expert_ffn) at
+    DeepSeek-V2-Lite's widths (64 experts of 1,408 over hidden 2,048, top
+    6), the rows routed by moe.route, at every MOE_SHAPES case against the
+    plain version on the same inputs (MOE_ROW_TOL), its two launches a call
+    counted; planted faults at the padded cell shape; from MOE_TIMED tokens
+    up, its ms beside the bound of portbench/work_moe.py::expert_work, the
+    plain loop, torch._grouped_mm and one cuBLAS product an expert. Then
+    the tower's attention through SDPA (moe_attention) -> E1's summary
+    entry at the cell's unpadded shape and the launch counts."""
+    from cocodr_tpu_torch.ops import moe as moe_ops
+    from portbench.work_moe import expert_work
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def draw(*shape):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * 0.02).to(torch.bfloat16)
+    E, H, F_, k = MOE_E, MOE_H, MOE_F, MOE_K
+    w_gate, w_up, w_down, router = (draw(E, F_, H), draw(E, F_, H),
+                                    draw(E, H, F_), draw(E, H))
+    entry, counts = None, {}
+    for T, pad in MOE_SHAPES:
+        x = torch.randn(T, H, generator=gen, device=dev).to(torch.bfloat16)
+        real = torch.rand(T, generator=gen, device=dev) >= pad
+        r = moe_ops.route(x, router, k, real)
+        a = (r.rows, w_gate, w_up, w_down, r.offsets, r.weights, r.order)
+        zero_counts()
+        got = moe_ops.expert_ffn(*a)
+        counts = read_counts(f"E1 T={T}", ["E1_moe_experts"])
+        check_counts(f"E1 T={T}", counts, {"E1_moe_experts": 2})
+        ref = moe_ops.expert_ffn_reference(*a)
+        n_real = int(r.offsets[-1])
+        empty = int((r.offsets.diff() == 0).sum())
+        err = moe_row_err(got, ref, r)
+        phase(f"  E1 T={T} ({n_real} routed rows, {T * k - n_real} of pads,"
+              f" {empty} experts without a row): worst row {err:.3e} (tol "
+              f"{MOE_ROW_TOL:.3e})")
+        if not err <= MOE_ROW_TOL:
+            raise AssertionError(f"E1 disagrees with its plain version at "
+                                 f"T={T}: worst row {err}")
+        if T == MOE_TIMED and pad:
+            moe_planted(moe_ops, got, r, w_gate, w_up, w_down)
+        del got, ref
+        if T < MOE_TIMED:
+            continue
+        ms = device_ms(lambda: moe_ops.expert_ffn(*a), 10)
+        plain = time_ms(lambda: moe_ops.expert_ffn_reference(*a), runs=3,
+                        warmup=1)
+        ops, nbytes = expert_work(n_real, E, H, F_)
+        b_ms, b_by = bound(nbytes, ops, BF16_FLOP_PER_S)
+        lib = {name: device_ms(fn, 10 if name == "_grouped_mm" else 3)
+               for name, fn in moe_library(r, w_gate, w_up,
+                                           w_down).items()}
+        phase(f"  E1 T={T} ({n_real} rows): kernel {ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it; plain "
+              f"{plain:.4f} ms; "
+              + ", ".join(f"{n} {v:.4f} ms" for n, v in lib.items()))
+        if entry is None:  # the summary's shape: the cell's batch, no pads
+            entry = dict(name="E1_moe_experts", route="cuda",
+                         source="cocodr_tpu_torch/csrc/moe_experts.cu",
+                         replaces=None, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                         bound_by=b_by,
+                         library_ms=lib.get("_grouped_mm",
+                                            lib["cuBLAS an expert"]))
+        del r, a
+        torch.cuda.empty_cache()
+    moe_attention(gen, dev)
+    return entry, counts
+
+
 PHASES = ["kernels", "search", "serve", "encode", "train", "eval",
           "ance-train", "ance-mine", "coco", "variants", "recipe", "http",
-          "ivf", "cli", "cli-recipe", "mesh"]
+          "ivf", "cli", "cli-recipe", "mesh", "moe"]
 
 
 def main() -> None:
@@ -8328,7 +8524,8 @@ def main() -> None:
                      ("ance-mine", ance_mine), ("coco", coco),
                      ("variants", variants), ("recipe", recipe),
                      ("http", http), ("ivf", ivf), ("cli", cli),
-                     ("cli-recipe", cli_recipe), ("mesh", mesh)):
+                     ("cli-recipe", cli_recipe), ("mesh", mesh),
+                     ("moe", moe)):
         if name not in run:
             continue
         clock.start(name)
@@ -8344,6 +8541,8 @@ def main() -> None:
             train_counts = out
         elif name == "mesh":
             mesh_counts = out
+        elif name == "moe":
+            moe_entry, moe_counts = out
         torch.cuda.empty_cache()
     phase(f"phase seconds (host clock): {clock.summary()} [{smi}]")
     if run != PHASES:
@@ -8373,7 +8572,8 @@ def main() -> None:
              "K1_ffn_block_split": (mesh_counts["tp"], "K1_split_partial"),
              "K4_ffn_block_chunked_split": (mesh_counts["tp_large"],
                                             "K1_split_partial"),
-             "K5_ffn_split": (mesh_counts["tp"], "K5_split_partial")}
+             "K5_ffn_split": (mesh_counts["tp"], "K5_split_partial"),
+             "E1_moe_experts": (moe_counts, "E1_moe_experts")}
     sources = {
         "K2_dual_sweep_packed": ("mips_sweep.cu", "pallas_mips.py:100",
                                  BATCH),
@@ -8387,6 +8587,7 @@ def main() -> None:
                             source="cocodr_tpu_torch/csrc/" + src,
                             replaces="cocodr_tpu/ops/" + replaces,
                             library_ms=None, **sweeps[name, q_rows]))
+    kernels.append(moe_entry)
     for entry in kernels:
         counts, counter = paths[entry["name"]]
         entry["launches"] = counts[counter]

@@ -224,7 +224,9 @@ def _load_model(checkpoint: str, model_type: str, device,
     """A HuggingFace checkpoint directory (config.json and
     model.safetensors or pytorch_model.bin) -> a DualEncoder of model_type
     on `device`, float32 parameters, computing in bf16 on the card and
-    float32 on the CPU (matmul_int8 with int8_encode). A checkpoint
+    float32 on the CPU (matmul_int8 with int8_encode); a deepseek_v2
+    config gives that tower, its parameters in the compute dtype and
+    pooled by the last real token (models/deepseek_v2.py). A checkpoint
     without the model's head or pooler (a bare backbone) leaves those
     parameters at a fresh initialisation drawn from a generator seeded
     `seed`; a single-backbone checkpoint gives both towers of a two-tower
@@ -235,6 +237,7 @@ def _load_model(checkpoint: str, model_type: str, device,
     from cocodr_tpu_torch.models.dual_encoder import (
         MODEL_REGISTRY,
         DualEncoder,
+        is_decoder,
     )
     from cocodr_tpu_torch.models.hf import (
         config_from_hf,
@@ -245,7 +248,14 @@ def _load_model(checkpoint: str, model_type: str, device,
     with open(os.path.join(checkpoint, "config.json")) as f:
         bert = config_from_hf(json.load(f))
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    bert = dataclasses.replace(bert, dtype=dtype, matmul_int8=int8_encode)
+    if is_decoder(bert):
+        if int8_encode:
+            raise ValueError("--int8-encode takes a BERT-family tower, not "
+                             f"a {bert.model_type} one")
+        bert = dataclasses.replace(bert, dtype=dtype)
+    else:
+        bert = dataclasses.replace(bert, dtype=dtype,
+                                   matmul_int8=int8_encode)
     weights = None
     for name in ("model.safetensors", "pytorch_model.bin"):
         path = os.path.join(checkpoint, name)

@@ -3,7 +3,10 @@ cocodr_tpu/models/dual_encoder.py, with the reference's model types
 `rdot_nll` (CLS + linear/LayerNorm head), `rdot_nll_condenser` (raw CLS),
 `rdot_nll_multi_chunk` (rdot_nll over documents of several chunks of
 `chunk_len` tokens, one vector a chunk) and `dpr` (two towers, each
-embedding by its tanh pooler). Query and document towers share weights
+embedding by its tanh pooler). The tower is a BERT-family encoder, or a
+DeepSeek-V2 decoder (models/deepseek_v2.py) where the config's model_type
+is 'deepseek_v2': that tower pools by its last real token ('last').
+Query and document towers share weights
 unless `two_tower`, which adds `doc_encoder` (and `doc_head` with a head).
 A document input wider than `chunk_len` folds its chunks into the batch
 and gives [B, C, D]; `chunk_max_score` scores such a document by its best
@@ -17,6 +20,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from cocodr_tpu_torch.models import deepseek_v2
 from cocodr_tpu_torch.models.bert import (
     BertConfig,
     BertModel,
@@ -38,6 +42,8 @@ def pool(hidden, mask, method: str):
         return hidden[:, 0]
     if method == "mean":
         return masked_mean(hidden, mask).to(hidden.dtype)
+    if method == "last":
+        return deepseek_v2.last_token(hidden, mask)
     raise ValueError(method)  # 'pooler' is DualEncoder._emb's
 
 
@@ -57,10 +63,32 @@ class ProjectionHead(nn.Module):
         return self.layer_norm(linear(x, self.dense, self.dtype))
 
 
+def is_decoder(tower_cfg) -> bool:
+    """Whether a tower config is a decoder's (DeepSeek-V2), by its
+    model_type: such a tower pools by its last real token."""
+    return getattr(tower_cfg, "model_type", "bert") == deepseek_v2.MODEL_TYPE
+
+
+def first_or_last(tower_cfg) -> str:
+    """'cls' for a BERT-family tower, 'last' for a decoder's."""
+    return "last" if is_decoder(tower_cfg) else "cls"
+
+
+def make_tower(tower_cfg, with_pooler: bool = False) -> nn.Module:
+    if is_decoder(tower_cfg):
+        if with_pooler:
+            raise ValueError("a deepseek_v2 tower has no pooler")
+        return deepseek_v2.DeepseekV2Model(tower_cfg)
+    return BertModel(tower_cfg, with_pooler=with_pooler)
+
+
 @dataclasses.dataclass(frozen=True)
 class DualEncoderConfig:
+    # the tower's config: a BertConfig, or a DeepseekV2Config
     bert: BertConfig
-    pooling: str = "cls"  # 'cls' | 'mean' | 'pooler' (the tanh pooler)
+    # 'cls' | 'mean' | 'pooler' (the tanh pooler) | 'last' (the last real
+    # token, padding on the right)
+    pooling: str = "cls"
     use_head: bool = False  # linear + LayerNorm projection after pooling
     head_dim: int = 768
     two_tower: bool = False  # separate query and document towers (DPR)
@@ -68,12 +96,13 @@ class DualEncoderConfig:
 
     @classmethod
     def rdot_nll(cls, bert: BertConfig, **kw) -> "DualEncoderConfig":
-        return cls(bert=bert, pooling="cls", use_head=True, **kw)
+        return cls(bert=bert, pooling=first_or_last(bert), use_head=True,
+                   **kw)
 
     @classmethod
     def rdot_nll_multi_chunk(cls, bert: BertConfig, base_len: int = 512,
                              **kw) -> "DualEncoderConfig":
-        return cls(bert=bert, pooling="cls", use_head=True,
+        return cls(bert=bert, pooling=first_or_last(bert), use_head=True,
                    chunk_len=base_len, **kw)
 
     @classmethod
@@ -84,8 +113,10 @@ class DualEncoderConfig:
 
     @classmethod
     def rdot_nll_condenser(cls, bert: BertConfig, **kw) -> "DualEncoderConfig":
-        # BertDot_NLL_LN: raw CLS embedding, no projection head
-        return cls(bert=bert, pooling="cls", use_head=False, **kw)
+        # BertDot_NLL_LN: raw CLS embedding, no projection head (a
+        # decoder tower's: its last real token)
+        return cls(bert=bert, pooling=first_or_last(bert), use_head=False,
+                   **kw)
 
 
 class DualEncoder(nn.Module):
@@ -95,8 +126,8 @@ class DualEncoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         pooler = cfg.pooling == "pooler"
-        self.encoder = BertModel(cfg.bert, with_pooler=pooler)
-        self.doc_encoder = (BertModel(cfg.bert, with_pooler=pooler)
+        self.encoder = make_tower(cfg.bert, pooler)
+        self.doc_encoder = (make_tower(cfg.bert, pooler)
                             if cfg.two_tower else None)
         self.head = (ProjectionHead(cfg.bert, cfg.head_dim)
                      if cfg.use_head else None)
@@ -172,7 +203,8 @@ def build_dual_encoder(model_type: str, bert: BertConfig, device="cuda",
                        generator: torch.Generator | None = None,
                        **kw) -> DualEncoder:
     """A DualEncoder in eval mode on `device`, its weights drawn as BERT's
-    initialisation (normal, std bert.initializer_range) from `generator`
+    initialisation (normal, std bert.initializer_range; a deepseek_v2
+    tower's by deepseek_v2.init_weights) from `generator`
     (a CPU torch.Generator; a fresh one seeded 0 when None)."""
     if model_type not in MODEL_REGISTRY:
         raise KeyError(
@@ -182,5 +214,14 @@ def build_dual_encoder(model_type: str, bert: BertConfig, device="cuda",
     model = DualEncoder(MODEL_REGISTRY[model_type](bert, **kw))
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    init_weights(model, bert.initializer_range, generator)
+    std = bert.initializer_range
+    if is_decoder(bert):
+        for tower in (model.encoder, model.doc_encoder):
+            if tower is not None:
+                deepseek_v2.init_weights(tower, std, generator)
+        for head in (model.head, model.doc_head):
+            if head is not None:
+                init_weights(head, std, generator)
+    else:
+        init_weights(model, std, generator)
     return model.to(dev).eval()

@@ -11,7 +11,11 @@ reference ANCE/model/models.py:109-110), the port's `head.dense.*` and
 `question_model.` and `ctx_model.` (reference warmup/model/models.py:
 296-320), each with its `pooler.dense.*`. `config_from_hf` reads a
 config.json dict (or any object with its attributes) without importing
-transformers.
+transformers. A config whose model_type is 'deepseek_v2' gives a
+DeepseekV2Config, and its checkpoint (`model.embed_tokens`,
+`model.layers.N.{self_attn,mlp,input_layernorm,post_attention_layernorm}.*`,
+`model.norm`; a DeepseekV2Model's keys without `model.`) maps by
+models/deepseek_v2.py::state_dict_from_hf, its experts stacked.
 """
 from __future__ import annotations
 
@@ -20,8 +24,9 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from cocodr_tpu_torch.models import deepseek_v2
 from cocodr_tpu_torch.models.bert import BertConfig
-from cocodr_tpu_torch.models.dual_encoder import DualEncoderConfig
+from cocodr_tpu_torch.models.dual_encoder import DualEncoderConfig, is_decoder
 
 # HuggingFace buffers that are not parameters of the port's BertModel
 _BUFFERS = ("embeddings.position_ids", "embeddings.token_type_ids")
@@ -41,13 +46,16 @@ def _tensor(v) -> torch.Tensor:
 
 def config_from_hf(hf_config) -> BertConfig:
     """A HuggingFace BERT or RoBERTa config (a config.json dict, or an
-    object with those attributes) -> BertConfig (float32 compute; set
-    dtype with dataclasses.replace)."""
+    object with those attributes) -> BertConfig, or a DeepSeek-V2 one ->
+    DeepseekV2Config (float32 compute; set dtype with
+    dataclasses.replace)."""
     def g(k, d=None):
         if isinstance(hf_config, Mapping):
             return hf_config.get(k, d)
         return getattr(hf_config, k, d)
 
+    if g("model_type") == deepseek_v2.MODEL_TYPE:
+        return deepseek_v2.config_from_hf(g)
     roberta = g("model_type", "bert") == "roberta"
     return BertConfig(
         position_style="roberta" if roberta else "bert",
@@ -93,7 +101,14 @@ def state_dict_from_hf(sd: Mapping, cfg: DualEncoderConfig
     """A HuggingFace or reference checkpoint's state dict (tensors or
     numpy arrays) -> state dict of a models.dual_encoder.DualEncoder of
     cfg: a BertModel / RobertaModel, a full `bert.` / `roberta.` model
-    with the rdot_nll head, or a DPR BiEncoder."""
+    with the rdot_nll head, or a DPR BiEncoder; or a DeepSeek-V2 one
+    (the tower's tensors as they are, in their own dtype)."""
+    if is_decoder(cfg.bert):
+        out = deepseek_v2.state_dict_from_hf(sd, cfg.bert)
+        if cfg.use_head:
+            out.update({"head." + ours: _tensor(sd[theirs])
+                        for ours, theirs in _HEAD.items()})
+        return out
     pooler = cfg.pooling == "pooler"
     if cfg.two_tower:
         return {f"{tower}.{k}": v for tower, prefix in _DPR.items()

@@ -52,6 +52,8 @@ SIGNATURES = {
     "cocodr_ffn_finish_bf16": [_P] * 3 + [_I, _I, _P],
     "cocodr_ffn_block_int8": [_P] * 20 + [_I, _I, _I, _I, _F, _P],
     "cocodr_attention_bf16": [_P] * 5 + [_I, _I, _I, _I, _F, _P],
+    "cocodr_moe_gate_up_bf16": [_P] * 5 + [_I, _I, _I, _I, _P],
+    "cocodr_moe_down_bf16": [_P] * 6 + [_I, _I, _I, _I, _P],
     "cocodr_dual_sweep_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "cocodr_dual_sweep_packed_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "cocodr_block32_sweep_bf16": [_P, _P, _P, _I, _I, _I, _P],

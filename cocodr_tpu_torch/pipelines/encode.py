@@ -30,7 +30,7 @@ from cocodr_tpu_torch.core.mesh import data_rank, data_size, gather_rows
 from cocodr_tpu_torch.data.prefetch import prefetch
 from cocodr_tpu_torch.models.bert import cast_matmul_weights
 from cocodr_tpu_torch.ops._device import resolve_device
-from cocodr_tpu_torch.parallel.tp import unsplit_copy
+from cocodr_tpu_torch.parallel.tp import is_split, unsplit_copy
 from cocodr_tpu_torch.utils.logging import span
 from cocodr_tpu_torch.utils.misc import add_embedding_noise
 
@@ -60,6 +60,33 @@ def inference_copy(model, device):
     return out
 
 
+def inference_ready(model, device) -> bool:
+    """Whether `model` is already what inference_copy would make of it: in
+    eval mode, whole (not split over a model axis), no parameter requiring
+    a gradient, every parameter on `device`, every Linear and Embedding
+    weight in the compute dtype. Such a model (a deepseek_v2 tower, whose
+    parameters are made so) is encoded from as it is: at 31 GB of weights
+    a second copy would not fit beside the first."""
+    if model.training or is_split(model):
+        return False
+    dtype = model.cfg.bert.dtype
+    for m in model.modules():
+        if (isinstance(m, (torch.nn.Linear, torch.nn.Embedding))
+                and m.weight.dtype != dtype):
+            return False
+    return all(not p.requires_grad and p.device.type == device.type
+               and device.index in (None, p.device.index)
+               for p in model.parameters())
+
+
+def inference_model(model, device):
+    """`model` itself where it is `inference_ready`, else
+    inference_copy(model, device)."""
+    if inference_ready(model, device):
+        return model
+    return inference_copy(model, device)
+
+
 class Encoder:
     """The embedding function of one tower on one device.
 
@@ -70,7 +97,8 @@ class Encoder:
     parameters, their requires_grad and its train/eval mode untouched
     (`Module.to(dtype)` on the model itself would cast the Parameters an
     optimizer holds); weights the caller changes later are not seen, so
-    build a new Encoder. noise_level > 0 adds the reference's Gaussian
+    build a new Encoder. An `inference_ready` model is used as it is,
+    without a copy. noise_level > 0 adds the reference's Gaussian
     embedding perturbation, drawn fresh for every batch from one
     generator seeded `noise_seed` (the JAX package folds the batch number
     into one key).
@@ -87,7 +115,7 @@ class Encoder:
                  device="cuda"):
         self.mesh = mesh
         self.device = resolve_device(device)
-        self.model = inference_copy(model, self.device)
+        self.model = inference_model(model, self.device)
         self._method = (self.model.query_emb if is_query
                         else self.model.body_emb)
         self.noise_level = noise_level

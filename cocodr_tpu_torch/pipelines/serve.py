@@ -60,7 +60,7 @@ from cocodr_tpu_torch.ops.mips_hier import (
 )
 from cocodr_tpu_torch.ops.mips_int8 import mips_topk_int8, quantize_corpus_int8
 from cocodr_tpu_torch.parallel.topk import place_shard, sharded_mips_topk
-from cocodr_tpu_torch.pipelines.encode import inference_copy
+from cocodr_tpu_torch.pipelines.encode import inference_model
 
 SEARCH_TILE = 2048  # corpus row multiple of the kernel searches' sweeps
 
@@ -101,7 +101,9 @@ class RetrievalService:
         `device` in eval mode with its matmul weights cast to the compute
         dtype (pipelines/encode.py::inference_copy); the caller's model
         keeps its float32 Parameters, their values and its mode, so a
-        service built from a model under training leaves it as it was;
+        service built from a model under training leaves it as it was (a
+        model already in that form, `inference_ready`, is served as it
+        is);
         tokenizer: any callable with the HuggingFace call signature
         (texts, padding="max_length", truncation=True, max_length=...,
         return_tensors="np") -> {"input_ids", "attention_mask"};
@@ -138,7 +140,7 @@ class RetrievalService:
         else:
             corpus = corpus.to(self.device, torch.bfloat16)
             self.corpus = _pad_replicate(corpus, SEARCH_TILE).contiguous()
-        self.model = inference_copy(model, self.device)
+        self.model = inference_model(model, self.device)
 
     def _bucket(self, nq: int) -> int:
         """Static batch size for nq queries: next power of two >= nq
